@@ -1,0 +1,374 @@
+"""Federated round engine for SplitMe; port of the SplitMe parts of
+``repro.core.engine``.
+
+A framework contributes a ``FrameworkSpec``: one or more ``PhaseSpec``s (a
+per-batch ``local_step`` loss plus how the phase's per-client inputs and
+targets derive from the round state), a ``comm_model`` and a host-side
+selection/allocation ``Policy``.  The engine owns the round:
+
+* replication of the global parameters onto a written-out client axis —
+  weights are held stacked as (M, d_in, d_out) / (M, d_out), standing in for
+  the JAX package's vmap over clients,
+* the masked E_max-step local SGD: step i updates only while i < E, but
+  every step draws its batch and computes its loss (the loss metric of the
+  SplitMe spec is the mean over all E_max steps, frozen tail included, as in
+  the reference); the tail skips backward and update, which the reference
+  computes as the exact no-op p − lr·0·g,
+* masked FedAvg over the selected set A_t, with |A_t| clamped to ≥ 1.
+
+Randomness is an input: JAX's threefry streams cannot be reproduced, so the
+round takes the per-phase, per-client, per-step batch indices as an
+``(n_phases, M, E_max, B)`` int64 tensor.  Per-client gradients come from one
+backward of the sum of per-client losses (the clients are independent).
+
+Not ported in this slice (raise): the five baseline frameworks, wire
+quantization, scenarios and fault guards, ``gather=True`` and the sharded
+round.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.splitme_dnn import DNNConfig
+from repro_torch.core import dnn
+from repro_torch.core.allocation import solve_p2
+from repro_torch.core.cost import SystemParams
+from repro_torch.core.inversion import invert_inverse_model
+from repro_torch.core.selection import (SelectionState, initial_state,
+                                        select_trainers, update_state)
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.dispatch import KernelPolicy, PolicyLike
+
+Params = List[dict]                 # [{"w", "b"}] per layer
+ParamsTuple = Tuple[Params, ...]
+
+_LATER_FRAMEWORKS = ("fedavg", "sfl", "oranfed", "fedora", "ecofl")
+
+
+def _later(what: str) -> NotImplementedError:
+    return NotImplementedError(f"later slice: {what} is not ported yet")
+
+
+def _check_quant(quant) -> None:
+    if quant not in (None, "none"):
+        raise _later(f"wire format {quant!r}")
+
+
+@dataclass
+class RoundMetrics:
+    round: int
+    n_selected: int
+    E: int
+    comm_bits: float          # uplink volume this round (all selected)
+    sim_time: float           # eq. 18 latency (s)
+    cost: float               # eq. 20
+    energy: float = float("nan")
+    # accuracy / losses hold 0-d DEVICE tensors while a trainer runs;
+    # ``fetch_history`` resolves them in one transfer
+    accuracy: float = float("nan")
+    client_loss: float = float("nan")
+    server_loss: float = float("nan")
+
+
+def fetch_history(history) -> list:
+    """Resolve the buffered device-tensor metrics of a trainer's history to
+    python floats with ONE device→host transfer."""
+    flat = [v for m in history
+            for v in (m.client_loss, m.server_loss, m.accuracy)]
+    dev = [v.detach().float().reshape(()) for v in flat
+           if isinstance(v, torch.Tensor)]
+    host = iter(torch.stack(dev).cpu().tolist() if dev else [])
+    vals = [next(host) if isinstance(v, torch.Tensor) else float(v)
+            for v in flat]
+    for i, m in enumerate(history):
+        m.client_loss, m.server_loss, m.accuracy = vals[3 * i: 3 * i + 3]
+    return history
+
+
+@dataclass(frozen=True)
+class PhaseSpec:
+    """One masked local-SGD phase of a round.
+
+    ``loss_fn(w, x_batch, target_batch)`` maps stacked per-client weights
+    and (M, B, ·) batches to the (M,) per-client losses; ``data_key`` picks
+    the per-client input array from the round context ({"x", "y", "y1"});
+    ``target_fn(params, updated, ctx)`` builds the (M, n, ·) targets, where
+    ``updated`` maps param indices to the per-client (stacked) weights
+    already trained by earlier phases this round.
+    """
+    name: str
+    param_idx: int
+    lr: float
+    loss_fn: Callable[[Params, torch.Tensor, torch.Tensor], torch.Tensor]
+    data_key: str
+    target_fn: Callable[[ParamsTuple, Dict[int, Params],
+                         Dict[str, torch.Tensor]], torch.Tensor]
+
+
+@dataclass(frozen=True)
+class FrameworkSpec:
+    name: str
+    # init_fn(generator, device) draws the initial parameters
+    init_fn: Callable[[torch.Generator, torch.device], ParamsTuple]
+    phases: Tuple[PhaseSpec, ...]
+    comm_model: Callable[[np.ndarray, int, SystemParams], float]
+    batch_size: int
+    policy: KernelPolicy = dispatch.KERNEL
+
+
+def replicate(params: Params, m: int) -> Params:
+    """Broadcast global params onto the client axis (a view, no copy)."""
+    return [{k: v.expand(m, *v.shape) for k, v in p.items()} for p in params]
+
+
+def _phase_runner(phase: PhaseSpec, e_max: int):
+    """Masked E_max-step SGD of the phase's loss over the whole cohort."""
+    def run(w: Params, data, target, e_steps: int, idx):
+        rows = torch.arange(data.shape[0], device=data.device)[:, None]
+        losses = []
+        for i in range(e_max):
+            sel = idx[:, i]                             # (M, B)
+            xb, tb = data[rows, sel], target[rows, sel]
+            if i < e_steps:
+                leaves = [{k: v.detach().requires_grad_(True)
+                           for k, v in p.items()} for p in w]
+                with torch.enable_grad():
+                    loss = phase.loss_fn(leaves, xb, tb)
+                    flat = [v for p in leaves for v in p.values()]
+                    grads = iter(torch.autograd.grad(loss.sum(), flat))
+                w = [{k: v.detach() - phase.lr * next(grads)
+                      for k, v in p.items()} for p in leaves]
+            else:
+                loss = phase.loss_fn(w, xb, tb)
+            losses.append(loss.detach())
+        # the loss metric is the mean over all E_max steps, the frozen tail
+        # after e_steps included (the reference SplitMe metric)
+        return w, torch.stack(losses).mean(0)           # (M,)
+
+    return run
+
+
+def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
+                a_mask: torch.Tensor, e_steps: int, idx: torch.Tensor):
+    """One masked round over the full client axis."""
+    m = ctx["x"].shape[0]
+    updated: Dict[int, Params] = {}
+    phase_losses = []
+    for pi, ph in enumerate(spec.phases):
+        tgt = ph.target_fn(params, updated, ctx)
+        w_rep = replicate(params[ph.param_idx], m)
+        w_new, loss_m = runners[pi](w_rep, ctx[ph.data_key], tgt, e_steps,
+                                    idx[pi])
+        updated[ph.param_idx] = w_new
+        phase_losses.append(loss_m)
+    # masked FedAvg numerators, |A_t| and the loss sums
+    msum = a_mask.sum()
+    wsum = msum.clamp(min=1.0)
+    new_params = tuple(
+        [{k: torch.tensordot(a_mask, v, dims=1) / wsum for k, v in p.items()}
+         for p in updated[i]] if i in updated else params[i]
+        for i in range(len(params)))
+    losses = tuple((l * a_mask).sum() / wsum for l in phase_losses)
+    return new_params, losses
+
+
+def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
+                   x: torch.Tensor, y: torch.Tensor, *, e_max: int,
+                   gather: bool = False, policy: PolicyLike = None,
+                   guards=None, with_faults: bool = False):
+    """One federated round for `spec` over the fixed client dataset
+    ``x`` (M, n, d) f32 and ``y`` (M, n) int labels, on their device.
+
+    Returns ``round_fn(params_tuple, a_mask, e_steps, idx) ->
+    (params_tuple, per_phase_losses)``: ``a_mask`` (M,) f32 selection,
+    ``e_steps`` the int count of executed local steps (≤ ``e_max``, the
+    number of steps run), ``idx`` the (n_phases, M, e_max, B) int64 batch
+    indices.  The policy is the one bound into the spec."""
+    if gather:
+        raise _later("the gathered-cohort round (gather=True)")
+    if guards is not None or with_faults:
+        raise _later("fault guards")
+    if policy is not None and dispatch.get_policy(policy) != spec.policy:
+        raise ValueError("round builders cannot override the spec-bound "
+                         f"kernel policy (spec has {spec.policy}); rebuild "
+                         "via make_spec(..., policy=...)")
+    if x.dtype != torch.float32:
+        raise TypeError(f"client data must be float32, got {x.dtype}")
+    M = x.shape[0]
+    y = y.long()
+    ctx = {"x": x, "y": y, "y1": F.one_hot(y, cfg.n_classes).float()}
+    runners = [_phase_runner(ph, e_max) for ph in spec.phases]
+    idx_shape = (len(spec.phases), M, e_max, spec.batch_size)
+
+    def round_fn(params: ParamsTuple, a_mask, e_steps: int, idx):
+        if tuple(idx.shape) != idx_shape or idx.dtype != torch.int64:
+            raise ValueError(f"batch indices must be int64 {idx_shape}, got "
+                             f"{idx.dtype} {tuple(idx.shape)}")
+        if idx.device != x.device or a_mask.device != x.device:
+            raise ValueError(f"indices and mask must be on {x.device}")
+        with torch.no_grad():
+            return _round_core(spec, runners, params, ctx, a_mask,
+                               int(e_steps), idx)
+
+    return round_fn
+
+
+# ---------------------------------------------------------------------------
+# Host-side selection / allocation (Alg. 1 + P2), numpy
+# ---------------------------------------------------------------------------
+
+class SplitMeAdaptivePolicy:
+    """SplitMe: Alg. 1 selection + P2 bandwidth/adaptive-E (never increases)."""
+
+    def __init__(self, sp: SystemParams, state: SelectionState, e_initial: int):
+        self.sp, self.state, self.E = sp, state, e_initial
+
+    def step(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        a = select_trainers(self.E, self.sp, self.state)
+        b, self.E, _ = solve_p2(a, self.E, self.sp)
+        self.state = update_state(self.state, a, b, self.sp)
+        return a, b, self.E
+
+
+def _derive_splitme(sp: SystemParams, cfg: DNNConfig, n_m: int,
+                    wire_bits: float = 32.0) -> None:
+    """Smashed-data size, split-model bits and omega from the actual DNN."""
+    d_split = dnn.client_dims(cfg)[-1]
+    pc_c = dnn.param_count_dims(dnn.client_dims(cfg))
+    pc_i = dnn.param_count_dims(dnn.inverse_server_dims(cfg))
+    sp.S_m = np.full(sp.M, n_m * d_split * wire_bits)
+    sp.d_model_bits = wire_bits * (pc_c + pc_i)
+    sp.omega = pc_c / (pc_c + pc_i)
+
+
+def make_policy(name: str, sp: SystemParams, cfg: DNNConfig, *,
+                seed: int = 0, K: int = 10, E: int = 10,
+                e_initial: int = 20,
+                n_samples_per_client: Optional[int] = None,
+                quant=None) -> Tuple[SystemParams, Any]:
+    """Copy `sp`, apply the framework's parameter derivation to the copy,
+    and build its selection/allocation policy.  SplitMe seeds Alg. 1's
+    pessimistic t_max^0 from the caller's generic S_m/omega BEFORE deriving
+    the real sizes, as the reference does."""
+    _check_quant(quant)
+    if name in _LATER_FRAMEWORKS:
+        raise _later(f"framework {name!r}")
+    if name != "splitme":
+        raise KeyError(f"unknown framework {name!r}; have {framework_names()}")
+    if n_samples_per_client is None:
+        raise ValueError("splitme needs n_samples_per_client for S_m")
+    sp = sp.copy()
+    state = initial_state(sp)
+    _derive_splitme(sp, cfg, n_samples_per_client)
+    return sp, SplitMeAdaptivePolicy(sp, state, e_initial)
+
+
+# ---------------------------------------------------------------------------
+# Spec factory
+# ---------------------------------------------------------------------------
+
+def _as_float(x: np.ndarray):
+    """Scalar float for a single round, ndarray for a stacked schedule."""
+    x = np.asarray(x, np.float64)
+    return float(x) if x.ndim == 0 else x
+
+
+def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
+                  temperature: float = 2.0, batch_size: int = 32,
+                  policy: KernelPolicy = dispatch.KERNEL) -> FrameworkSpec:
+    """SplitMe spec.  Both mutual-KL phase losses go through
+    ``dispatch.kl_loss`` (the CUDA kernel on the card): with temperature 2
+    the client phase's "logits" are the post-ReLU smashed activations and
+    the server phase's the linear output of s⁻¹."""
+    tau, pol = temperature, policy
+
+    def client_step(w, x_b, t_b):
+        # f_C = D_KL(c(X) ‖ sg[s⁻¹(Y)])  (eq. 5, client side)
+        feat = dnn.client_forward(w, x_b, cfg)
+        return dispatch.kl_loss(feat, t_b, temperature=tau, policy=pol)
+
+    def server_step(w, y1_b, t_b):
+        # f_S = D_KL(s⁻¹(Y) ‖ sg[c(X)])  (eq. 5, server side)
+        inv = dnn.inverse_server_forward(w, y1_b, cfg)
+        return dispatch.kl_loss(inv, t_b, temperature=tau, policy=pol)
+
+    def client_targets(params, updated, ctx):
+        # Step 1: s⁻¹(Y_m) from the GLOBAL inverse model on each client's
+        # full one-hot labels — fixed targets for the round
+        return dnn.inverse_server_forward(params[1], ctx["y1"], cfg)
+
+    def server_targets(params, updated, ctx):
+        # Step 3: c(X_m) from each client's UPDATED weights on its full data
+        return dnn.client_forward(updated[0], ctx["x"], cfg).detach()
+
+    def init(generator, device):
+        return (dnn.init_client(generator, cfg, device),
+                dnn.init_inverse_server(generator, cfg, device))
+
+    def comm(a, E, sp):
+        return _as_float(np.sum(a * (sp.S_m + sp.omega * sp.d_model_bits),
+                                axis=-1))
+
+    return FrameworkSpec(
+        name="splitme", init_fn=init,
+        phases=(
+            PhaseSpec("client", 0, lr_c, client_step, "x", client_targets),
+            PhaseSpec("server", 1, lr_s, server_step, "y1", server_targets),
+        ),
+        comm_model=comm, batch_size=batch_size, policy=pol)
+
+
+def framework_names() -> Tuple[str, ...]:
+    return ("splitme",)
+
+
+def make_spec(name: str, cfg: DNNConfig, *, policy: PolicyLike = None,
+              quant=None, **hyper) -> FrameworkSpec:
+    """Build a framework spec; ``policy`` (None / preset name /
+    ``KernelPolicy``) selects kernels for the phase losses and is bound into
+    the spec."""
+    _check_quant(quant)
+    if name in _LATER_FRAMEWORKS:
+        raise _later(f"framework {name!r}")
+    if name != "splitme":
+        raise KeyError(f"unknown framework {name!r}; have {framework_names()}")
+    return _make_splitme(cfg, policy=dispatch.get_policy(policy), **hyper)
+
+
+# ---------------------------------------------------------------------------
+# Test-set evaluation
+# ---------------------------------------------------------------------------
+
+def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
+                  client_data: Optional[Dict[str, torch.Tensor]] = None,
+                  gamma: float = 1e-3, policy: PolicyLike = None):
+    """Build ``accuracy(params_tuple) -> 0-d tensor`` for the SplitMe spec:
+    Step-4 analytic inversion over all client samples (the Gram products
+    through the ridge_gram kernel), then the stitched forward pass."""
+    if spec.name != "splitme":
+        raise _later(f"evaluation of {spec.name!r}")
+    if client_data is None:
+        raise ValueError("splitme evaluation needs client_data for the "
+                         "Step-4 Gram sums")
+    pol = dispatch.get_policy(policy if policy is not None else spec.policy)
+    x = client_data["x"]
+    flat_y = F.one_hot(client_data["y"].long(), cfg.n_classes).float()
+    flat_y = flat_y.reshape(-1, cfg.n_classes)
+    y_test = y_test.long()
+
+    def accuracy(params: ParamsTuple) -> torch.Tensor:
+        w_c, w_s_inv = params
+        with torch.no_grad():
+            smashed = dnn.client_forward(w_c, x, cfg)
+            w_s = invert_inverse_model(
+                w_s_inv, smashed.reshape(-1, smashed.shape[-1]), flat_y, cfg,
+                gamma=gamma, policy=pol)
+            logits = dnn.full_forward(w_c, w_s, x_test, cfg)
+            return (logits.argmax(-1) == y_test).float().mean()
+
+    return accuracy

@@ -1,0 +1,160 @@
+"""SplitMe with system optimization (paper Algorithm 2); port of
+``repro.core.splitme.SplitMeTrainer``.
+
+Per global round:
+  1. Algorithm 1 decides the participant set A_t (deadline-aware).
+  2. P2 allocates bandwidth + adapts the local-update count E.
+  3. Each selected xApp runs E local SGD steps on D_KL(c(X) ‖ s⁻¹(Y)).
+  4. Each rApp runs E SGD steps on D_KL(s⁻¹(Y) ‖ c(X)).
+  5. The non-RT-RIC aggregates both sides (masked FedAvg over A_t).
+  Final round: the server-side model is recovered analytically
+  (``repro_torch.core.inversion``) — one shot, one communication round.
+
+The round itself lives in ``repro_torch.core.engine``.  Randomness comes
+from one CPU ``torch.Generator`` seeded with ``seed``: it draws the initial
+weights (unless ``params=`` passes them in) and every round's batch indices
+(unless ``index_source`` supplies them), so one seed gives one run on any
+device.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.splitme_dnn import DNNConfig
+from repro_torch.core import dnn, engine
+from repro_torch.core.cost import (SystemParams, round_cost, round_energy,
+                                   total_time)
+from repro_torch.core.engine import RoundMetrics, fetch_history
+from repro_torch.core.inversion import invert_inverse_model
+from repro_torch.device import DeviceLike, resolve_device
+
+__all__ = ["RoundMetrics", "SplitMeTrainer"]
+
+IndexSource = Callable[[int], torch.Tensor]
+
+
+def _to_device(params, device: torch.device):
+    """Initial parameters given as tensors or numpy arrays -> f32 on device."""
+    return [{k: (v if isinstance(v, torch.Tensor) else torch.tensor(v))
+             .to(device=device, dtype=torch.float32)
+             for k, v in p.items()} for p in params]
+
+
+class SplitMeTrainer:
+    """Runs the full Algorithm 2 over the partitioned O-RAN dataset.
+
+    ``device`` defaults to the card and raises where there is none.
+    ``params`` optionally gives the initial ``(w_c, w_s_inv)``.
+    ``index_source(round) -> (2, M, E_max, batch_size)`` int64 optionally
+    gives each round's batch indices."""
+
+    def __init__(self, cfg: DNNConfig, sp: SystemParams,
+                 client_data: Dict[str, np.ndarray],
+                 test_data: Tuple[np.ndarray, np.ndarray],
+                 lr_c: float = 0.05, lr_s: float = 0.02,
+                 temperature: float = 2.0, batch_size: int = 32,
+                 e_initial: int = 20, gamma: float = 1e-3, seed: int = 0,
+                 kernel_policy=None, comm_quant=None, scenario=None,
+                 *, device: DeviceLike = None,
+                 params: Optional[Tuple[List[dict], List[dict]]] = None,
+                 index_source: Optional[IndexSource] = None):
+        if not lr_c > lr_s:
+            raise ValueError("Corollary 3: η_C > η_S (B_1 < B_2)")
+        if scenario is not None:
+            raise NotImplementedError("later slice: scenarios are not "
+                                      "ported yet")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        dev = self.device
+        self.x = torch.as_tensor(client_data["x"], dtype=torch.float32,
+                                 device=dev)                 # (M, n, d)
+        self.y = torch.as_tensor(client_data["y"], dtype=torch.int64,
+                                 device=dev)                 # (M, n)
+        self.x_test = torch.as_tensor(test_data[0], dtype=torch.float32,
+                                      device=dev)
+        self.y_test = torch.as_tensor(test_data[1], dtype=torch.int64,
+                                      device=dev)
+        self.gamma = gamma
+        # private SystemParams copy + Alg. 1/P2 policy (never mutates `sp`)
+        self.sp, self.policy = engine.make_policy(
+            "splitme", sp, cfg, e_initial=e_initial,
+            n_samples_per_client=int(self.x.shape[1]), quant=comm_quant)
+        self._spec = engine.make_spec(
+            "splitme", cfg, lr_c=lr_c, lr_s=lr_s, temperature=temperature,
+            batch_size=batch_size, policy=kernel_policy, quant=comm_quant)
+        self.generator = torch.Generator().manual_seed(seed)
+        if params is None:
+            params = self._spec.init_fn(self.generator, dev)
+        self.w_c, self.w_s_inv = (_to_device(p, dev) for p in params)
+        self._index_source = index_source or self._draw_indices
+        self.E = e_initial
+        self.history: List[RoundMetrics] = []
+        self._round = 0
+        self._round_fn = engine.build_round_fn(
+            self._spec, cfg, self.x, self.y, e_max=self.sp.E_max)
+        self._eval_fn = engine.build_eval_fn(
+            self._spec, cfg, self.x_test, self.y_test,
+            client_data={"x": self.x, "y": self.y}, gamma=gamma)
+
+    def _draw_indices(self, round_idx: int) -> torch.Tensor:
+        """This round's batch indices from the trainer's CPU generator."""
+        M, n = self.x.shape[0], self.x.shape[1]
+        shape = (len(self._spec.phases), M, self.sp.E_max,
+                 self._spec.batch_size)
+        return torch.randint(0, n, shape, generator=self.generator)
+
+    # ------------------------------------------------------------------
+    def run_round(self, eval_acc: bool = False) -> RoundMetrics:
+        sp = self.sp
+        # P1 + P2: deadline-aware selection, bandwidth, adaptive E
+        a, b, self.E = self.policy.step()
+        idx = self._index_source(self._round)
+        n = self.x.shape[1]
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+            raise ValueError(f"batch indices must lie in [0, {n})")
+        idx = idx.to(self.device)
+        a_mask = torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        (self.w_c, self.w_s_inv), (closs, sloss) = self._round_fn(
+            (self.w_c, self.w_s_inv), a_mask, self.E, idx)
+        m = RoundMetrics(
+            round=self._round, n_selected=int(a.sum()), E=self.E,
+            comm_bits=self._spec.comm_model(a, self.E, sp),
+            sim_time=total_time(a, b, self.E, sp),
+            cost=round_cost(a, b, self.E, sp),
+            energy=round_energy(a, b, self.E, sp),
+            client_loss=closs, server_loss=sloss)
+        if eval_acc:
+            m.accuracy = self._eval_fn((self.w_c, self.w_s_inv))
+        self._round += 1
+        self.history.append(m)
+        return m
+
+    def fetch_history(self) -> List[RoundMetrics]:
+        """Resolve buffered device-tensor metrics to floats in ONE
+        device→host transfer (call once at campaign end)."""
+        return fetch_history(self.history)
+
+    # ------------------------------------------------------------------
+    def finalize(self) -> List[dict]:
+        """Step 4: analytic inversion using all clients' smashed data; the
+        Gram products follow the trainer's kernel policy."""
+        cfg = self.cfg
+        with torch.no_grad():
+            smashed = dnn.client_forward(self.w_c, self.x, cfg)
+            y1 = torch.nn.functional.one_hot(self.y, cfg.n_classes).float()
+            return invert_inverse_model(
+                self.w_s_inv, smashed.reshape(-1, smashed.shape[-1]),
+                y1.reshape(-1, cfg.n_classes), cfg, gamma=self.gamma,
+                policy=self._spec.policy)
+
+    def evaluate(self, w_server: Optional[List[dict]] = None) -> float:
+        if w_server is not None:
+            with torch.no_grad():
+                logits = dnn.full_forward(self.w_c, w_server, self.x_test,
+                                          self.cfg)
+                return float((logits.argmax(-1) == self.y_test)
+                             .float().mean())
+        return float(self._eval_fn((self.w_c, self.w_s_inv)))

@@ -1,0 +1,230 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU the port's kernel wrappers run their plain PyTorch versions (a
+CUDA kernel has no interpret mode); the Pallas kernels run in interpret mode,
+as the JAX package's own tests run them.  The CUDA kernels themselves are
+held against the same plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).  Inputs come from seeded numpy generators.
+"""
+import ctypes
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.kl_mutual import ops as jkl_ops
+from repro.kernels.kl_mutual.kl_mutual import kl_rows_pallas
+from repro.kernels.ridge_gram import ops as jrg_ops
+from repro.kernels.ridge_gram.ridge_gram import gram_pallas
+from repro_torch.kernels import build, dispatch
+from repro_torch.kernels.kl_mutual import ops as kl_ops
+from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+from repro_torch.kernels.ridge_gram import ops as rg_ops
+from repro_torch.kernels.ridge_gram.ref import gram_ref
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale
+            ).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# kl_mutual
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,bq", [(96, 256, 32), (40, 37, 8), (8, 3, 8)])
+@pytest.mark.parametrize("temp", [1.0, 2.0])
+def test_kl_rows_plain_matches_pallas_interpret(n, d, bq, temp):
+    x, y = _normal(0, (n, d), 3.0), _normal(1, (n, d), 3.0)
+    want = kl_rows_pallas(jnp.asarray(x), jnp.asarray(y), temperature=temp,
+                          bq=bq, interpret=True)
+    got = kl_rows_ref(torch.from_numpy(x), torch.from_numpy(y), temp)
+    # atol 1e-6 plus 1e-6 relative: rows reach KL ≈ 12 at T = 1, where one
+    # f32 ulp is already 1e-6
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    # the CPU wrapper is the plain version
+    np.testing.assert_array_equal(
+        kl_ops.kl_rows(torch.from_numpy(x), torch.from_numpy(y), temp).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("n,d", [(32, 256), (17, 33)])
+@pytest.mark.parametrize("temp", [1.0, 2.0])
+def test_kl_autograd_function_grad_matches_jax(n, d, temp):
+    """The port's autograd.Function (closed-form backward) vs jax.grad of
+    repro.kernels.kl_mutual.ops.kl_loss (custom_vjp over the Pallas kernel,
+    interpret mode on the CPU); y gets no gradient."""
+    x, y = _normal(2, (n, d), 2.0), _normal(3, (n, d), 2.0)
+    jy = jnp.asarray(y)
+    jval, jgx = jax.value_and_grad(
+        lambda a: jkl_ops.kl_loss(a, jy, temperature=temp))(jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = torch.from_numpy(y).requires_grad_(True)
+    loss = dispatch.kl_loss(tx, ty, temperature=temp, policy="kernel")
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jval), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=0,
+                               atol=1e-6)
+    assert ty.grad is None
+
+
+def test_kl_loss_policies_agree_per_client():
+    """(M, B, d) stacked cohort: per-client means, kernel path (one call
+    over all M·B rows) == plain path, values and gradients."""
+    x, y = _normal(4, (5, 8, 24), 2.0), _normal(5, (5, 8, 24), 2.0)
+    out = {}
+    for pol in ("kernel", "reference"):
+        tx = torch.from_numpy(x).requires_grad_(True)
+        loss = dispatch.kl_loss(tx, torch.from_numpy(y), temperature=2.0,
+                                policy=pol)
+        assert loss.shape == (5,)
+        loss.sum().backward()
+        out[pol] = (loss.detach().numpy(), tx.grad.numpy())
+    np.testing.assert_allclose(out["kernel"][0], out["reference"][0],
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out["kernel"][1], out["reference"][1],
+                               rtol=0, atol=1e-7)
+
+
+def test_kl_paper_matches_jax():
+    from repro.core import mutual as jmutual
+    from repro_torch.core import mutual
+    x, y = _normal(6, (16, 20)), _normal(7, (16, 20))
+    want = jmutual.kl_paper(jnp.asarray(x), jnp.asarray(y), 2.0)
+    got = mutual.kl_paper(torch.from_numpy(x), torch.from_numpy(y), 2.0)
+    np.testing.assert_allclose(got.item(), float(want), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        mutual.client_loss(torch.from_numpy(x), torch.from_numpy(y)).item(),
+        float(jmutual.client_loss(jnp.asarray(x), jnp.asarray(y))), atol=1e-6)
+    np.testing.assert_allclose(
+        mutual.server_loss(torch.from_numpy(y), torch.from_numpy(x)).item(),
+        float(jmutual.server_loss(jnp.asarray(y), jnp.asarray(x))), atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "rank"])
+def test_kl_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x = torch.zeros(8, 6)
+    y = torch.zeros(8, 6)
+    if bad == "dtype":
+        x = x.double()
+    elif bad == "shape":
+        y = torch.zeros(8, 5)
+    elif bad == "contiguous":
+        x = torch.zeros(6, 8).T
+    else:
+        x, y = torch.zeros(2, 4, 6), torch.zeros(2, 4, 6)
+    with pytest.raises((TypeError, ValueError)):
+        kl_ops.kl_rows(x, y, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# ridge_gram
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d1,d2", [(100, 257, 3), (33, 7, 17),
+                                     (777, 45, 19), (200, 65, 64)])
+def test_gram_plain_matches_pallas_interpret(n, d1, d2):
+    x, y = _normal(8, (n, d1)), _normal(9, (n, d2))
+    # gram_pallas takes block multiples; the JAX wrapper pads to them
+    want = jrg_ops.gram(jnp.asarray(x), jnp.asarray(y))
+    got = gram_ref(torch.from_numpy(x), torch.from_numpy(y))
+    scale = np.abs(x).T @ np.abs(y)         # f32 summation-error scale
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * scale.max())
+    np.testing.assert_array_equal(
+        rg_ops.gram(torch.from_numpy(x), torch.from_numpy(y)).numpy(),
+        got.numpy())
+
+
+def test_gram_plain_matches_gram_pallas_direct():
+    """gram_pallas itself (interpret mode) on block-multiple shapes."""
+    x, y = _normal(10, (256, 128)), _normal(11, (256, 128))
+    want = gram_pallas(jnp.asarray(x), jnp.asarray(y), bm=128, bn=128,
+                       bk=128, interpret=True)
+    got = gram_ref(torch.from_numpy(x), torch.from_numpy(y))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d1,d2,sms", [
+    (4800, 257, 257, 132), (4800, 17, 3, 132), (777, 45, 19, 132),
+    (31, 5, 5, 132), (4800, 129, 64, 1)])
+def test_gram_split_plan_covers_n(n, d1, d2, sms):
+    splits, rows = rg_ops.split_plan(n, d1, d2, sms)
+    assert rows % rg_ops.TILE == 0
+    assert splits * rows >= n > (splits - 1) * rows
+    tiles = -(-d1 // 32) * -(-d2 // 32)
+    assert splits == 1 or tiles * splits <= 2 * rg_ops.BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rows", "contiguous", "empty"])
+def test_gram_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, y = torch.zeros(10, 4), torch.zeros(10, 3)
+    if bad == "dtype":
+        y = y.half()
+    elif bad == "rows":
+        y = torch.zeros(9, 3)
+    elif bad == "contiguous":
+        x = torch.zeros(4, 10).T
+    else:
+        x, y = torch.zeros(0, 4), torch.zeros(0, 3)
+    with pytest.raises((TypeError, ValueError)):
+        rg_ops.gram(x, y)
+
+
+# ---------------------------------------------------------------------------
+# dispatch + build
+# ---------------------------------------------------------------------------
+
+def test_policy_presets_and_later_slices():
+    assert dispatch.get_policy(None) == dispatch.KERNEL
+    assert dispatch.get_policy("reference") == dispatch.REFERENCE
+    assert dispatch.get_policy("kernel").kl_mutual is True
+    with pytest.raises(NotImplementedError, match="later slice"):
+        dispatch.get_policy("kernel_bf16")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        dispatch.KernelPolicy(precision=dispatch.BF16)
+    with pytest.raises(KeyError):
+        dispatch.get_policy("tpu")
+
+
+def test_gram_dispatch_policies_agree():
+    x, y = _normal(12, (50, 9)), _normal(13, (50, 4))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    np.testing.assert_array_equal(
+        dispatch.gram(tx, ty, policy="kernel").numpy(),
+        dispatch.gram(tx, ty, policy="reference").numpy())
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+    assert not (tmp_path / "build").exists() or not any(
+        (tmp_path / "build").rglob("*.so"))
+
+
+def test_build_root_is_the_checkout_or_a_user_cache(monkeypatch, tmp_path):
+    root = pathlib.Path(__file__).resolve().parents[1]
+    assert build.BUILD_ROOT == root / "build" / "repro_torch"
+    installed = tmp_path / "lib" / "site-packages" / "repro_torch"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    assert build._build_root(installed) == tmp_path / "cache" / "repro_torch"
+    monkeypatch.delenv("XDG_CACHE_HOME")
+    assert build._build_root(installed) == (pathlib.Path.home() / ".cache"
+                                            / "repro_torch")
+
+
+def test_build_digest_covers_every_source():
+    names = {p.name for p in build.sources()}
+    assert {"kl_mutual.cu", "ridge_gram.cu"} <= names
+    assert len(build.digest()) == 16
+    # the C entries pass pointers and the stream as 64-bit c_void_p
+    assert kl_ops._ARGTYPES.count(ctypes.c_void_p) == 4
+    assert rg_ops._ARGTYPES.count(ctypes.c_void_p) == 5

@@ -1,0 +1,153 @@
+"""Package rules of the port: it never imports jax or the JAX package, its
+entry points refuse to run without a card unless asked for the CPU, and the
+chip smoke script fails cleanly where there is no card or no repository."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for want in ("configs/splitme_dnn.py", "data/oran.py", "core/cost.py",
+                 "core/selection.py", "core/allocation.py", "core/dnn.py",
+                 "core/mutual.py", "core/engine.py", "core/inversion.py",
+                 "core/splitme.py", "kernels/build.py", "kernels/dispatch.py",
+                 "kernels/kl_mutual/ops.py", "kernels/kl_mutual/ref.py",
+                 "kernels/ridge_gram/ops.py", "kernels/ridge_gram/ref.py",
+                 "convert.py"):
+        assert want in names
+    assert (ROOT / "chip_smoke.py").is_file()
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [(mod, line) for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _tiny_trainer_args():
+    from repro_torch.configs.splitme_dnn import DNNConfig
+    from repro_torch.core.cost import SystemParams
+    rng = np.random.default_rng(0)
+    clients = {"x": rng.normal(size=(4, 8, 30)).astype(np.float32),
+               "y": rng.integers(0, 3, (4, 8)).astype(np.int32)}
+    test = (rng.normal(size=(6, 30)).astype(np.float32),
+            rng.integers(0, 3, 6).astype(np.int32))
+    return DNNConfig(hidden=(8, 8, 4)), SystemParams(M=4, E_max=2), \
+        clients, test
+
+
+def test_trainer_without_device_needs_a_card():
+    from repro_torch.core.splitme import SplitMeTrainer
+    from repro_torch.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SplitMeTrainer(*_tiny_trainer_args(), batch_size=4, e_initial=2)
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    t = SplitMeTrainer(*_tiny_trainer_args(), batch_size=4, e_initial=2,
+                       device="cpu")
+    assert t.x.device.type == "cpu"
+
+
+def test_trainer_rejects_unported_options():
+    from repro_torch.core.splitme import SplitMeTrainer
+    with pytest.raises(NotImplementedError, match="later slice"):
+        SplitMeTrainer(*_tiny_trainer_args(), device="cpu", scenario=object())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        SplitMeTrainer(*_tiny_trainer_args(), device="cpu", comm_quant="bf16")
+    with pytest.raises(ValueError, match="Corollary 3"):
+        SplitMeTrainer(*_tiny_trainer_args(), device="cpu", lr_c=0.01,
+                       lr_s=0.02)
+
+
+def test_convert_round_trip():
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    rng = np.random.default_rng(0)
+    layers = [{"w": rng.normal(size=(3, 4)), "b": rng.normal(size=4)}]
+    got = params_from_numpy(layers, device="cpu")
+    assert got[0]["w"].dtype == torch.float32
+    back = params_to_numpy(got)
+    np.testing.assert_array_equal(back[0]["w"],
+                                  layers[0]["w"].astype(np.float32))
+    np.testing.assert_array_equal(back[0]["b"],
+                                  layers[0]["b"].astype(np.float32))
+
+
+def _run_smoke(cwd: Path):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_trainer_rejects_out_of_range_indices():
+    from repro_torch.core.splitme import SplitMeTrainer
+    cfg, sp, clients, test = _tiny_trainer_args()
+    t = SplitMeTrainer(cfg, sp, clients, test, batch_size=4, e_initial=2,
+                       device="cpu", index_source=lambda r: torch.full(
+                           (2, 4, 2, 4), 8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="batch indices"):
+        t.run_round()

@@ -1,0 +1,63 @@
+"""Helpers for the port's parity tests: replay the JAX package's RNG chain
+so that the JAX round and the PyTorch round draw identical batches, and move
+parameters between the two packages as numpy arrays."""
+import jax
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_numpy, params_to_numpy
+
+
+def replay_round_indices(key, n_phases: int, M: int, e_max: int, B: int,
+                         n: int) -> np.ndarray:
+    """Batch indices of one ``repro.core.engine.build_round_fn`` round:
+    ``split(key, n_phases*M)`` gives each (phase, client) a key; each step
+    does ``k, sk = split(k)`` and ``randint(sk, (B,), 0, n)``.  Returns
+    (n_phases, M, e_max, B) int64."""
+    keys = jax.random.split(key, n_phases * M)
+
+    def per_client(k):
+        def step(k, _):
+            k, sk = jax.random.split(k)
+            return k, jax.random.randint(sk, (B,), 0, n)
+        return jax.lax.scan(step, k, None, length=e_max)[1]
+
+    idx = jax.vmap(per_client)(keys)
+    return np.asarray(idx, np.int64).reshape(n_phases, M, e_max, B)
+
+
+class TrainerIndexReplay:
+    """``index_source`` for the port's SplitMeTrainer that replays the JAX
+    SplitMeTrainer: ``PRNGKey(seed)``, then per round
+    ``key, sub = split(key)`` and the round's split chain from ``sub``.
+    Call once per round, in order."""
+
+    def __init__(self, seed: int, M: int, e_max: int, B: int, n: int,
+                 n_phases: int = 2):
+        self.key = jax.random.PRNGKey(seed)
+        self.shape = (n_phases, M, e_max, B, n)
+        self.calls = 0
+
+    def __call__(self, round_idx: int) -> torch.Tensor:
+        assert round_idx == self.calls, "rounds must be replayed in order"
+        self.calls += 1
+        self.key, sub = jax.random.split(self.key)
+        return torch.from_numpy(replay_round_indices(sub, *self.shape))
+
+
+def jax_to_torch(layers, device="cpu"):
+    return params_from_numpy(jax.device_get(layers), device=device)
+
+
+def torch_to_np(layers):
+    return params_to_numpy(layers)
+
+
+def assert_params_close(port_layers, jax_layers, atol, rtol=0.0):
+    ref = jax.device_get(jax_layers)
+    got = params_to_numpy(port_layers)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(g[k], np.asarray(r[k]), atol=atol,
+                                       rtol=rtol)

@@ -12,18 +12,31 @@ failure ends the run with a non-zero exit code:
 2. kernels vs their plain PyTorch versions on the card, at the main-path
    shapes and at ragged ones, with times (CUDA events and the profiler),
    bounds, and the plain version's and (for the Gram) one library call's
-   times;
-3. the main path: ``SplitMeTrainer`` on DNN10 at full width, M = 50 clients
-   of 96 samples, 5 rounds with the Step-4 evaluation on the last, then
-   ``finalize()`` + ``evaluate()``; the kernels' launch counters must show
-   that every KL loss and every Gram went through the kernels; one more
-   round under the profiler gives the device's busy time and idle share;
-4. the card against the CPU: the same 2 rounds from one seed on both;
-5. a ``kernels`` JSON line, the nvidia-smi line, and last the result line.
+   times: ``kl_mutual`` and ``ridge_gram`` (the SplitMe path), then
+   ``rwkv6_wkv`` and ``mamba2_scan`` (the serving path) at b 4, L 2048 and
+   at ragged shapes;
+3. the SplitMe path: ``SplitMeTrainer`` on DNN10 at full width, M = 50
+   clients of 96 samples, 5 rounds with the Step-4 evaluation on the last,
+   then ``finalize()`` + ``evaluate()``; the kernels' launch counters must
+   show that every KL loss and every Gram went through the kernels; one
+   more round under the profiler gives the device's busy time and idle
+   share;
+4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
+   depth with weights from a seeded generator: in f32, the kernel-preset
+   prefill against a ``decode_step`` replay of the same prompts and against
+   the ``reference`` preset, with one scan launch per layer; then the
+   served bf16 model: prefill through ``make_prefill_step`` at 4 × 2048 and
+   ``repro_torch.serve``'s replay + greedy decode of 4 requests, with the
+   launch counters set to 0 just before and read just after, and a
+   profiled prefill and decode;
+5. the card against the CPU: the same 2 SplitMe rounds from one seed on
+   both, and the two reduced zoo models' forward and 8 decode steps;
+6. a ``kernels`` JSON line, the nvidia-smi line, and last the result line.
 
 Without a card, or outside the repository, it exits non-zero and prints no
 result.
 """
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -49,6 +62,20 @@ CARD_CPU_TOL = 1e-5      # card vs CPU params and losses (the f32 parity bound)
 STEP4_GAMMA = 100.0
 STEP4_TOL = 1e-3
 ROUNDS, CMP_ROUNDS = 5, 2
+# WKV and SSD kernels vs their plain versions: |kernel − plain| relative to
+# max|y| (both are f32 recurrences, summed in another order)
+SCAN_TOL = 1e-5
+# full-width f32 prefill through the kernels vs the last logits of a
+# decode_step replay (every matmul at M = 4 instead of M = 4·96, through 24
+# or 54 layers), and vs the reference preset (only the scans differ); both
+# relative to max|logits|
+REPLAY_TOL = 1e-3
+PRESET_TOL = 1e-4
+ZOO_CARD_CPU_TOL = 1e-5  # reduced f32 zoo models, relative to max|logits|
+ZOO_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+CONSIST_LEN = 96         # f32 replay check (the Zamba2 ring holds 128)
+PREFILL_B, PREFILL_LEN, PREFILL_RUNS = 4, 2048, 4   # first run is a warm-up
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 64, 32
 
 
 def fail(msg: str) -> None:
@@ -61,10 +88,11 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(torch, fn, reps: int = 50, inner: int = 10) -> float:
+def time_ms(torch, fn, reps: int = 50, inner: int = 10,
+            warmup: int = 5) -> float:
     """Median over ``reps`` of (CUDA-event time of ``inner`` back-to-back
-    calls) / ``inner``, after a warm-up."""
-    for _ in range(5):
+    calls) / ``inner``, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -80,23 +108,29 @@ def time_ms(torch, fn, reps: int = 50, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fns, names, calls: int = 20):
+def device_ms(torch, fns, names, calls: int = 20, tries: int = 3):
     """Device time per call of each callable in ``fns`` from torch.profiler:
-    the summed time of the kernels whose names contain one of ``names``
-    (None where the trace holds none)."""
+    the summed time of the kernels whose names contain one of ``names``.
+    A trace now and then comes back without the kernels' events; such a
+    trace is taken again, up to ``tries`` times, and None stands where every
+    try held none."""
     from torch.profiler import ProfilerActivity, profile
     out = []
     for fn in fns:
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(getattr(e, "device_time_total",
-                            getattr(e, "cuda_time_total", 0.0))
-                    for e in prof.key_averages()
-                    if any(n in e.key for n in names))
+        total = 0.0
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            total = sum(getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0.0))
+                        for e in prof.key_averages()
+                        if any(n in e.key for n in names))
+            if total > 0:
+                break
         out.append(total / calls / 1e3 if total > 0 else None)
     return out
 
@@ -212,10 +246,290 @@ def main_path_gram_shapes(cfg, n):
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# the serving path: WKV / SSD kernels, RWKV6-1.6B and Zamba2-2.7B
+# ---------------------------------------------------------------------------
+
+# (shape, constant decay or None); the first is the main path's shape
+WKV_CASES = [((4, 2048, 32, 64), None), ((1, 1, 32, 64), None),
+             ((2, 100, 5, 64), None), ((1, 100, 2, 128), None),
+             ((2, 50, 3, 16), None), ((1, 128, 2, 64), 1e-4)]
+SSD_CASES = [((4, 2048, 80, 64, 64), None), ((1, 1, 80, 64, 64), None),
+             ((2, 100, 5, 64, 64), None), ((1, 128, 2, 8, 16), 1e-4),
+             ((2, 37, 3, 16, 32), None), ((1, 40, 2, 128, 96), None)]
+
+
+def wkv_inputs(torch, normal, shape, w_const):
+    """r, k, v, u unit normal; w = sigmoid(normal) or a constant decay."""
+    b, L, nh, P = shape
+    r, k, v = (normal(b, L, nh, P) for _ in range(3))
+    w = (torch.full((b, L, nh, P), w_const, device=r.device) if w_const
+         else torch.sigmoid(normal(b, L, nh, P)))
+    return r, k, v, w, normal(nh, P)
+
+
+def ssd_inputs(torch, normal, shape, a_const):
+    """decay = 0.35 + 0.6·sigmoid(normal) or a constant; dt = softplus of a
+    normal; B, C, x unit normal (tests/test_kernels.py's inputs)."""
+    b, L, nh, N, P = shape
+    decay = (torch.full((b, L, nh), a_const, device=normal(1).device)
+             if a_const else torch.sigmoid(normal(b, L, nh)) * 0.6 + 0.35)
+    dt = torch.nn.functional.softplus(normal(b, L, nh))
+    return decay, dt, normal(b, L, N), normal(b, L, N), normal(b, L, nh, P)
+
+
+def wkv_bound(b, L, nh, P):
+    """(bound ms, what bounds it): r, k, v, w read and y written once, u
+    read once; 5P² + 5P FP32 operations per (batch, head, step): y = rᵀS
+    (2P²), r·(u∘k) and its product with v (5P), S ← S·w + k vᵀ (3P²)."""
+    bytes_t = 4 * (5 * b * L * nh * P + nh * P) / PEAK_BYTES * 1e3
+    ops_t = b * L * nh * (5 * P * P + 5 * P) / PEAK_FP32 * 1e3
+    return max(bytes_t, ops_t), "bytes" if bytes_t >= ops_t else "operations"
+
+
+def ssd_bound(b, L, nh, N, P):
+    """x read and y written once, decay and dt per (b, t, head), B and C per
+    (b, t); 5NP + P FP32 operations per (batch, head, step): u = dt·x (P),
+    h ← a·h + B u (3NP), y = C h (2NP)."""
+    bytes_t = 4 * (2 * b * L * nh * P + 2 * b * L * nh + 2 * b * L * N) \
+        / PEAK_BYTES * 1e3
+    ops_t = b * L * nh * (5 * N * P + P) / PEAK_FP32 * 1e3
+    return max(bytes_t, ops_t), "bytes" if bytes_t >= ops_t else "operations"
+
+
+def check_scan_kernel(torch, name, kernel, plain, cases, make_inputs, bound,
+                      dev_names):
+    """``kernel`` against ``plain`` at every case (max error within
+    SCAN_TOL × max|y|), then times at the first (main-path) shape."""
+    worst_abs = worst_rel = 0.0
+    for shape, const in cases:
+        args = make_inputs(shape, const)
+        got, want = kernel(*args), plain(*args)
+        check(bool(torch.isfinite(got).all()), f"{name} {shape}: not finite")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        print(f"{name} {shape}{' const ' + str(const) if const else ''}: "
+              f"max |kernel - plain| = {err:.3e}, relative {err / scale:.3e}"
+              f" (tol {SCAN_TOL} x max|y| = {SCAN_TOL * scale:.3e})")
+        check(err <= SCAN_TOL * scale, f"{name} disagrees at {shape}")
+        worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
+                                                        err / scale)
+    shape = cases[0][0]
+    args = make_inputs(*cases[0])
+    ms = time_ms(torch, lambda: kernel(*args), reps=20, inner=5)
+    plain_ms = time_ms(torch, lambda: plain(*args), reps=3, inner=1,
+                       warmup=1)
+    dev_ms, = device_ms(torch, [lambda: kernel(*args)], dev_names, calls=5)
+    bound_ms, bound_by = bound(*shape)
+    print(f"{name} {shape}: {ms * 1e3:.2f} us/call (events), device "
+          f"{dev_ms and round(dev_ms * 1e3, 2)} us, plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by}); library: none (no single PyTorch call computes "
+          f"the recurrence)")
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "device_ms": dev_ms, "shape": list(shape)}
+
+
+def zoo_counter(port, cfg):
+    """The launch counter of the scan kernel of ``cfg``'s family."""
+    return port.wkv_ops if cfg.family == "ssm" else port.ssd_ops
+
+
+def zoo_consistency(torch, port, arch, dev):
+    """Full width and depth in f32: the kernel-preset prefill against the
+    last logits of a decode_step replay of the same prompts and against the
+    reference preset; one scan launch per layer, none in the replay."""
+    cfg = dataclasses.replace(port.get_config(arch), dtype="float32")
+    model = port.build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (4, CONSIST_LEN),
+                            generator=gen, device=dev)
+    counter = zoo_counter(port, cfg)
+    prefill = port.make_prefill_step(model)
+    with torch.no_grad():
+        counter.launches = 0
+        got = prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        per_forward = counter.launches
+        model.policy = port.dispatch.get_policy("reference")
+        ref = prefill({"tokens": prompts})
+        model.policy = port.dispatch.get_policy("kernel")
+        cache = model.init_cache(4)
+        for t in range(CONSIST_LEN):
+            logits, cache = model.decode_step(prompts[:, t:t + 1], cache,
+                                              position=t)
+        replay = logits[:, -1]
+        # the f32 noise floor of the plain network, with no kernel in it:
+        # the reference preset on the first two prompts alone (its GEMMs
+        # at another M) and the replay, each against the 4-prompt run
+        model.policy = port.dispatch.get_policy("reference")
+        ref2 = prefill({"tokens": prompts[:2]})
+        model.policy = port.dispatch.get_policy("kernel")
+        torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    e_replay = (got - replay).abs().max().item() / scale
+    e_ref = (got - ref).abs().max().item() / scale
+    floor = ((ref[:2] - ref2).abs().max().item() / scale,
+             (ref - replay).abs().max().item() / scale)
+    print(f"{arch} f32 full width, 4 x {CONSIST_LEN} tokens: prefill vs "
+          f"replay {e_replay:.3e} x max|logits| (tol {REPLAY_TOL}), vs "
+          f"reference preset {e_ref:.3e} (tol {PRESET_TOL}), max|logits| "
+          f"{scale:.3f}; {per_forward} scan launches per forward; plain "
+          f"network alone: batch 2 vs 4 {floor[0]:.3e}, reference vs replay "
+          f"{floor[1]:.3e}")
+    check(all(bool(torch.isfinite(a).all()) for a in (got, ref, replay)),
+          f"{arch}: non-finite logits")
+    check(per_forward == cfg.n_layers,
+          f"{arch}: {per_forward} scan launches per forward, want "
+          f"{cfg.n_layers}")
+    check(counter.launches == cfg.n_layers,
+          f"{arch}: the reference preset or the replay launched the kernel")
+    check(e_replay <= REPLAY_TOL, f"{arch}: prefill and replay disagree")
+    check(e_ref <= PRESET_TOL, f"{arch}: kernel and reference disagree")
+    del model, cache
+    torch.cuda.empty_cache()
+    return e_replay, e_ref
+
+
+def device_busy_ms(evts) -> float:
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in evts) / 1e3
+
+
+def zoo_serve(torch, port, arch, dev, smi):
+    """The serving path of the bf16 model: PREFILL_RUNS prefills through
+    make_prefill_step at PREFILL_B × PREFILL_LEN, then repro_torch.serve's
+    replay + greedy decode of SERVE_B requests; the launch counters are set
+    to 0 just before and read just after.  Then one profiled prefill and
+    eight profiled decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = port.get_config(arch)
+    model = port.build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    long = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_LEN),
+                         generator=gen, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    prefill = port.make_prefill_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        port.wkv_ops.launches = port.ssd_ops.launches = 0
+        times = []
+        for _ in range(PREFILL_RUNS):
+            t0 = time.perf_counter()
+            last = prefill({"tokens": long})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        served = port.serve.generate(model, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        launches = {"rwkv6_wkv": port.wkv_ops.launches,
+                    "mamba2_scan": port.ssd_ops.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own = "rwkv6_wkv" if cfg.family == "ssm" else "mamba2_scan"
+    check(launches[own] == PREFILL_RUNS * cfg.n_layers,
+          f"{arch}: {launches[own]} {own} launches, want "
+          f"{PREFILL_RUNS * cfg.n_layers}")
+    check(sum(launches.values()) == launches[own],
+          f"{arch}: launched the other family's kernel: {launches}")
+    check(bool(torch.isfinite(last).all()) and last.shape == (
+        PREFILL_B, cfg.vocab_size), f"{arch}: prefill logits {last.shape}")
+    toks = served.tokens
+    check(toks.shape == (SERVE_B, SERVE_NEW) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"{arch}: served {toks}")
+    prefill_ms = statistics.median(times[1:])
+    decode_steps = SERVE_NEW - 1
+    step_ms = served.decode_s * 1e3 / decode_steps
+    print(f"{arch} bf16 served | {smi}: prefill {PREFILL_B} x "
+          f"{PREFILL_LEN} through make_prefill_step {prefill_ms:.2f} ms "
+          f"(median of {PREFILL_RUNS - 1} after a warm-up {times[0]:.2f} "
+          f"ms) = {PREFILL_B * PREFILL_LEN / prefill_ms * 1e3:.0f} tokens/s;"
+          f" serve: replay of {SERVE_B} x {SERVE_PROMPT} prompt tokens "
+          f"{served.prefill_s * 1e3:.1f} ms, {decode_steps} decode steps "
+          f"{step_ms:.2f} ms/step = {SERVE_B / step_ms * 1e3:.1f} tokens/s;"
+          f" launches {launches}; peak memory {peak_gb:.2f} GB; request 0 "
+          f"tokens {toks[0, :8].tolist()}")
+
+    # one profiled prefill: device busy time and the heaviest kernels
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            prefill({"tokens": long})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        evts = prof.key_averages()
+        busy = device_busy_ms(evts)
+        ops = sum(e.count for e in evts if device_busy_ms([e]) > 0)
+        print(f"{arch} profiled prefill: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}, {ops} "
+              f"device operations")
+        heavy = sorted(evts, key=lambda e: device_busy_ms([e]),
+                       reverse=True)[:8]
+        for e in heavy:
+            print(f"  {device_busy_ms([e]):9.3f} ms {e.count:6d} calls  "
+                  f"{e.key[:80]}")
+        # eight profiled decode steps after an 8-token replay
+        serve_step = port.make_serve_step(model)
+        cache = model.init_cache(SERVE_B)
+        for t in range(8):
+            logits, cache = model.decode_step(prompts[:, t:t + 1], cache,
+                                              position=t)
+        tok = torch.argmax(logits[:, -1:], -1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                logits, cache = serve_step(tok, cache)
+                tok = torch.argmax(logits, -1)[:, None]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        evts = prof.key_averages()
+        busy = device_busy_ms(evts)
+        ops = sum(e.count for e in evts if device_busy_ms([e]) > 0)
+        print(f"{arch} profiled decode, 8 steps of {SERVE_B} requests: wall "
+              f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / wall:.4f}, {ops / 8:.0f} device operations "
+              f"per step")
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches[own], prefill_ms, step_ms
+
+
+def zoo_card_vs_cpu(torch, port, arch):
+    """The reduced f32 model on the card (scan kernels) and on the CPU
+    (plain scans), same weights and tokens: forward logits and 8 decode
+    steps, largest difference relative to max|logits|."""
+    cfg = port.get_config(arch).reduced()
+    mc = port.build_model(cfg, device="cuda")
+    mp = port.build_model(cfg, device="cpu")
+    mp.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
+    tok = torch.randint(0, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        lc, _ = mc.forward({"tokens": tok.cuda()})
+        lp, _ = mp.forward({"tokens": tok})
+        scale = lp.abs().max().item()
+        e_fwd = (lc.cpu() - lp).abs().max().item() / scale
+        e_dec = 0.0
+        cc, cp = mc.init_cache(2), mp.init_cache(2)
+        for t in range(8):
+            a, cc = mc.decode_step(tok[:, t:t + 1].cuda(), cc)
+            b, cp = mp.decode_step(tok[:, t:t + 1], cp)
+            e_dec = max(e_dec, (a.cpu() - b).abs().max().item() / scale)
+    print(f"{arch} reduced f32, card vs CPU: forward {e_fwd:.3e}, 8 decode "
+          f"steps {e_dec:.3e} x max|logits| (tol {ZOO_CARD_CPU_TOL})")
+    check(e_fwd <= ZOO_CARD_CPU_TOL and e_dec <= ZOO_CARD_CPU_TOL,
+          f"{arch}: card and CPU disagree")
+
+
 def import_port():
     """The port's modules, from ``src/`` beside this script."""
     sys.path.insert(0, str(ROOT / "src"))
     import types
+    from repro_torch import serve
+    from repro_torch.configs.base import get_config
     from repro_torch.configs.splitme_dnn import DNN10
     from repro_torch.core import dnn
     from repro_torch.core.inversion import invert_inverse_model
@@ -228,6 +542,12 @@ def import_port():
     from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
     from repro_torch.kernels.ridge_gram import ops as rg_ops
     from repro_torch.kernels.ridge_gram.ref import gram_ref
+    from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+    from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     return types.SimpleNamespace(**locals())
 
 
@@ -242,6 +562,10 @@ def main() -> int:
         return 2
     port = import_port()
     kl_ops, rg_ops = port.kl_ops, port.rg_ops
+    t_start = time.perf_counter()
+
+    def phase(name):
+        print(f"[{time.perf_counter() - t_start:.1f} s] {name}")
 
     # -- 1. device + build ---------------------------------------------------
     dev = port.resolve_device("cuda")
@@ -267,6 +591,7 @@ def main() -> int:
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     # -- 2. kernels vs plain versions ----------------------------------------
+    phase("2. kernels vs plain versions")
     kl_err = 0.0
     for rows, d in ((1600, 256), (1000, 200)):
         x, y = normal(rows, d, scale=3.0), normal(rows, d, scale=3.0)
@@ -359,7 +684,18 @@ def main() -> int:
           f"{g_bytes_t * 1e3:.2f} us)")
     torch.cuda.synchronize()
 
-    # -- 3. main path --------------------------------------------------------
+    wkv = check_scan_kernel(
+        torch, "rwkv6_wkv", port.wkv_ops.rwkv6_wkv, port.rwkv6_wkv_ref,
+        WKV_CASES, lambda shape, c: wkv_inputs(torch, normal, shape, c),
+        wkv_bound, ("wkv_kernel",))
+    ssd = check_scan_kernel(
+        torch, "mamba2_scan", port.ssd_ops.mamba2_scan, port.mamba2_scan_ref,
+        SSD_CASES, lambda shape, c: ssd_inputs(torch, normal, shape, c),
+        ssd_bound, ("ssd_kernel",))
+    torch.cuda.synchronize()
+
+    # -- 3. SplitMe path -----------------------------------------------------
+    phase("3. SplitMe path")
     X, yl = port.oran.generate(n_per_class=2000, seed=0)
     (Xtr, ytr), test = port.oran.train_test_split(X, yl)
     sp = port.SystemParams()
@@ -417,14 +753,30 @@ def main() -> int:
     for name, ms, calls in heavy:
         print(f"  {ms:8.3f} ms  {calls:5d} calls  {name}")
 
-    # -- 4. card vs CPU ------------------------------------------------------
+    del trainer
+    torch.cuda.empty_cache()
+
+    # -- 4. serving path -----------------------------------------------------
+    phase("4. serving path")
+    for arch in ZOO_ARCHS:
+        zoo_consistency(torch, port, arch, dev)
+    served = {arch: zoo_serve(torch, port, arch, dev, smi)
+              for arch in ZOO_ARCHS}
+    wkv["launches"] = served["rwkv6-1.6b"][0]
+    ssd["launches"] = served["zamba2-2.7b"][0]
+
+    # -- 5. card vs CPU ------------------------------------------------------
+    phase("5. card vs CPU")
     perr, lerr = card_vs_cpu(torch, port, sp, clients, test, ("cuda", "cpu"))
     print(f"card vs CPU, {CMP_ROUNDS} rounds: max param diff {perr:.3e}, max "
           f"loss diff {lerr:.3e} (tol {CARD_CPU_TOL})")
     check(perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL,
           "card and CPU runs disagree")
+    for arch in ZOO_ARCHS:
+        zoo_card_vs_cpu(torch, port, arch)
 
-    # -- 5. result -----------------------------------------------------------
+    # -- 6. result -----------------------------------------------------------
+    phase("6. result")
     kernels = [
         {"name": "kl_mutual", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
@@ -441,6 +793,13 @@ def main() -> int:
          "bound_by": "operations" if g_ops_t >= g_bytes_t else "bytes",
          "library_ms": g_lib, "device_ms": g_dev,
          "max_rel_err": gram_rel, "shape": "16 Grams of one evaluation"},
+        {"name": "rwkv6_wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},
+        {"name": "mamba2_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
+         "replaces": "src/repro/kernels/mamba2_scan/mamba2_scan.py:70",
+         **ssd},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

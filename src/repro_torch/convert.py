@@ -1,12 +1,13 @@
 """Parameters between the JAX package's layout and the port's tensors.
 
-The JAX package holds an MLP as a list of ``{"w", "b"}`` arrays; after
-``jax.device_get`` they are numpy arrays, which is what these functions
-take and give.  This module does not import jax.
+The JAX package holds an MLP as a list of ``{"w", "b"}`` arrays and a zoo
+model as a nested dict; after ``jax.device_get`` they are numpy arrays,
+which is what these functions take and give.  This module does not import
+jax.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,3 +28,90 @@ def params_to_numpy(layers: Sequence[dict]) -> List[dict]:
     """The port's ``[{"w", "b"}]`` tensors -> numpy f32 arrays."""
     return [{k: v.detach().cpu().numpy() for k, v in p.items()}
             for p in layers]
+
+
+# ---------------------------------------------------------------------------
+# Model-zoo parameter trees
+# ---------------------------------------------------------------------------
+
+def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
+    """The JAX tree's stacked subtrees and their leading dims: the layers of
+    ``lax.scan``, which the port keeps as a list of modules."""
+    if cfg.family == "ssm":
+        return {"layers": (cfg.n_layers,)}
+    if cfg.family == "hybrid":
+        group = cfg.shared_attn_every or cfg.n_layers
+        return {"mamba": (cfg.n_layers // group, group)}
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                              f"(ROADMAP queue A, item 13)")
+
+
+def _leaves(tree: dict, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def _tensor(leaf, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype.  numpy has no bfloat16:
+    a JAX bf16 leaf arrives with the ``ml_dtypes`` dtype, which torch does
+    not take, so it goes through float32 (exact) and back to bfloat16."""
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def model_params_from_numpy(cfg, tree: dict,
+                            device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A JAX zoo model's parameter tree (numpy leaves) -> the port model's
+    state dict, for ``model.load_state_dict``.  Stacked layer leaves are
+    split on their leading dim (Zamba2's ``(n_groups, group, …)`` leaves
+    flattened first); each leaf keeps its dtype."""
+    dev = resolve_device(device)
+    stacks = _stacks(cfg)
+    out = {}
+    for path, leaf in _leaves(tree):
+        t = _tensor(leaf, dev)
+        dims = stacks.get(path[0])
+        if dims is None:
+            out[".".join(path)] = t
+            continue
+        if tuple(t.shape[:len(dims)]) != dims:
+            raise ValueError(f"{'.'.join(path)}: leading dims "
+                             f"{tuple(t.shape)} are not {dims}")
+        t = t.reshape((-1,) + tuple(t.shape[len(dims):]))
+        for i in range(t.shape[0]):
+            out[".".join((path[0], str(i)) + path[1:])] = t[i]
+    return out
+
+
+def model_params_to_numpy(model) -> dict:
+    """The port model's parameters -> the JAX package's tree, stacked as
+    JAX stacks them.  bf16 leaves come back as float32 (numpy has no
+    bfloat16; the values are exact)."""
+    stacks = _stacks(model.cfg)
+    tree: dict = {}
+    stacked: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    for key, t in model.state_dict().items():
+        t = t.detach().cpu()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        parts = key.split(".")
+        if parts[0] in stacks:
+            stacked.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = a
+        else:
+            _put(tree, parts, a)
+    for path, by_layer in stacked.items():
+        arr = np.stack([by_layer[i] for i in range(len(by_layer))])
+        _put(tree, path, arr.reshape(stacks[path[0]] + arr.shape[1:]))
+    return tree
+
+
+def _put(tree: dict, path: Sequence[str], value) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value

@@ -3,13 +3,19 @@ PyTorch versions and the hand-written CUDA kernels; twin of
 ``repro.kernels.dispatch``.
 
 Every hot-path op with both a plain and a kernel implementation is called
-THROUGH this module (``kl_loss``, ``gram``), selected by a ``KernelPolicy``:
+THROUGH this module (``kl_loss``, ``gram``, ``rwkv6_wkv``, ``mamba2_scan``),
+selected by a ``KernelPolicy``:
 
-* ``kl_mutual`` / ``ridge_gram`` True — the kernel wrapper, which launches
-  the CUDA kernel on a CUDA tensor and runs the plain version on a CPU
-  tensor (inside the same ``autograd.Function`` for the KL, so the CPU tests
-  exercise the closed-form gradient the card uses).  This is "auto";
+* a bit True — the kernel wrapper, which launches the CUDA kernel on a CUDA
+  tensor and runs the plain version on a CPU tensor (inside the same
+  ``autograd.Function`` for the KL, so the CPU tests exercise the
+  closed-form gradient the card uses).  This is "auto";
 * False — the plain PyTorch graph everywhere (the ``"reference"`` preset).
+
+The JAX package reaches its WKV and SSD kernels through the mixers'
+``use_kernel=True`` branch; the port reaches them through the policy's
+``rwkv6_wkv`` / ``mamba2_scan`` bits.  Both branches compute the same
+function.
 
 Presets: ``"reference"`` (plain ops, f32) and ``"kernel"`` (kernels, f32).
 ``"kernel_bf16"`` and the ``BF16`` precision belong to a later slice of the
@@ -24,8 +30,12 @@ import torch
 
 from repro_torch.kernels.kl_mutual import ops as _kl_ops
 from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+from repro_torch.kernels.mamba2_scan import ops as _ssd_ops
+from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 from repro_torch.kernels.ridge_gram import ops as _rg_ops
 from repro_torch.kernels.ridge_gram.ref import gram_ref
+from repro_torch.kernels.rwkv6_wkv import ops as _wkv_ops
+from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 
 
 @dataclass(frozen=True)
@@ -49,6 +59,8 @@ class KernelPolicy:
     """Per-op kernel bits + precision (f32 only in this slice)."""
     kl_mutual: bool = True
     ridge_gram: bool = True
+    rwkv6_wkv: bool = True
+    mamba2_scan: bool = True
     precision: Precision = F32
 
     def __post_init__(self):
@@ -57,7 +69,8 @@ class KernelPolicy:
                 "later slice: mixed (bf16) precision is not ported yet")
 
 
-REFERENCE = KernelPolicy(kl_mutual=False, ridge_gram=False)
+REFERENCE = KernelPolicy(kl_mutual=False, ridge_gram=False, rwkv6_wkv=False,
+                         mamba2_scan=False)
 KERNEL = KernelPolicy()
 
 _NAMED = {"reference": REFERENCE, "kernel": KERNEL}
@@ -111,3 +124,25 @@ def gram(x: torch.Tensor, y: torch.Tensor, *,
     if get_policy(policy).ridge_gram:
         return _rg_ops.gram(x, y)
     return gram_ref(x, y)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, *,
+              policy: PolicyLike = None) -> torch.Tensor:
+    """RWKV6 WKV recurrence; r, k, v, w: (b, L, nh, P), u: (nh, P) ->
+    y (b, L, nh, P) f32."""
+    if get_policy(policy).rwkv6_wkv:
+        return _wkv_ops.rwkv6_wkv(*(a.float().contiguous()
+                                    for a in (r, k, v, w, u)))
+    return rwkv6_wkv_ref(r, k, v, w, u)
+
+
+def mamba2_scan(decay: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, x: torch.Tensor, *,
+                policy: PolicyLike = None) -> torch.Tensor:
+    """Mamba2 SSD scan; decay, dt: (b, L, nh), B, C: (b, L, N), x:
+    (b, L, nh, P) -> y (b, L, nh, P) f32."""
+    if get_policy(policy).mamba2_scan:
+        return _ssd_ops.mamba2_scan(*(a.float().contiguous()
+                                      for a in (decay, dt, B, C, x)))
+    return mamba2_scan_ref(decay, dt, B, C, x)

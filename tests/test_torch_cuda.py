@@ -17,8 +17,15 @@ from repro_torch.data import oran
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.kl_mutual import ops as kl_ops
 from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+from repro_torch.kernels.mamba2_scan import ops as ssd_ops
+from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 from repro_torch.kernels.ridge_gram import ops as rg_ops
 from repro_torch.kernels.ridge_gram.ref import gram_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+from repro_torch.configs.base import get_config
+from repro_torch.models.transformer import build_model
+from repro_torch.runtime.steps import make_prefill_step
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +113,80 @@ def test_trainer_on_card_matches_cpu(cuda):
     for a, b in zip(hc, hp):
         assert abs(a.client_loss - b.client_loss) <= 1e-5
         assert abs(a.server_loss - b.server_loss) <= 1e-5
+
+
+# tolerance of the WKV and SSD kernels against their plain versions,
+# relative to max|y|: both are f32 recurrences summed in another order
+SCAN_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,L,nh,P,w_scale", [
+    (4, 2048, 32, 64, None), (1, 1, 32, 64, None), (2, 100, 5, 64, None),
+    (2, 50, 3, 16, None), (1, 70, 2, 128, None), (1, 33, 2, 32, None),
+    (1, 128, 2, 64, 1e-4)])
+def test_wkv_kernel_matches_plain(cuda, b, L, nh, P, w_scale):
+    r, k, v = (_normal(10 + i, (b, L, nh, P), cuda) for i in range(3))
+    w = (torch.full((b, L, nh, P), w_scale, device=cuda) if w_scale
+         else torch.sigmoid(_normal(13, (b, L, nh, P), cuda)))
+    u = _normal(14, (nh, P), cuda)
+    before = wkv_ops.launches
+    got = wkv_ops.rwkv6_wkv(r, k, v, w, u)
+    assert wkv_ops.launches == before + 1
+    want = rwkv6_wkv_ref(r, k, v, w, u)
+    err = (got - want).abs().max().item()
+    assert err <= SCAN_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,L,nh,N,P,strong", [
+    (4, 2048, 80, 64, 64, False), (1, 1, 80, 64, 64, False),
+    (2, 100, 5, 64, 64, False), (1, 128, 2, 8, 16, True),
+    (2, 37, 3, 16, 32, False), (1, 40, 2, 128, 96, False)])
+def test_ssd_kernel_matches_plain(cuda, b, L, nh, N, P, strong):
+    decay = (torch.full((b, L, nh), 1e-4, device=cuda) if strong else
+             torch.sigmoid(_normal(20, (b, L, nh), cuda)) * 0.6 + 0.35)
+    dt = torch.nn.functional.softplus(_normal(21, (b, L, nh), cuda))
+    B, C = _normal(22, (b, L, N), cuda), _normal(23, (b, L, N), cuda)
+    x = _normal(24, (b, L, nh, P), cuda)
+    before = ssd_ops.launches
+    got = ssd_ops.mamba2_scan(decay, dt, B, C, x)
+    assert ssd_ops.launches == before + 1
+    want = mamba2_scan_ref(decay, dt, B, C, x)
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= SCAN_TOL * want.abs().max().item(), err
+
+
+def test_scan_wrappers_refuse_mixed_devices(cuda):
+    z = torch.zeros(1, 2, 1, 4, device=cuda)
+    with pytest.raises(ValueError):
+        wkv_ops.rwkv6_wkv(z, z, z, z, torch.zeros(1, 4))
+    d = torch.zeros(1, 2, 1, device=cuda)
+    with pytest.raises(ValueError):
+        ssd_ops.mamba2_scan(d, d, torch.zeros(1, 2, 3), d.new_zeros(1, 2, 3),
+                            z)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_reduced_model_on_card_matches_cpu(cuda, arch):
+    """The reduced model in f32: forward logits (through the kernels on the
+    card, the plain scans on the CPU) and 8 decode steps agree, and the
+    prefill launches one scan kernel per layer."""
+    cfg = get_config(arch).reduced()
+    mc = build_model(cfg, device=cuda)
+    mp = build_model(cfg, device="cpu")
+    mp.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
+    tok = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)))
+    counter = wkv_ops if cfg.family == "ssm" else ssd_ops
+    before = counter.launches
+    with torch.no_grad():
+        lc = make_prefill_step(mc)({"tokens": tok.to(cuda)})
+        lp = make_prefill_step(mp)({"tokens": tok})
+        assert counter.launches == before + cfg.n_layers
+        tol = 1e-5 * lp.abs().max().item()
+        assert (lc.cpu() - lp).abs().max().item() <= tol
+        cc, cp = mc.init_cache(2), mp.init_cache(2)
+        for t in range(8):
+            a, cc = mc.decode_step(tok[:, t:t + 1].to(cuda), cc)
+            b, cp = mp.decode_step(tok[:, t:t + 1], cp)
+            assert (a.cpu() - b).abs().max().item() <= tol

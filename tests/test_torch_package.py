@@ -39,9 +39,18 @@ def test_port_files_exist():
                  "core/splitme.py", "kernels/build.py", "kernels/dispatch.py",
                  "kernels/kl_mutual/ops.py", "kernels/kl_mutual/ref.py",
                  "kernels/ridge_gram/ops.py", "kernels/ridge_gram/ref.py",
-                 "convert.py"):
+                 "convert.py", "configs/base.py", "configs/rwkv6_1p6b.py",
+                 "configs/zamba2_2p7b.py", "models/common.py",
+                 "models/attention.py", "models/rwkv6.py", "models/mamba2.py",
+                 "models/transformer.py", "kernels/rwkv6_wkv/ops.py",
+                 "kernels/rwkv6_wkv/ref.py", "kernels/mamba2_scan/ops.py",
+                 "kernels/mamba2_scan/ref.py", "runtime/steps.py",
+                 "serve.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
+    for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
+                "mamba2_scan.cu"):
+        assert (PORT / "kernels" / "csrc" / src).is_file()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -94,6 +103,29 @@ def test_trainer_without_device_needs_a_card():
     t = SplitMeTrainer(*_tiny_trainer_args(), batch_size=4, e_initial=2,
                        device="cpu")
     assert t.x.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_build_model_without_device_needs_a_card(arch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import build_model
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cfg = get_config(arch).reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_serve_without_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.serve"],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+    assert "tok/s" not in out.stdout
 
 
 def test_trainer_rejects_unported_options():

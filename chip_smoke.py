@@ -15,6 +15,15 @@ failure ends the run with a non-zero exit code:
    times: ``kl_mutual`` and ``ridge_gram`` (the SplitMe path), then
    ``rwkv6_wkv`` and ``mamba2_scan`` (the serving path) at b 4, L 2048 and
    at ragged shapes;
+2b. the ``flash_attention`` op at the attention widths of Zamba2-2.7B and
+   Qwen3-14B (and of ``benchmarks/bench_kernels.py``): each full-width case
+   once through the op with the launch counter set to 0 just before and
+   read just after (its main path: no model calls it), then the kernel
+   against its plain version at those and at ragged shapes in f32 and bf16
+   (and the sliding-window case once more in f32), per element within
+   2e-4 in f32 and one bf16 unit in the last place in bf16, with times,
+   bounds and the times of the plain version and of
+   ``scaled_dot_product_attention`` as a yardstick;
 3. the SplitMe path: ``SplitMeTrainer`` on DNN10 at full width, M = 50
    clients of 96 samples, 5 rounds with the Step-4 evaluation on the last,
    then ``finalize()`` + ``evaluate()``; the kernels' launch counters must
@@ -36,6 +45,7 @@ failure ends the run with a non-zero exit code:
 Without a card, or outside the repository, it exits non-zero and prints no
 result.
 """
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -46,10 +56,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# FP32 FLOP/s without tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, FP32
+# FLOP/s without tensor cores and dense bf16 FLOP/s of the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 
 KL_TOL = 1e-5            # |kernel − plain| on per-row KL values of O(1-10)
 GRAM_TOL = 1e-5          # relative to max(|X|ᵀ|Y|), the f32 summation scale
@@ -331,6 +342,216 @@ def check_scan_kernel(torch, name, kernel, plain, cases, make_inputs, bound,
             "library_ms": None, "device_ms": dev_ms, "shape": list(shape)}
 
 
+# the flash_attention op.  Full width: (label, (B, H, KV, S, D), window,
+# dtype); the first is the case of the kernels line's headline numbers
+FLASH_FULL = [
+    ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "bfloat16"),
+    ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "float32"),
+    ("qwen3-14b attention", (4, 40, 8, 2048, 128), None, "bfloat16"),
+    ("qwen3-14b sliding window", (1, 40, 8, 16384, 128), 8192, "bfloat16"),
+    ("bench_kernels.py shape", (1, 4, 2, 512, 64), None, "float32"),
+]
+# correctness at other shapes, each in f32 and bf16: ((B, H, KV, S, D),
+# window, scale); tests/test_kernels.py's four shapes with and without a
+# window, S 1 / 17 / 100 / 1000, D 32 / 64 / 80 / 128, Qwen3-14B's and
+# Zamba2-2.7B's heads, window 512 at S 2048, a window of 1, a scale other
+# than 1/sqrt(D).  The same cases as tests/test_torch_cuda.py's
+# test_flash_kernel_matches_plain: keep the two lists equal
+FLASH_CASES = [
+    ((2, 4, 2, 128, 64), None, None), ((2, 4, 2, 128, 64), 64, None),
+    ((1, 8, 1, 256, 64), None, None), ((1, 8, 1, 256, 64), 64, None),
+    ((2, 3, 3, 96, 32), None, None), ((2, 3, 3, 96, 32), 64, None),
+    ((1, 2, 2, 64, 128), None, None), ((1, 2, 2, 64, 128), 64, None),
+    ((1, 4, 2, 1, 64), None, None), ((1, 4, 2, 17, 80), None, None),
+    ((2, 4, 2, 100, 80), 64, None), ((1, 4, 2, 1000, 128), None, None),
+    ((1, 40, 8, 300, 128), None, None), ((1, 40, 8, 300, 128), 100, None),
+    ((1, 32, 32, 200, 80), None, None), ((1, 4, 2, 2048, 64), 512, None),
+    ((1, 4, 2, 100, 64), 1, None), ((1, 4, 2, 128, 64), None, 0.3),
+]
+# |kernel − plain| ≤ atol + rtol·|plain| per element, as (rtol, atol): in
+# f32 the JAX package's own bound (tests/test_kernels.py), sums in another
+# order; in bf16 one bf16 unit in the last place of the plain output (2^-7
+# of its magnitude), since both sides round an f32 result to nearest, so
+# the bound follows the output's scale
+FLASH_TOL = {"float32": (0.0, 2e-4), "bfloat16": (2 ** -7, 1e-5)}
+
+
+def flash_plain_heads(H, KV, S):
+    """The query heads the plain version runs on: all of them, or beyond S
+    8192 (where 40 heads' f32 scores take about 43 GB) those of KV head 0."""
+    return H // KV if S > 8192 else H
+
+
+def flash_bound(B, H, KV, S, D, window, dtype):
+    """(bound ms, what bounds it, operations): 4·D operations per visible
+    (query, key) pair at the peak of the inputs' type (bf16 tensor cores or
+    FP32); q, k, v read once and o written once."""
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w           # per (batch, head)
+    ops = 4 * D * pairs * B * H
+    item = 2 if dtype == "bfloat16" else 4
+    bytes_t = item * 2 * S * D * (B * H + B * KV) / PEAK_BYTES * 1e3
+    ops_t = ops / (PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32) * 1e3
+    return (max(bytes_t, ops_t), "bytes" if bytes_t >= ops_t else "operations",
+            ops)
+
+
+def flash_phase(torch, port, normal):
+    """Phase 2b: the op's main path, the kernel against its plain version,
+    and the times at full width."""
+    fa = port.fa_ops
+    plain = port.flash_ref
+    F = torch.nn.functional
+
+    def qkv(shape, dtype):
+        B, H, KV, S, D = shape
+        dt = getattr(torch, dtype)
+        return (normal(B, H, S, D).to(dt), normal(B, KV, S, D).to(dt),
+                normal(B, KV, S, D).to(dt))
+
+    inputs = [qkv(shape, dtype) for _, shape, _, dtype in FLASH_FULL]
+
+    # the op's main path: each full-width case once, through the public op;
+    # the plain version and SDPA are made to fail should the op reach them
+    def tripwire(*args, **kwargs):
+        fail("flash_attention reached a non-kernel path on a CUDA tensor")
+    saved = fa.attention, F.scaled_dot_product_attention
+    fa.attention = F.scaled_dot_product_attention = tripwire
+    try:
+        torch.cuda.synchronize()
+        fa.launches = 0
+        outs = [fa.flash_attention(q, k, v, window=w)
+                for (q, k, v), (_, _, w, _) in zip(inputs, FLASH_FULL)]
+        torch.cuda.synchronize()
+        launches = fa.launches
+    finally:
+        fa.attention, F.scaled_dot_product_attention = saved
+    print(f"flash_attention main path: {len(FLASH_FULL)} full-width calls, "
+          f"{launches} launches")
+    check(launches == len(FLASH_FULL),
+          f"flash_attention launched {launches} times, want "
+          f"{len(FLASH_FULL)}")
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+
+    def compare(label, got, want, dtype):
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and bool(torch.isfinite(got).all()),
+              f"flash_attention {label}: output {got.dtype} {got.shape}")
+        rtol, atol = FLASH_TOL[dtype]
+        diff = (got.float() - want.float()).abs()
+        bound = atol + rtol * want.float().abs()
+        err, share = diff.max().item(), (diff / bound).max().item()
+        print(f"flash_attention {label}: max |kernel - plain| = {err:.3e}, "
+              f"at most {share:.3f} of atol {atol} + rtol {rtol} x |plain|")
+        check(bool((diff <= bound).all()),
+              f"flash_attention disagrees at {label}")
+        worst[dtype] = max(worst[dtype], err)
+        del diff, bound
+
+    for (label, shape, w, dtype), (q, k, v), o in zip(FLASH_FULL, inputs,
+                                                      outs):
+        B, H, KV, S, D = shape
+        g = flash_plain_heads(H, KV, S)
+        want = plain(q[:, :g], k[:, :g * KV // H], v[:, :g * KV // H],
+                     scale=D ** -0.5, window=w)
+        if g < H:
+            label += f" (query heads 0-{g - 1}, KV head 0)"
+        compare(f"{shape} window {w} {dtype} [{label}]", o[:, :g], want,
+                dtype)
+        del want
+    del outs
+    # the sliding-window case once more in f32, so that the config's own
+    # window and its tile skipping are held at f32 precision
+    label, shape, w, _ = next(c for c in FLASH_FULL if c[2] is not None)
+    B, H, KV, S, D = shape
+    q, k, v = qkv(shape, "float32")
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, window=w)
+    check(fa.launches == before + 1,
+          f"flash_attention did not launch at {shape}")
+    g = flash_plain_heads(H, KV, S)
+    want = plain(q[:, :g], k[:, :1], v[:, :1], scale=D ** -0.5, window=w)
+    compare(f"{shape} window {w} float32 [{label} (query heads 0-{g - 1}, "
+            f"KV head 0)]", got[:, :g], want, "float32")
+    del q, k, v, got, want
+    for shape, w, scale in FLASH_CASES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = qkv(shape, dtype)
+            before = fa.launches
+            got = fa.flash_attention(q, k, v, scale=scale, window=w)
+            check(fa.launches == before + 1,
+                  f"flash_attention did not launch at {shape}")
+            want = plain(q, k, v, scale=scale or shape[-1] ** -0.5, window=w)
+            compare(f"{shape} window {w} scale {scale} {dtype}", got, want,
+                    dtype)
+    torch.cuda.empty_cache()
+
+    # times at full width
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    cases = []
+    for (label, shape, w, dtype), (q, k, v) in zip(FLASH_FULL, inputs):
+        B, H, KV, S, D = shape
+        big = S > 8192
+        reps, inner = (3, 1) if big else (10, 2) if S >= 2048 else (50, 10)
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=w),
+                     reps=reps, inner=inner, warmup=2)
+        dev_ms, = device_ms(
+            torch, [lambda: fa.flash_attention(q, k, v, window=w)],
+            ("flash_attn_ffma_kernel",), calls=3 if big else 10)
+        g = flash_plain_heads(H, KV, S)
+        kp, vp = k[:, :g * KV // H], v[:, :g * KV // H]
+        plain_ms = time_ms(torch, lambda: plain(q[:, :g], kp, vp,
+                                                scale=D ** -0.5, window=w),
+                           reps=3, inner=1, warmup=1)
+        torch.cuda.empty_cache()
+        # the yardstick: one SDPA call (never called by the port); the
+        # window needs a boolean mask, and the KV heads repeated beforehand
+        # so that the memory-efficient kernel takes it
+        if w is None:
+            ctx = contextlib.nullcontext()
+            kr, vr, mask, gqa = k, v, None, True
+        else:
+            ctx = sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
+            kr, vr = (a.repeat_interleave(H // KV, 1) for a in (k, v))
+            i = torch.arange(S, device=q.device)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            gqa = False
+        with ctx:
+            lib_ms = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, kr, vr, attn_mask=mask, is_causal=w is None,
+                    enable_gqa=gqa, scale=D ** -0.5),
+                reps=reps, inner=inner, warmup=2)
+        del kr, vr, mask
+        torch.cuda.empty_cache()
+        bound_ms, bound_by, ops = flash_bound(*shape, w, dtype)
+        rate = ops / (dev_ms or ms) / 1e9
+        print(f"flash_attention {shape} window {w} {dtype} [{label}]: "
+              f"{ms * 1e3:.2f} us/call (events), device "
+              f"{dev_ms and round(dev_ms * 1e3, 2)} us = {rate:.2f} TFLOP/s, "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}), plain "
+              f"{plain_ms * 1e3:.1f} us"
+              f"{f' (on {g} query heads of KV head 0)' if g < H else ''}, "
+              f"SDPA {lib_ms * 1e3:.2f} us")
+        cases.append({"label": label, "shape": list(shape), "window": w,
+                      "dtype": dtype, "ms": ms, "device_ms": dev_ms,
+                      "plain_ms": plain_ms,
+                      "plain_heads": g, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+    del inputs
+    torch.cuda.empty_cache()
+    head = cases[0]
+    return {"launches": launches,
+            "max_abs_err": max(worst.values()),
+            "max_abs_err_f32": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"],
+            **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "device_ms", "shape")},
+            "cases": cases}
+
+
 def zoo_counter(port, cfg):
     """The launch counter of the scan kernel of ``cfg``'s family."""
     return port.wkv_ops if cfg.family == "ssm" else port.ssd_ops
@@ -538,6 +759,9 @@ def import_port():
     from repro_torch.data import oran
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention as flash_ref)
     from repro_torch.kernels.kl_mutual import ops as kl_ops
     from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
     from repro_torch.kernels.ridge_gram import ops as rg_ops
@@ -694,6 +918,10 @@ def main() -> int:
         ssd_bound, ("ssd_kernel",))
     torch.cuda.synchronize()
 
+    # -- 2b. flash_attention vs plain ----------------------------------------
+    phase("2b. flash_attention vs plain")
+    flash = flash_phase(torch, port, normal)
+
     # -- 3. SplitMe path -----------------------------------------------------
     phase("3. SplitMe path")
     X, yl = port.oran.generate(n_per_class=2000, seed=0)
@@ -800,6 +1028,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
          "replaces": "src/repro/kernels/mamba2_scan/mamba2_scan.py:70",
          **ssd},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:77",
+         **flash},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,6 +15,8 @@ from repro_torch.core.cost import SystemParams
 from repro_torch.core.splitme import SplitMeTrainer
 from repro_torch.data import oran
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention as fa_ref
 from repro_torch.kernels.kl_mutual import ops as kl_ops
 from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
@@ -190,3 +192,61 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
             a, cc = mc.decode_step(tok[:, t:t + 1].to(cuda), cc)
             b, cp = mp.decode_step(tok[:, t:t + 1], cp)
             assert (a.cpu() - b).abs().max().item() <= tol
+
+
+# the flash-attention kernel against its plain version, (rtol, atol) per
+# element: in f32 the JAX package's own bound (tests/test_kernels.py), sums
+# in another order; in bf16 one bf16 unit in the last place of the plain
+# output (2^-7 of its magnitude), since both sides round an f32 result to
+# nearest, so the bound follows the output's scale
+FA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2 ** -7, 1e-5)}
+
+
+# the same cases as chip_smoke.py's FLASH_CASES: keep the two lists equal
+@pytest.mark.parametrize("B,H,KV,S,D,window,scale", [
+    (2, 4, 2, 128, 64, None, None), (2, 4, 2, 128, 64, 64, None),
+    (1, 8, 1, 256, 64, None, None), (1, 8, 1, 256, 64, 64, None),
+    (2, 3, 3, 96, 32, None, None), (2, 3, 3, 96, 32, 64, None),
+    (1, 2, 2, 64, 128, None, None), (1, 2, 2, 64, 128, 64, None),
+    (1, 4, 2, 1, 64, None, None), (1, 4, 2, 17, 80, None, None),
+    (2, 4, 2, 100, 80, 64, None), (1, 4, 2, 1000, 128, None, None),
+    (1, 40, 8, 300, 128, None, None), (1, 40, 8, 300, 128, 100, None),
+    (1, 32, 32, 200, 80, None, None),
+    (1, 4, 2, 2048, 64, 512, None), (1, 4, 2, 100, 64, 1, None),
+    (1, 4, 2, 128, 64, None, 0.3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, H, KV, S, D, window, scale,
+                                    dtype):
+    q = _normal(30, (B, H, S, D), cuda).to(dtype)
+    k = _normal(31, (B, KV, S, D), cuda).to(dtype)
+    v = _normal(32, (B, KV, S, D), cuda).to(dtype)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, scale=scale, window=window)
+    assert fa_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa_ref(q, k, v, scale=scale or D ** -0.5, window=window)
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_kernel_never_reaches_the_plain_version_or_sdpa(cuda,
+                                                              monkeypatch):
+    def trip(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a non-kernel path")
+    monkeypatch.setattr(fa_ops, "attention", trip)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        trip)
+    q = _normal(33, (1, 4, 100, 64), cuda)
+    kv = _normal(34, (1, 2, 100, 64), cuda)
+    before = fa_ops.launches
+    assert torch.isfinite(fa_ops.flash_attention(q, kv, kv)).all()
+    assert fa_ops.launches == before + 1
+
+
+def test_flash_wrapper_refuses_mixed_devices(cuda):
+    q = torch.zeros(1, 2, 4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, torch.zeros(1, 2, 4, 8), q)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(torch.zeros(1, 2, 4, 8), q, q)

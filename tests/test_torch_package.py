@@ -45,11 +45,12 @@ def test_port_files_exist():
                  "models/transformer.py", "kernels/rwkv6_wkv/ops.py",
                  "kernels/rwkv6_wkv/ref.py", "kernels/mamba2_scan/ops.py",
                  "kernels/mamba2_scan/ref.py", "runtime/steps.py",
-                 "serve.py"):
+                 "serve.py", "kernels/flash_attention/ops.py",
+                 "kernels/flash_attention/ref.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
-                "mamba2_scan.cu"):
+                "mamba2_scan.cu", "flash_attention.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
 
 

@@ -17,13 +17,15 @@ failure ends the run with a non-zero exit code:
    at ragged shapes;
 2b. the ``flash_attention`` op at the attention widths of Zamba2-2.7B and
    Qwen3-14B (and of ``benchmarks/bench_kernels.py``): each full-width case
-   once through the op with the launch counter set to 0 just before and
-   read just after (its main path: no model calls it), then the kernel
-   against its plain version at those and at ragged shapes in f32 and bf16
-   (and the sliding-window case once more in f32), per element within
-   2e-4 in f32 and one bf16 unit in the last place in bf16, with times,
-   bounds and the times of the plain version and of
-   ``scaled_dot_product_attention`` as a yardstick;
+   once through the op with the launch counters set to 0 just before and
+   read just after (its main path: no model calls it); the bf16 cases must
+   launch the tensor-core kernel and the f32 cases the FFMA kernel, by
+   their per-route counters.  Then the kernels against the plain version
+   at those and at ragged shapes in f32 and bf16 (and the sliding-window
+   case once more in f32), per element within 2e-4 in f32 and one bf16
+   unit in the last place in bf16, with times, bounds and the times of the
+   plain version, of ``scaled_dot_product_attention`` as a yardstick and,
+   for the bf16 cases, of the FFMA kernel on the same inputs;
 3. the SplitMe path: ``SplitMeTrainer`` on DNN10 at full width, M = 50
    clients of 96 samples, 5 rounds with the Step-4 evaluation on the last,
    then ``finalize()`` + ``evaluate()``; the kernels' launch counters must
@@ -355,8 +357,12 @@ FLASH_FULL = [
 # window, scale); tests/test_kernels.py's four shapes with and without a
 # window, S 1 / 17 / 100 / 1000, D 32 / 64 / 80 / 128, Qwen3-14B's and
 # Zamba2-2.7B's heads, window 512 at S 2048, a window of 1, a scale other
-# than 1/sqrt(D).  The same cases as tests/test_torch_cuda.py's
-# test_flash_kernel_matches_plain: keep the two lists equal
+# than 1/sqrt(D), D 40 (a multiple of 8, not of 16), D 20 (the FFMA kernel
+# in bf16 too), Qwen3-14B's group of 5 at S 1000 with window 100, S 65 (one
+# key past a tile), D 16, 96 and 112 (with 32-80 and 128 above, every padded
+# head size of the tensor-core kernel).  The same cases as
+# tests/test_torch_cuda.py's test_flash_kernel_matches_plain: keep the two
+# lists equal
 FLASH_CASES = [
     ((2, 4, 2, 128, 64), None, None), ((2, 4, 2, 128, 64), 64, None),
     ((1, 8, 1, 256, 64), None, None), ((1, 8, 1, 256, 64), 64, None),
@@ -367,6 +373,10 @@ FLASH_CASES = [
     ((1, 40, 8, 300, 128), None, None), ((1, 40, 8, 300, 128), 100, None),
     ((1, 32, 32, 200, 80), None, None), ((1, 4, 2, 2048, 64), 512, None),
     ((1, 4, 2, 100, 64), 1, None), ((1, 4, 2, 128, 64), None, 0.3),
+    ((1, 4, 2, 100, 40), None, None), ((1, 4, 2, 100, 20), None, None),
+    ((1, 40, 8, 1000, 128), 100, None), ((1, 4, 2, 65, 64), None, None),
+    ((1, 4, 2, 100, 16), 64, None), ((1, 4, 2, 100, 96), 64, None),
+    ((1, 4, 2, 65, 112), None, None),
 ]
 # |kernel − plain| ≤ atol + rtol·|plain| per element, as (rtol, atol): in
 # f32 the JAX package's own bound (tests/test_kernels.py), sums in another
@@ -374,6 +384,23 @@ FLASH_CASES = [
 # of its magnitude), since both sides round an f32 result to nearest, so
 # the bound follows the output's scale
 FLASH_TOL = {"float32": (0.0, 2e-4), "bfloat16": (2 ** -7, 1e-5)}
+
+
+# the kernel of each route of the op (ops._route): the tensor-core kernel
+# and the FFMA kernel
+FLASH_KERNELS = {
+    "mma": ("flash_attn_mma_kernel",
+            "src/repro_torch/kernels/csrc/flash_attention_mma.cu"),
+    "ffma": ("flash_attn_ffma_kernel",
+             "src/repro_torch/kernels/csrc/flash_attention.cu"),
+}
+
+
+def flash_route(fa, q, k, v):
+    """The route the op takes for q, k, v, by its own rule; the output is
+    a fresh allocation of torch's, aligned as q is."""
+    return fa._route(q.dtype, q.shape[-1],
+                     (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr()))
 
 
 def flash_plain_heads(H, KV, S):
@@ -419,22 +446,31 @@ def flash_phase(torch, port, normal):
     fa.attention = F.scaled_dot_product_attention = tripwire
     try:
         torch.cuda.synchronize()
-        fa.launches = 0
+        fa.launches = fa.launches_mma = fa.launches_ffma = 0
         outs = [fa.flash_attention(q, k, v, window=w)
                 for (q, k, v), (_, _, w, _) in zip(inputs, FLASH_FULL)]
         torch.cuda.synchronize()
-        launches = fa.launches
+        launches = {"mma": fa.launches_mma, "ffma": fa.launches_ffma}
+        total = fa.launches
     finally:
         fa.attention, F.scaled_dot_product_attention = saved
+    # every full-width case has a model's head size (80, 128) on aligned
+    # tensors: bf16 takes the tensor-core kernel, f32 the FFMA kernel
+    dtypes = [dt for _, _, _, dt in FLASH_FULL]
+    want_launches = {"mma": dtypes.count("bfloat16"),
+                     "ffma": dtypes.count("float32")}
     print(f"flash_attention main path: {len(FLASH_FULL)} full-width calls, "
-          f"{launches} launches")
-    check(launches == len(FLASH_FULL),
-          f"flash_attention launched {launches} times, want "
-          f"{len(FLASH_FULL)}")
+          f"{total} launches: {launches['mma']} of the tensor-core kernel, "
+          f"{launches['ffma']} of the FFMA kernel")
+    check(total == len(FLASH_FULL) and launches == want_launches,
+          f"flash_attention launched {total} times, by route {launches}, "
+          f"want {len(FLASH_FULL)}, {want_launches}")
 
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    # worst |kernel - plain|, and worst share of the bound, by (route,
+    # dtype), for the pairs compared
+    worst, worst_share = {}, {}
 
-    def compare(label, got, want, dtype):
+    def compare(label, got, want, dtype, route):
         check(got.dtype == want.dtype and got.shape == want.shape
               and bool(torch.isfinite(got).all()),
               f"flash_attention {label}: output {got.dtype} {got.shape}")
@@ -442,12 +478,26 @@ def flash_phase(torch, port, normal):
         diff = (got.float() - want.float()).abs()
         bound = atol + rtol * want.float().abs()
         err, share = diff.max().item(), (diff / bound).max().item()
-        print(f"flash_attention {label}: max |kernel - plain| = {err:.3e}, "
-              f"at most {share:.3f} of atol {atol} + rtol {rtol} x |plain|")
+        print(f"flash_attention {label} [{route}]: max |kernel - plain| = "
+              f"{err:.3e}, at most {share:.3f} of atol {atol} + rtol {rtol} "
+              f"x |plain|")
         check(bool((diff <= bound).all()),
               f"flash_attention disagrees at {label}")
-        worst[dtype] = max(worst[dtype], err)
+        worst[route, dtype] = max(worst.get((route, dtype), 0.0), err)
+        worst_share[route, dtype] = max(worst_share.get((route, dtype), 0.0),
+                                        share)
         del diff, bound
+
+    def launch_once(route, call):
+        """call() through the op, checked to launch the ``route`` kernel
+        once."""
+        counter = f"launches_{route}"
+        before = fa.launches, getattr(fa, counter)
+        out = call()
+        check((fa.launches, getattr(fa, counter)) == (before[0] + 1,
+                                                      before[1] + 1),
+              f"flash_attention did not launch its {route} kernel")
+        return out
 
     for (label, shape, w, dtype), (q, k, v), o in zip(FLASH_FULL, inputs,
                                                       outs):
@@ -458,7 +508,7 @@ def flash_phase(torch, port, normal):
         if g < H:
             label += f" (query heads 0-{g - 1}, KV head 0)"
         compare(f"{shape} window {w} {dtype} [{label}]", o[:, :g], want,
-                dtype)
+                dtype, flash_route(fa, q, k, v))
         del want
     del outs
     # the sliding-window case once more in f32, so that the config's own
@@ -466,39 +516,48 @@ def flash_phase(torch, port, normal):
     label, shape, w, _ = next(c for c in FLASH_FULL if c[2] is not None)
     B, H, KV, S, D = shape
     q, k, v = qkv(shape, "float32")
-    before = fa.launches
-    got = fa.flash_attention(q, k, v, window=w)
-    check(fa.launches == before + 1,
-          f"flash_attention did not launch at {shape}")
+    got = launch_once("ffma", lambda: fa.flash_attention(q, k, v, window=w))
     g = flash_plain_heads(H, KV, S)
     want = plain(q[:, :g], k[:, :1], v[:, :1], scale=D ** -0.5, window=w)
     compare(f"{shape} window {w} float32 [{label} (query heads 0-{g - 1}, "
-            f"KV head 0)]", got[:, :g], want, "float32")
+            f"KV head 0)]", got[:, :g], want, "float32", "ffma")
     del q, k, v, got, want
     for shape, w, scale in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(shape, dtype)
-            before = fa.launches
-            got = fa.flash_attention(q, k, v, scale=scale, window=w)
-            check(fa.launches == before + 1,
-                  f"flash_attention did not launch at {shape}")
+            route = flash_route(fa, q, k, v)
+            got = launch_once(route, lambda: fa.flash_attention(
+                q, k, v, scale=scale, window=w))
             want = plain(q, k, v, scale=scale or shape[-1] ** -0.5, window=w)
             compare(f"{shape} window {w} scale {scale} {dtype}", got, want,
-                    dtype)
+                    dtype, route)
     torch.cuda.empty_cache()
 
     # times at full width
     from torch.nn.attention import SDPBackend, sdpa_kernel
     cases = []
+    names = tuple(name for name, _ in FLASH_KERNELS.values())
     for (label, shape, w, dtype), (q, k, v) in zip(FLASH_FULL, inputs):
         B, H, KV, S, D = shape
+        route = flash_route(fa, q, k, v)
         big = S > 8192
         reps, inner = (3, 1) if big else (10, 2) if S >= 2048 else (50, 10)
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=w),
                      reps=reps, inner=inner, warmup=2)
         dev_ms, = device_ms(
             torch, [lambda: fa.flash_attention(q, k, v, window=w)],
-            ("flash_attn_ffma_kernel",), calls=3 if big else 10)
+            names, calls=3 if big else 10)
+        # the FFMA kernel on the same bf16 inputs, the time the tensor-core
+        # kernel replaces
+        ffma_ms = None
+        if route == "mma":
+            o = torch.empty_like(q)
+            win = 0 if w is None else w
+            ffma_ms, = device_ms(
+                torch, [lambda: fa._launch("ffma", q, k, v, o, D ** -0.5,
+                                           win)],
+                (FLASH_KERNELS["ffma"][0],), calls=3 if big else 10)
+            del o
         g = flash_plain_heads(H, KV, S)
         kp, vp = k[:, :g * KV // H], v[:, :g * KV // H]
         plain_ms = time_ms(torch, lambda: plain(q[:, :g], kp, vp,
@@ -527,29 +586,45 @@ def flash_phase(torch, port, normal):
         torch.cuda.empty_cache()
         bound_ms, bound_by, ops = flash_bound(*shape, w, dtype)
         rate = ops / (dev_ms or ms) / 1e9
-        print(f"flash_attention {shape} window {w} {dtype} [{label}]: "
-              f"{ms * 1e3:.2f} us/call (events), device "
+        print(f"flash_attention {shape} window {w} {dtype} [{label}] "
+              f"[{route}]: {ms * 1e3:.2f} us/call (events), device "
               f"{dev_ms and round(dev_ms * 1e3, 2)} us = {rate:.2f} TFLOP/s, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_by}), plain "
               f"{plain_ms * 1e3:.1f} us"
               f"{f' (on {g} query heads of KV head 0)' if g < H else ''}, "
-              f"SDPA {lib_ms * 1e3:.2f} us")
+              f"SDPA {lib_ms * 1e3:.2f} us" + (
+                  f", FFMA kernel on these inputs {ffma_ms * 1e3:.2f} us"
+                  if ffma_ms else ""))
         cases.append({"label": label, "shape": list(shape), "window": w,
-                      "dtype": dtype, "ms": ms, "device_ms": dev_ms,
+                      "dtype": dtype, "route": route, "ms": ms,
+                      "device_ms": dev_ms, "tflops": rate,
                       "plain_ms": plain_ms,
                       "plain_heads": g, "library_ms": lib_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by})
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "ffma_device_ms": ffma_ms})
     del inputs
     torch.cuda.empty_cache()
-    head = cases[0]
-    return {"launches": launches,
-            "max_abs_err": max(worst.values()),
-            "max_abs_err_f32": worst["float32"],
-            "max_abs_err_bf16": worst["bfloat16"],
+    out = {}
+    for route in FLASH_KERNELS:
+        mine = [c for c in cases if c["route"] == route]
+        head = mine[0]
+        # the errors of the dtypes this route was compared in (the
+        # tensor-core kernel takes bf16 only)
+        errs = {}
+        for dt, short in (("float32", "f32"), ("bfloat16", "bf16")):
+            if (route, dt) in worst:
+                errs[f"max_abs_err_{short}"] = worst[route, dt]
+                errs[f"max_share_of_tol_{short}"] = worst_share[route, dt]
+        out[route] = {
+            "launches": launches[route],
+            "max_abs_err": max(worst[key] for key in worst
+                               if key[0] == route),
+            **errs,
             **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms",
-                                          "device_ms", "shape")},
-            "cases": cases}
+                                          "device_ms", "shape", "dtype")},
+            "cases": mine}
+    return out
 
 
 def zoo_counter(port, cfg):
@@ -806,7 +881,8 @@ def main() -> int:
           f"{port.build.last_build_seconds:.2f} s) -> {port.build.build()}")
     for src, log in sorted(port.build.last_build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 print(f"  ptxas {src}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1028,10 +1104,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
          "replaces": "src/repro/kernels/mamba2_scan/mamba2_scan.py:70",
          **ssd},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:77",
-         **flash},
+        *({"name": f"flash_attention ({route})", "route": "cuda",
+           "source": FLASH_KERNELS[route][1],
+           "replaces": "src/repro/kernels/flash_attention/flash_attention.py"
+                       ":77",
+           **flash[route]} for route in FLASH_KERNELS),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

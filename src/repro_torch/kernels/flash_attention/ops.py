@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention_mma.cu``
+and ``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention_pallas``) and its wrapper
@@ -10,8 +11,20 @@ visible key, and any S is taken without padding.  Bound on an H100 SXM at
 Zamba2-2.7B's shared attention (B 4, H = KV = 32, S 2048, D 80): 8.6e10
 operations over the visible (query, key) pairs, 0.087 ms at the bf16
 tensor-core rate and 1.28 ms at the FP32 rate, against 168 MB of bf16 bytes
-(0.050 ms).  The kernel computes in FP32 FFMA, without tensor cores.  It has
-no backward, as the JAX package's has none.
+(0.050 ms).
+
+A CUDA call takes one of two kernels, by a fixed rule (``_route``) on the
+inputs' dtype, head size and alignment, never by trying one and then the
+other:
+
+* ``"mma"``: bfloat16 with D a multiple of 8 and 16-byte-aligned pointers
+  (every model width: 32, 64, 80, 128).  Tensor cores (``mma.sync`` bf16 with
+  f32 accumulation, K/V through a ``cp.async`` ring), P split into two bf16
+  halves so that P·V keeps ~16 bits of p.
+* ``"ffma"``: float32, and bfloat16 with another D or an unaligned pointer.
+  FP32 FFMA without tensor cores.
+
+It has no backward, as the JAX package's has none.
 """
 from __future__ import annotations
 
@@ -24,14 +37,29 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention
 
-# kernel launches since the last reset (plain counter; callers set it to 0)
+# kernel launches since the last reset (plain counters; callers set them to
+# 0): all of them, and those of each route
 launches = 0
+launches_mma = 0
+launches_ffma = 0
 
 MAX_D = 128          # the head size the kernel's register tiles allow
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_MMA_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+def _route(dtype: torch.dtype, D: int, ptrs) -> str:
+    """The kernel a CUDA call launches: ``"mma"`` (tensor cores) for
+    bfloat16 with D a multiple of 8 and every pointer in ``ptrs`` 16-byte
+    aligned (its copies move 16 bytes), else ``"ffma"``."""
+    if (dtype == torch.bfloat16 and D % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "mma"
+    return "ffma"
 
 
 def _check(q, k, v, causal, window) -> None:
@@ -82,9 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     i - window < j <= i.  ``scale`` defaults to 1/sqrt(D).  The JAX op's
     ``bq``/``bk`` are TPU tile sizes and have no counterpart here.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream."""
-    global launches
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    that ``_route`` picks, on the current stream."""
     _check(q, k, v, causal, window)
     B, H, S, D = q.shape
     if scale is None:
@@ -99,11 +126,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return o
     # a window of S keys or more masks nothing; 0 tells the kernel "none"
     win = 0 if window is None or window >= S else int(window)
-    fn = build.function("flash_attention_fwd", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 _DTYPES[q.dtype], B, H, k.shape[1], S, D, float(scale), win,
-                 torch.cuda.current_stream().cuda_stream)
-    build.check(err, "flash_attention")
-    launches += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    _launch(_route(q.dtype, D, ptrs), q, k, v, o, float(scale), win)
     return o
+
+
+def _launch(route: str, q, k, v, o, scale: float, win: int) -> None:
+    """Launch the ``route`` kernel on the current stream (``win`` 0: no
+    window); raises on the launch's error."""
+    global launches, launches_mma, launches_ffma
+    B, H, S, D = q.shape
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "mma":
+            err = build.function("flash_attention_mma_fwd", _MMA_ARGTYPES)(
+                *ptrs, B, H, k.shape[1], S, D, scale, win, stream)
+        else:
+            err = build.function("flash_attention_fwd", _ARGTYPES)(
+                *ptrs, _DTYPES[q.dtype], B, H, k.shape[1], S, D, scale, win,
+                stream)
+    build.check(err, f"flash_attention ({route})")
+    launches += 1
+    if route == "mma":
+        launches_mma += 1
+    else:
+        launches_ffma += 1

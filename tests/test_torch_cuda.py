@@ -213,16 +213,25 @@ FA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2 ** -7, 1e-5)}
     (1, 40, 8, 300, 128, None, None), (1, 40, 8, 300, 128, 100, None),
     (1, 32, 32, 200, 80, None, None),
     (1, 4, 2, 2048, 64, 512, None), (1, 4, 2, 100, 64, 1, None),
-    (1, 4, 2, 128, 64, None, 0.3)])
+    (1, 4, 2, 128, 64, None, 0.3), (1, 4, 2, 100, 40, None, None),
+    (1, 4, 2, 100, 20, None, None), (1, 40, 8, 1000, 128, 100, None),
+    (1, 4, 2, 65, 64, None, None), (1, 4, 2, 100, 16, 64, None),
+    (1, 4, 2, 100, 96, 64, None), (1, 4, 2, 65, 112, None, None)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, H, KV, S, D, window, scale,
                                     dtype):
     q = _normal(30, (B, H, S, D), cuda).to(dtype)
     k = _normal(31, (B, KV, S, D), cuda).to(dtype)
     v = _normal(32, (B, KV, S, D), cuda).to(dtype)
-    before = fa_ops.launches
+    # the op's own rule picks the kernel (the output is a fresh allocation,
+    # aligned as q is); the routes are tested in tests/test_torch_flash.py
+    route = fa_ops._route(dtype, D, (q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), q.data_ptr()))
+    counter = f"launches_{route}"
+    before = fa_ops.launches, getattr(fa_ops, counter)
     got = fa_ops.flash_attention(q, k, v, scale=scale, window=window)
-    assert fa_ops.launches == before + 1
+    assert (fa_ops.launches, getattr(fa_ops, counter)) == (before[0] + 1,
+                                                           before[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     want = fa_ref(q, k, v, scale=scale or D ** -0.5, window=window)
     rtol, atol = FA_TOL[dtype]
@@ -242,6 +251,22 @@ def test_flash_kernel_never_reaches_the_plain_version_or_sdpa(cuda,
     before = fa_ops.launches
     assert torch.isfinite(fa_ops.flash_attention(q, kv, kv)).all()
     assert fa_ops.launches == before + 1
+
+
+def test_flash_unaligned_bf16_takes_the_ffma_kernel(cuda):
+    shape = (1, 4, 100, 64)
+    buf = torch.empty(1 + 4 * 100 * 64, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:].view(shape)          # 2 bytes past an aligned address
+    q.copy_(_normal(35, shape, cuda))
+    kv = _normal(36, (1, 2, 100, 64), cuda).to(torch.bfloat16)
+    before = fa_ops.launches_mma, fa_ops.launches_ffma
+    got = fa_ops.flash_attention(q, kv, kv)
+    assert (fa_ops.launches_mma, fa_ops.launches_ffma) == (before[0],
+                                                           before[1] + 1)
+    rtol, atol = FA_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(),
+                               fa_ref(q, kv, kv, scale=0.125).float(),
+                               rtol=rtol, atol=atol)
 
 
 def test_flash_wrapper_refuses_mixed_devices(cuda):

@@ -12,25 +12,28 @@ failure ends the run with a non-zero exit code:
 2. kernels vs their plain PyTorch versions on the card, at the main-path
    shapes and at ragged ones, with times (CUDA events and the profiler),
    bounds, and the plain version's and (for the Gram) one library call's
-   times: ``kl_mutual`` and ``ridge_gram`` (the SplitMe path), then
-   ``rwkv6_wkv`` and ``mamba2_scan`` (the serving path) at b 4, L 2048 and
-   at ragged shapes;
+   times: ``kl_mutual`` and ``ridge_gram`` (the SplitMe path: the 16 single
+   Grams of one Step-4 evaluation, then its 8 ``gram_pair`` launches timed,
+   with the wrapper's host µs a call and the matmul yardstick's events and
+   device time), then ``rwkv6_wkv`` and ``mamba2_scan`` (the serving path)
+   at b 4, L 2048 and at ragged shapes;
 2b. the ``flash_attention`` op at the attention widths of Zamba2-2.7B and
    Qwen3-14B (and of ``benchmarks/bench_kernels.py``): each full-width case
    once through the op with the launch counters set to 0 just before and
-   read just after (its main path: no model calls it); the bf16 cases must
-   launch the tensor-core kernel and the f32 cases the FFMA kernel, by
+   read just after (its main path: no model calls it); aligned bf16 cases
+   must launch the bf16 tensor-core kernel, aligned f32 cases the 3xTF32
+   kernel and the case with q off 16-byte alignment the FFMA kernel, by
    their per-route counters.  Then the kernels against the plain version
    at those and at ragged shapes in f32 and bf16 (and the sliding-window
    case once more in f32), per element within 2e-4 in f32 and one bf16
    unit in the last place in bf16, with times, bounds and the times of the
    plain version, of ``scaled_dot_product_attention`` as a yardstick and,
-   for the bf16 cases, of the FFMA kernel on the same inputs;
+   for the tensor-core cases, of the FFMA kernel on the same inputs;
 3. the SplitMe path: ``SplitMeTrainer`` on DNN10 at full width, M = 50
    clients of 96 samples, 5 rounds with the Step-4 evaluation on the last,
    then ``finalize()`` + ``evaluate()``; the kernels' launch counters must
-   show that every KL loss and every Gram went through the kernels; one
-   more round under the profiler gives the device's busy time and idle
+   show that every KL loss and every Gram pair went through the kernels;
+   one more round under the profiler gives the device's busy time and idle
    share;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
@@ -59,10 +62,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, FP32
-# FLOP/s without tensor cores and dense bf16 FLOP/s of the tensor cores
+# FLOP/s without tensor cores, and dense bf16 and TF32 FLOP/s of the tensor
+# cores.  f32-accurate products on the tensor cores take three TF32
+# products each (3xTF32), so the least time for f32 matrix work is its
+# operations at PEAK_TF32 / 3 (165 TFLOP/s, above PEAK_FP32)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+PEAK_F32_MMA = PEAK_TF32 / 3
 
 KL_TOL = 1e-5            # |kernel − plain| on per-row KL values of O(1-10)
 GRAM_TOL = 1e-5          # relative to max(|X|ᵀ|Y|), the f32 summation scale
@@ -121,12 +129,27 @@ def time_ms(torch, fn, reps: int = 50, inner: int = 10,
     return statistics.median(times)
 
 
+def host_us(torch, fn, calls: int = 100) -> float:
+    """Host time per call of ``fn`` in µs: ``calls`` calls back to back with
+    no synchronisation (the wrapper's checks, allocation and launch), after a
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def device_ms(torch, fns, names, calls: int = 20, tries: int = 3):
     """Device time per call of each callable in ``fns`` from torch.profiler:
-    the summed time of the kernels whose names contain one of ``names``.
-    A trace now and then comes back without the kernels' events; such a
-    trace is taken again, up to ``tries`` times, and None stands where every
-    try held none."""
+    the summed time of the kernels whose names contain one of ``names``, or
+    of every kernel in the window when ``names`` is None.  A trace now and
+    then comes back without the kernels' events; such a trace is taken
+    again, up to ``tries`` times, and None stands where every try held
+    none."""
     from torch.profiler import ProfilerActivity, profile
     out = []
     for fn in fns:
@@ -138,10 +161,11 @@ def device_ms(torch, fns, names, calls: int = 20, tries: int = 3):
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-            total = sum(getattr(e, "device_time_total",
-                                getattr(e, "cuda_time_total", 0.0))
-                        for e in prof.key_averages()
-                        if any(n in e.key for n in names))
+            evts = prof.key_averages()
+            total = (device_busy_ms(evts) * 1e3 if names is None else
+                     sum(getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0))
+                         for e in evts if any(n in e.key for n in names)))
             if total > 0:
                 break
         out.append(total / calls / 1e3 if total > 0 else None)
@@ -248,14 +272,20 @@ def step4_vs_plain(torch, port, trainer, gamma):
     return rel, cond, trainer.evaluate(got), trainer.evaluate(want)
 
 
+def main_path_gram_pairs(cfg, n):
+    """(n, d1, d2) of the 8 Gram pairs of one Step-4 inversion: per server
+    layer the bias-augmented layer input O (n, d1) and the target Z (n,
+    d2), whose OᵀO and OᵀZ one gram_pair launch computes."""
+    dims = cfg.layer_dims[cfg.split_index:]
+    return [(n, dims[l] + 1, dims[l + 1]) for l in range(len(dims) - 1)]
+
+
 def main_path_gram_shapes(cfg, n):
     """(n, d1, d2) of the 16 Grams of one Step-4 inversion: per server
     layer OᵀO and OᵀZ on the bias-augmented layer input."""
-    dims = cfg.layer_dims[cfg.split_index:]
     shapes = []
-    for l in range(len(dims) - 1):
-        d_in = dims[l] + 1
-        shapes += [(n, d_in, d_in), (n, d_in, dims[l + 1])]
+    for _, d_in, d_out in main_path_gram_pairs(cfg, n):
+        shapes += [(n, d_in, d_in), (n, d_in, d_out)]
     return shapes
 
 
@@ -345,38 +375,58 @@ def check_scan_kernel(torch, name, kernel, plain, cases, make_inputs, bound,
 
 
 # the flash_attention op.  Full width: (label, (B, H, KV, S, D), window,
-# dtype); the first is the case of the kernels line's headline numbers
+# dtype, offset), q lying ``offset`` elements past a 16-byte-aligned address
+# (0: aligned, as a fresh tensor is); the first case of each route gives that
+# route's headline numbers in the kernels line
 FLASH_FULL = [
-    ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "bfloat16"),
-    ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "float32"),
-    ("qwen3-14b attention", (4, 40, 8, 2048, 128), None, "bfloat16"),
-    ("qwen3-14b sliding window", (1, 40, 8, 16384, 128), 8192, "bfloat16"),
-    ("bench_kernels.py shape", (1, 4, 2, 512, 64), None, "float32"),
+    ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "bfloat16",
+     0),
+    ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "float32",
+     0),
+    ("qwen3-14b attention", (4, 40, 8, 2048, 128), None, "bfloat16", 0),
+    ("qwen3-14b sliding window", (1, 40, 8, 16384, 128), 8192, "bfloat16",
+     0),
+    ("bench_kernels.py shape", (1, 4, 2, 512, 64), None, "float32", 0),
+    ("zamba2-2.7b shared attention, q 4 bytes off 16-byte alignment",
+     (4, 32, 32, 2048, 80), None, "float32", 1),
 ]
 # correctness at other shapes, each in f32 and bf16: ((B, H, KV, S, D),
-# window, scale); tests/test_kernels.py's four shapes with and without a
-# window, S 1 / 17 / 100 / 1000, D 32 / 64 / 80 / 128, Qwen3-14B's and
+# window, scale, v_shift), V drawn from a normal plus v_shift;
+# tests/test_kernels.py's four shapes with and without a window, S 1 / 17 /
+# 100 / 1000, D 32 / 64 / 80 / 128, Qwen3-14B's and
 # Zamba2-2.7B's heads, window 512 at S 2048, a window of 1, a scale other
 # than 1/sqrt(D), D 40 (a multiple of 8, not of 16), D 20 (the FFMA kernel
 # in bf16 too), Qwen3-14B's group of 5 at S 1000 with window 100, S 65 (one
 # key past a tile), D 16, 96 and 112 (with 32-80 and 128 above, every padded
-# head size of the tensor-core kernel).  The same cases as
+# head size of the tensor-core kernel); and V of one sign (v_shift 2) at
+# Zamba2-2.7B's shape and at Qwen3-14B's window of 8192 on one KV head,
+# where the terms of P V all have one sign and a truncating tensor-core sum
+# would drift with the number of keys (256 tiles of keys in the window
+# case).  The same cases as
 # tests/test_torch_cuda.py's test_flash_kernel_matches_plain: keep the two
 # lists equal
 FLASH_CASES = [
-    ((2, 4, 2, 128, 64), None, None), ((2, 4, 2, 128, 64), 64, None),
-    ((1, 8, 1, 256, 64), None, None), ((1, 8, 1, 256, 64), 64, None),
-    ((2, 3, 3, 96, 32), None, None), ((2, 3, 3, 96, 32), 64, None),
-    ((1, 2, 2, 64, 128), None, None), ((1, 2, 2, 64, 128), 64, None),
-    ((1, 4, 2, 1, 64), None, None), ((1, 4, 2, 17, 80), None, None),
-    ((2, 4, 2, 100, 80), 64, None), ((1, 4, 2, 1000, 128), None, None),
-    ((1, 40, 8, 300, 128), None, None), ((1, 40, 8, 300, 128), 100, None),
-    ((1, 32, 32, 200, 80), None, None), ((1, 4, 2, 2048, 64), 512, None),
-    ((1, 4, 2, 100, 64), 1, None), ((1, 4, 2, 128, 64), None, 0.3),
-    ((1, 4, 2, 100, 40), None, None), ((1, 4, 2, 100, 20), None, None),
-    ((1, 40, 8, 1000, 128), 100, None), ((1, 4, 2, 65, 64), None, None),
-    ((1, 4, 2, 100, 16), 64, None), ((1, 4, 2, 100, 96), 64, None),
-    ((1, 4, 2, 65, 112), None, None),
+    ((2, 4, 2, 128, 64), None, None, 0.0),
+    ((2, 4, 2, 128, 64), 64, None, 0.0),
+    ((1, 8, 1, 256, 64), None, None, 0.0),
+    ((1, 8, 1, 256, 64), 64, None, 0.0), ((2, 3, 3, 96, 32), None, None, 0.0),
+    ((2, 3, 3, 96, 32), 64, None, 0.0), ((1, 2, 2, 64, 128), None, None, 0.0),
+    ((1, 2, 2, 64, 128), 64, None, 0.0), ((1, 4, 2, 1, 64), None, None, 0.0),
+    ((1, 4, 2, 17, 80), None, None, 0.0), ((2, 4, 2, 100, 80), 64, None, 0.0),
+    ((1, 4, 2, 1000, 128), None, None, 0.0),
+    ((1, 40, 8, 300, 128), None, None, 0.0),
+    ((1, 40, 8, 300, 128), 100, None, 0.0),
+    ((1, 32, 32, 200, 80), None, None, 0.0),
+    ((1, 4, 2, 2048, 64), 512, None, 0.0), ((1, 4, 2, 100, 64), 1, None, 0.0),
+    ((1, 4, 2, 128, 64), None, 0.3, 0.0),
+    ((1, 4, 2, 100, 40), None, None, 0.0),
+    ((1, 4, 2, 100, 20), None, None, 0.0),
+    ((1, 40, 8, 1000, 128), 100, None, 0.0),
+    ((1, 4, 2, 65, 64), None, None, 0.0), ((1, 4, 2, 100, 16), 64, None, 0.0),
+    ((1, 4, 2, 100, 96), 64, None, 0.0),
+    ((1, 4, 2, 65, 112), None, None, 0.0),
+    ((4, 32, 32, 2048, 80), None, None, 2.0),
+    ((1, 5, 1, 16384, 128), 8192, None, 2.0),
 ]
 # |kernel − plain| ≤ atol + rtol·|plain| per element, as (rtol, atol): in
 # f32 the JAX package's own bound (tests/test_kernels.py), sums in another
@@ -386,14 +436,25 @@ FLASH_CASES = [
 FLASH_TOL = {"float32": (0.0, 2e-4), "bfloat16": (2 ** -7, 1e-5)}
 
 
-# the kernel of each route of the op (ops._route): the tensor-core kernel
-# and the FFMA kernel
+# the kernel of each route of the op (ops._route): bf16 and 3xTF32 on the
+# tensor cores, and the FFMA kernel
 FLASH_KERNELS = {
     "mma": ("flash_attn_mma_kernel",
             "src/repro_torch/kernels/csrc/flash_attention_mma.cu"),
+    "tf32x3": ("flash_attn_tf32_kernel",
+               "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"),
     "ffma": ("flash_attn_ffma_kernel",
              "src/repro_torch/kernels/csrc/flash_attention.cu"),
 }
+
+
+def flash_want_route(dtype, D, offset):
+    """The route a full-width case should take, by the op's documented rule
+    written out independently of ops._route: the tensor cores for D % 8 ==
+    0 on aligned tensors (bf16 or 3xTF32), else FFMA."""
+    if offset or D % 8:
+        return "ffma"
+    return "mma" if dtype == "bfloat16" else "tf32x3"
 
 
 def flash_route(fa, q, k, v):
@@ -410,17 +471,21 @@ def flash_plain_heads(H, KV, S):
 
 
 def flash_bound(B, H, KV, S, D, window, dtype):
-    """(bound ms, what bounds it, operations): 4·D operations per visible
-    (query, key) pair at the peak of the inputs' type (bf16 tensor cores or
-    FP32); q, k, v read once and o written once."""
+    """(bound ms, what bounds it, operations, bound ms at the FP32 rate or
+    None): 4·D operations per visible (query, key) pair at the tensor-core
+    peak of the inputs' type (bf16, or f32-accurate 3xTF32 at PEAK_TF32 /
+    3); q, k, v read once and o written once.  For f32 the bound at the
+    FP32 rate without tensor cores is given beside."""
     w = S if window is None else min(window, S)
     pairs = w * (w + 1) // 2 + (S - w) * w           # per (batch, head)
     ops = 4 * D * pairs * B * H
     item = 2 if dtype == "bfloat16" else 4
     bytes_t = item * 2 * S * D * (B * H + B * KV) / PEAK_BYTES * 1e3
-    ops_t = ops / (PEAK_BF16 if dtype == "bfloat16" else PEAK_FP32) * 1e3
+    ops_t = ops / (PEAK_BF16 if dtype == "bfloat16" else PEAK_F32_MMA) * 1e3
+    fp32_t = (None if dtype == "bfloat16" else
+              max(bytes_t, ops / PEAK_FP32 * 1e3))
     return (max(bytes_t, ops_t), "bytes" if bytes_t >= ops_t else "operations",
-            ops)
+            ops, fp32_t)
 
 
 def flash_phase(torch, port, normal):
@@ -430,13 +495,19 @@ def flash_phase(torch, port, normal):
     plain = port.flash_ref
     F = torch.nn.functional
 
-    def qkv(shape, dtype):
+    def qkv(shape, dtype, offset=0):
+        """q, k, v from the generator; q ``offset`` elements past the start
+        of a fresh (aligned) allocation."""
         B, H, KV, S, D = shape
         dt = getattr(torch, dtype)
-        return (normal(B, H, S, D).to(dt), normal(B, KV, S, D).to(dt),
-                normal(B, KV, S, D).to(dt))
+        q = normal(B, H, S, D).to(dt)
+        if offset:
+            buf = torch.empty(offset + q.numel(), dtype=dt, device=q.device)
+            q = buf[offset:].view(q.shape).copy_(q)
+        return q, normal(B, KV, S, D).to(dt), normal(B, KV, S, D).to(dt)
 
-    inputs = [qkv(shape, dtype) for _, shape, _, dtype in FLASH_FULL]
+    inputs = [qkv(shape, dtype, off)
+              for _, shape, _, dtype, off in FLASH_FULL]
 
     # the op's main path: each full-width case once, through the public op;
     # the plain version and SDPA are made to fail should the op reach them
@@ -446,21 +517,25 @@ def flash_phase(torch, port, normal):
     fa.attention = F.scaled_dot_product_attention = tripwire
     try:
         torch.cuda.synchronize()
-        fa.launches = fa.launches_mma = fa.launches_ffma = 0
+        fa.launches = fa.launches_mma = fa.launches_tf32x3 = 0
+        fa.launches_ffma = 0
         outs = [fa.flash_attention(q, k, v, window=w)
-                for (q, k, v), (_, _, w, _) in zip(inputs, FLASH_FULL)]
+                for (q, k, v), (_, _, w, _, _) in zip(inputs, FLASH_FULL)]
         torch.cuda.synchronize()
-        launches = {"mma": fa.launches_mma, "ffma": fa.launches_ffma}
+        launches = {route: getattr(fa, f"launches_{route}")
+                    for route in FLASH_KERNELS}
         total = fa.launches
     finally:
         fa.attention, F.scaled_dot_product_attention = saved
-    # every full-width case has a model's head size (80, 128) on aligned
-    # tensors: bf16 takes the tensor-core kernel, f32 the FFMA kernel
-    dtypes = [dt for _, _, _, dt in FLASH_FULL]
-    want_launches = {"mma": dtypes.count("bfloat16"),
-                     "ffma": dtypes.count("float32")}
+    # every full-width case has a model's head size (64, 80, 128): aligned
+    # bf16 takes the bf16 tensor-core kernel, aligned f32 the 3xTF32 one,
+    # and the case with q off alignment the FFMA kernel
+    want = [flash_want_route(dt, shape[-1], off)
+            for _, shape, _, dt, off in FLASH_FULL]
+    want_launches = {route: want.count(route) for route in FLASH_KERNELS}
     print(f"flash_attention main path: {len(FLASH_FULL)} full-width calls, "
-          f"{total} launches: {launches['mma']} of the tensor-core kernel, "
+          f"{total} launches: {launches['mma']} of the bf16 tensor-core "
+          f"kernel, {launches['tf32x3']} of the 3xTF32 kernel, "
           f"{launches['ffma']} of the FFMA kernel")
     check(total == len(FLASH_FULL) and launches == want_launches,
           f"flash_attention launched {total} times, by route {launches}, "
@@ -499,8 +574,8 @@ def flash_phase(torch, port, normal):
               f"flash_attention did not launch its {route} kernel")
         return out
 
-    for (label, shape, w, dtype), (q, k, v), o in zip(FLASH_FULL, inputs,
-                                                      outs):
+    for (label, shape, w, dtype, _), (q, k, v), o in zip(FLASH_FULL, inputs,
+                                                         outs):
         B, H, KV, S, D = shape
         g = flash_plain_heads(H, KV, S)
         want = plain(q[:, :g], k[:, :g * KV // H], v[:, :g * KV // H],
@@ -513,31 +588,43 @@ def flash_phase(torch, port, normal):
     del outs
     # the sliding-window case once more in f32, so that the config's own
     # window and its tile skipping are held at f32 precision
-    label, shape, w, _ = next(c for c in FLASH_FULL if c[2] is not None)
+    label, shape, w, _, _ = next(c for c in FLASH_FULL if c[2] is not None)
     B, H, KV, S, D = shape
     q, k, v = qkv(shape, "float32")
-    got = launch_once("ffma", lambda: fa.flash_attention(q, k, v, window=w))
+    route = flash_route(fa, q, k, v)
+    got = launch_once(route, lambda: fa.flash_attention(q, k, v, window=w))
     g = flash_plain_heads(H, KV, S)
     want = plain(q[:, :g], k[:, :1], v[:, :1], scale=D ** -0.5, window=w)
     compare(f"{shape} window {w} float32 [{label} (query heads 0-{g - 1}, "
-            f"KV head 0)]", got[:, :g], want, "float32", "ffma")
+            f"KV head 0)]", got[:, :g], want, "float32", route)
     del q, k, v, got, want
-    for shape, w, scale in FLASH_CASES:
+    for shape, w, scale, v_shift in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(shape, dtype)
+            v = v + v_shift
             route = flash_route(fa, q, k, v)
             got = launch_once(route, lambda: fa.flash_attention(
                 q, k, v, scale=scale, window=w))
             want = plain(q, k, v, scale=scale or shape[-1] ** -0.5, window=w)
-            compare(f"{shape} window {w} scale {scale} {dtype}", got, want,
-                    dtype, route)
+            compare(f"{shape} window {w} scale {scale} v + {v_shift} "
+                    f"{dtype}", got, want, dtype, route)
+            del q, k, v, got, want
+    # q off 16-byte alignment, in both dtypes: the FFMA kernel
+    shape = (1, 4, 2, 100, 64)
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = qkv(shape, dtype, offset=1)
+        route = flash_route(fa, q, k, v)
+        check(route == "ffma", f"unaligned {dtype} q routed to {route}")
+        got = launch_once(route, lambda: fa.flash_attention(q, k, v))
+        want = plain(q, k, v, scale=shape[-1] ** -0.5)
+        compare(f"{shape} q unaligned {dtype}", got, want, dtype, route)
     torch.cuda.empty_cache()
 
     # times at full width
     from torch.nn.attention import SDPBackend, sdpa_kernel
     cases = []
     names = tuple(name for name, _ in FLASH_KERNELS.values())
-    for (label, shape, w, dtype), (q, k, v) in zip(FLASH_FULL, inputs):
+    for (label, shape, w, dtype, off), (q, k, v) in zip(FLASH_FULL, inputs):
         B, H, KV, S, D = shape
         route = flash_route(fa, q, k, v)
         big = S > 8192
@@ -547,10 +634,10 @@ def flash_phase(torch, port, normal):
         dev_ms, = device_ms(
             torch, [lambda: fa.flash_attention(q, k, v, window=w)],
             names, calls=3 if big else 10)
-        # the FFMA kernel on the same bf16 inputs, the time the tensor-core
-        # kernel replaces
+        # the FFMA kernel on the same inputs, the time the tensor-core
+        # kernels replace
         ffma_ms = None
-        if route == "mma":
+        if route != "ffma":
             o = torch.empty_like(q)
             win = 0 if w is None else w
             ffma_ms, = device_ms(
@@ -566,7 +653,9 @@ def flash_phase(torch, port, normal):
         torch.cuda.empty_cache()
         # the yardstick: one SDPA call (never called by the port); the
         # window needs a boolean mask, and the KV heads repeated beforehand
-        # so that the memory-efficient kernel takes it
+        # so that the memory-efficient kernel takes it; a q off alignment is
+        # given to it as an aligned copy (its kernel faults on the view)
+        qs = q.clone() if off else q
         if w is None:
             ctx = contextlib.nullcontext()
             kr, vr, mask, gqa = k, v, None, True
@@ -579,17 +668,19 @@ def flash_phase(torch, port, normal):
         with ctx:
             lib_ms = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    q, kr, vr, attn_mask=mask, is_causal=w is None,
+                    qs, kr, vr, attn_mask=mask, is_causal=w is None,
                     enable_gqa=gqa, scale=D ** -0.5),
                 reps=reps, inner=inner, warmup=2)
-        del kr, vr, mask
+        del qs, kr, vr, mask
         torch.cuda.empty_cache()
-        bound_ms, bound_by, ops = flash_bound(*shape, w, dtype)
+        bound_ms, bound_by, ops, fp32_ms = flash_bound(*shape, w, dtype)
         rate = ops / (dev_ms or ms) / 1e9
         print(f"flash_attention {shape} window {w} {dtype} [{label}] "
               f"[{route}]: {ms * 1e3:.2f} us/call (events), device "
               f"{dev_ms and round(dev_ms * 1e3, 2)} us = {rate:.2f} TFLOP/s, "
-              f"bound {bound_ms * 1e3:.2f} us ({bound_by}), plain "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by}"
+              + (f"; at the FP32 rate {fp32_ms * 1e3:.2f} us" if fp32_ms
+                 else "") + "), plain "
               f"{plain_ms * 1e3:.1f} us"
               f"{f' (on {g} query heads of KV head 0)' if g < H else ''}, "
               f"SDPA {lib_ms * 1e3:.2f} us" + (
@@ -601,15 +692,15 @@ def flash_phase(torch, port, normal):
                       "plain_ms": plain_ms,
                       "plain_heads": g, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "ffma_device_ms": ffma_ms})
+                      "bound_fp32_ms": fp32_ms, "ffma_device_ms": ffma_ms})
     del inputs
     torch.cuda.empty_cache()
     out = {}
     for route in FLASH_KERNELS:
         mine = [c for c in cases if c["route"] == route]
         head = mine[0]
-        # the errors of the dtypes this route was compared in (the
-        # tensor-core kernel takes bf16 only)
+        # the errors of the dtypes this route was compared in (each
+        # tensor-core kernel takes one dtype)
         errs = {}
         for dt, short in (("float32", "f32"), ("bfloat16", "bf16")):
             if (route, dt) in worst:
@@ -936,52 +1027,93 @@ def main() -> int:
 
     n = 4800
     shapes = main_path_gram_shapes(port.DNN10, n)
+    pairs = main_path_gram_pairs(port.DNN10, n)
     check(len(shapes) == 16 and shapes[0] == (n, 257, 257)
-          and shapes[-1] == (n, 17, 3), f"main-path Gram shapes {shapes}")
+          and shapes[-1] == (n, 17, 3) and len(pairs) == 8,
+          f"main-path Gram shapes {shapes}")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gram_err, gram_rel = 0.0, 0.0
-    g_ms = g_plain = g_lib = g_bound = g_ops_t = g_bytes_t = 0.0
-    g_calls = []
-    for nn, d1, d2 in shapes + [(777, 45, 19)]:
-        x, y = normal(nn, d1), normal(nn, d2)
-        got, want = rg_ops.gram(x, y), port.gram_ref(x, y)
+
+    def gram_check(label, got, want, x, y):
+        """got within GRAM_TOL of want, relative to max(|X|ᵀ|Y|); the
+        absolute and relative errors."""
         scale = (x.abs().T @ y.abs()).max().item()
         err = (got - want).abs().max().item()
-        check(err <= GRAM_TOL * scale,
-              f"ridge_gram disagrees at {(nn, d1, d2)}: {err} > "
-              f"{GRAM_TOL} x {scale}")
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape
+              and err <= GRAM_TOL * scale,
+              f"ridge_gram disagrees at {label}: {err} > {GRAM_TOL} x "
+              f"{scale}")
+        return err, err / scale
+
+    # the 16 single Grams (gram, the JAX op's twin) and a ragged one
+    for nn, d1, d2 in shapes + [(777, 45, 19)]:
+        x, y = normal(nn, d1), normal(nn, d2)
+        got = rg_ops.gram(x, y)
+        err, rel = gram_check((nn, d1, d2), got, port.gram_ref(x, y), x, y)
         check(torch.equal(got, rg_ops.gram(x, y)),
               f"ridge_gram not deterministic at {(nn, d1, d2)}")
-        gram_err, gram_rel = max(gram_err, err), max(gram_rel, err / scale)
-        if (nn, d1, d2) not in shapes:
-            print(f"ridge_gram {(nn, d1, d2)}: max err {err:.3e} "
-                  f"(tol {GRAM_TOL} x {scale:.1f})")
-            continue
-        ms = time_ms(torch, lambda: rg_ops.gram(x, y))
-        plain = time_ms(torch, lambda: port.gram_ref(x, y))
-        lib = time_ms(torch, lambda: torch.matmul(x.T, y))
-        g_calls.append(lambda x=x, y=y: rg_ops.gram(x, y))
-        ops_t = 2 * nn * d1 * d2 / PEAK_FP32 * 1e3
-        bytes_t = (nn * (d1 + d2) + d1 * d2) * 4 / PEAK_BYTES * 1e3
-        splits, _ = rg_ops.split_plan(nn, d1, d2, sms)
-        print(f"ridge_gram {(nn, d1, d2)}: err {err:.3e} (tol {GRAM_TOL} x "
-              f"{scale:.1f}), splits {splits}, {ms * 1e3:.2f} us (events), "
-              f"plain {plain * 1e3:.2f} us, matmul {lib * 1e3:.2f} us, "
-              f"bound {max(ops_t, bytes_t) * 1e3:.3f} us")
+        gram_err, gram_rel = max(gram_err, err), max(gram_rel, rel)
+        print(f"ridge_gram gram {(nn, d1, d2)}: err {err:.3e} (relative "
+              f"{rel:.3e}, tol {GRAM_TOL})")
+    # the 8 layer pairs as the main path takes them: OᵀO and OᵀZ from one
+    # gram_pair launch, timed beside the plain version and two matmuls
+    g_ms = g_plain = g_lib = g_bound = g_bound_fp32 = 0.0
+    g_ops_t = g_bytes_t = g_host = 0.0
+    g_calls, lib_calls = [], []
+    for nn, d1, d2 in pairs:
+        o, z = normal(nn, d1), normal(nn, d2)
+        got = rg_ops.gram_pair(o, z)
+        again = rg_ops.gram_pair(o, z)
+        err = 0.0
+        for g, a, y in zip(got, again, (o, z)):
+            e, rel = gram_check(f"pair {(nn, d1, d2)}", g,
+                                port.gram_ref(o, y), o, y)
+            check(torch.equal(g, a),
+                  f"ridge_gram pair not deterministic at {(nn, d1, d2)}")
+            err = max(err, e)
+            gram_err, gram_rel = max(gram_err, e), max(gram_rel, rel)
+        ms = time_ms(torch, lambda: rg_ops.gram_pair(o, z))
+        plain = time_ms(torch, lambda: (port.gram_ref(o, o),
+                                        port.gram_ref(o, z)))
+        lib = time_ms(torch, lambda: (torch.matmul(o.T, o),
+                                      torch.matmul(o.T, z)))
+        host = host_us(torch, lambda: rg_ops.gram_pair(o, z))
+        g_calls.append(lambda o=o, z=z: rg_ops.gram_pair(o, z))
+        lib_calls.append(lambda o=o, z=z: (torch.matmul(o.T, o),
+                                           torch.matmul(o.T, z)))
+        # f32 products at the 3xTF32 rate: OᵀO is symmetric, so it needs
+        # its d1·(d1 + 1)/2 distinct entries, 2·n operations each, and OᵀZ
+        # 2·n·d1·d2; O read once, Z once, both results written once
+        flops = nn * d1 * (d1 + 1) + 2 * nn * d1 * d2
+        ops_t = flops / PEAK_F32_MMA * 1e3
+        bytes_t = (nn * (d1 + d2) + d1 * (d1 + d2)) * 4 / PEAK_BYTES * 1e3
+        splits, _ = rg_ops.split_plan(nn, d1, d1 + d2, sms, True)
+        print(f"ridge_gram pair {(nn, d1, d2)}: err {err:.3e}, splits "
+              f"{splits}, {ms * 1e3:.2f} us (events), host {host:.2f} "
+              f"us/call, plain {plain * 1e3:.2f} us, 2 matmuls "
+              f"{lib * 1e3:.2f} us, bound {max(ops_t, bytes_t) * 1e3:.3f} "
+              f"us (at the FP32 rate {flops / PEAK_FP32 * 1e6:.3f} us)")
         g_ms, g_plain, g_lib = g_ms + ms, g_plain + plain, g_lib + lib
         g_bound += max(ops_t, bytes_t)
+        g_bound_fp32 += max(flops / PEAK_FP32 * 1e3, bytes_t)
         g_ops_t, g_bytes_t = g_ops_t + ops_t, g_bytes_t + bytes_t
-    g_devs = device_ms(torch, g_calls, ("gram_partial_kernel",
-                                        "gram_reduce_kernel"))
+        g_host += host
+    g_devs = device_ms(torch, g_calls, ("gram_tf32_kernel",))
     g_dev = None if None in g_devs else sum(g_devs)
-    print(f"ridge_gram device time per shape (us, profiler): "
-          f"{[v and round(v * 1e3, 2) for v in g_devs]}")
-    print(f"ridge_gram, the 16 main-path Grams of one evaluation: "
-          f"{g_ms * 1e3:.2f} us (events), device "
-          f"{g_dev and round(g_dev * 1e3, 2)} us, plain "
-          f"{g_plain * 1e3:.2f} us, matmul {g_lib * 1e3:.2f} us, bound "
-          f"{g_bound * 1e3:.2f} us (operations {g_ops_t * 1e3:.2f} us, bytes "
-          f"{g_bytes_t * 1e3:.2f} us)")
+    lib_devs = device_ms(torch, lib_calls, None)
+    g_lib_dev = None if None in lib_devs else sum(lib_devs)
+    print(f"ridge_gram device time per pair (us, profiler): "
+          f"{[v and round(v * 1e3, 2) for v in g_devs]}; 2 matmuls: "
+          f"{[v and round(v * 1e3, 2) for v in lib_devs]}")
+    print(f"ridge_gram, the 16 main-path Grams of one evaluation in 8 pair "
+          f"launches: {g_ms * 1e3:.2f} us (events), device "
+          f"{g_dev and round(g_dev * 1e3, 2)} us, host "
+          f"{g_host / len(pairs):.2f} us/call, plain {g_plain * 1e3:.2f} "
+          f"us, 16 matmuls {g_lib * 1e3:.2f} us (events), device "
+          f"{g_lib_dev and round(g_lib_dev * 1e3, 2)} us, bound "
+          f"{g_bound * 1e3:.2f} us (operations {g_ops_t * 1e3:.2f} us, "
+          f"bytes {g_bytes_t * 1e3:.2f} us; at the FP32 rate "
+          f"{g_bound_fp32 * 1e3:.2f} us)")
     torch.cuda.synchronize()
 
     wkv = check_scan_kernel(
@@ -1020,8 +1152,10 @@ def main() -> int:
           f"{step4_finite}; launches kl_mutual {kl_n} ridge_gram {rg_n}")
     check(kl_n == ROUNDS * 2 * e_max,
           f"kl_mutual launches {kl_n} != {ROUNDS * 2 * e_max}")
-    check(rg_n == 2 * 16, f"ridge_gram launches {rg_n} != 32 "
-          f"(16 at the last round's evaluation, 16 in finalize)")
+    # one gram_pair launch (OᵀO and OᵀZ) per server layer: 8 at the last
+    # round's evaluation and 8 in finalize
+    check(rg_n == 2 * 8, f"ridge_gram launches {rg_n} != 16 "
+          f"(8 at the last round's evaluation, 8 in finalize)")
     losses = [m.client_loss for m in hist] + [m.server_loss for m in hist]
     check(all(abs(v) < float("inf") for v in losses), "non-finite loss")
     # the client loss falls while the cohort and E stay the same (the cohort
@@ -1096,7 +1230,9 @@ def main() -> int:
          "plain_ms": g_plain, "bound_ms": g_bound,
          "bound_by": "operations" if g_ops_t >= g_bytes_t else "bytes",
          "library_ms": g_lib, "device_ms": g_dev,
-         "max_rel_err": gram_rel, "shape": "16 Grams of one evaluation"},
+         "library_device_ms": g_lib_dev, "host_us_per_call": g_host / 8,
+         "bound_fp32_ms": g_bound_fp32, "max_rel_err": gram_rel,
+         "shape": "16 Grams of one evaluation, 8 gram_pair calls"},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},

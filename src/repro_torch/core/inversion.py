@@ -24,9 +24,9 @@ from repro_torch.kernels.dispatch import PolicyLike
 
 
 def _gram(o: torch.Tensor, z: torch.Tensor, policy: PolicyLike = None):
-    """Returns (OᵀO, OᵀZ) in float32 via the kernel dispatch layer."""
-    pol = dispatch.get_policy(policy)
-    return dispatch.gram(o, o, policy=pol), dispatch.gram(o, z, policy=pol)
+    """Returns (OᵀO, OᵀZ) in float32 via the kernel dispatch layer (one
+    kernel launch for both on the card)."""
+    return dispatch.gram_pair(o, z, policy=policy)
 
 
 def _augment(o: torch.Tensor) -> torch.Tensor:

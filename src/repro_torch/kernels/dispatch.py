@@ -3,8 +3,8 @@ PyTorch versions and the hand-written CUDA kernels; twin of
 ``repro.kernels.dispatch``.
 
 Every hot-path op with both a plain and a kernel implementation is called
-THROUGH this module (``kl_loss``, ``gram``, ``rwkv6_wkv``, ``mamba2_scan``),
-selected by a ``KernelPolicy``:
+THROUGH this module (``kl_loss``, ``gram``, ``gram_pair``, ``rwkv6_wkv``,
+``mamba2_scan``), selected by a ``KernelPolicy``:
 
 * a bit True — the kernel wrapper, which launches the CUDA kernel on a CUDA
   tensor and runs the plain version on a CPU tensor (inside the same
@@ -124,6 +124,15 @@ def gram(x: torch.Tensor, y: torch.Tensor, *,
     if get_policy(policy).ridge_gram:
         return _rg_ops.gram(x, y)
     return gram_ref(x, y)
+
+
+def gram_pair(o: torch.Tensor, z: torch.Tensor, *,
+              policy: PolicyLike = None) -> tuple:
+    """(OᵀO, OᵀZ) with f32 accumulation (o: (n, d1), z: (n, d2)); one
+    kernel launch for both on the card."""
+    if get_policy(policy).ridge_gram:
+        return _rg_ops.gram_pair(o, z)
+    return gram_ref(o, o), gram_ref(o, z)
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

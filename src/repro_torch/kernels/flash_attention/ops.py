@@ -1,5 +1,5 @@
-"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention_mma.cu``
-and ``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention_mma.cu``,
+``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu``).
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention_pallas``) and its wrapper
@@ -10,19 +10,24 @@ tile of 64 rows, head, batch) loops over only the KV tiles that hold a
 visible key, and any S is taken without padding.  Bound on an H100 SXM at
 Zamba2-2.7B's shared attention (B 4, H = KV = 32, S 2048, D 80): 8.6e10
 operations over the visible (query, key) pairs, 0.087 ms at the bf16
-tensor-core rate and 1.28 ms at the FP32 rate, against 168 MB of bf16 bytes
-(0.050 ms).
+tensor-core rate and 0.52 ms at the f32-accurate 3xTF32 rate (495 / 3
+TFLOP/s), against 168 MB of bf16 bytes (0.050 ms).
 
-A CUDA call takes one of two kernels, by a fixed rule (``_route``) on the
-inputs' dtype, head size and alignment, never by trying one and then the
-other:
+A CUDA call takes one of three kernels, by a fixed rule (``_route``) on the
+inputs' dtype, head size and alignment, never by trying one and then
+another:
 
 * ``"mma"``: bfloat16 with D a multiple of 8 and 16-byte-aligned pointers
   (every model width: 32, 64, 80, 128).  Tensor cores (``mma.sync`` bf16 with
   f32 accumulation, K/V through a ``cp.async`` ring), P split into two bf16
   halves so that P·V keeps ~16 bits of p.
-* ``"ffma"``: float32, and bfloat16 with another D or an unaligned pointer.
-  FP32 FFMA without tensor cores.
+* ``"tf32x3"``: float32 with the same D and alignment.  Tensor cores in
+  3xTF32 (each f32 operand split into TF32 high and low parts, three
+  ``mma.sync`` m16n8k8 products), each 8-key step of P·V summed from zero
+  and added to O with rounded FP32 adds, so that O does not drift with the
+  number of keys (the tensor core truncates its sums).
+* ``"ffma"``: everything else (another D, an unaligned pointer), in either
+  dtype.  FP32 FFMA without tensor cores.
 
 It has no backward, as the JAX package's has none.
 """
@@ -41,6 +46,7 @@ from repro_torch.kernels.flash_attention.ref import attention
 # 0): all of them, and those of each route
 launches = 0
 launches_mma = 0
+launches_tf32x3 = 0
 launches_ffma = 0
 
 MAX_D = 128          # the head size the kernel's register tiles allow
@@ -50,15 +56,18 @@ _ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _MMA_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
                  + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# the C entries of the tensor-core routes (one signature, _MMA_ARGTYPES)
+_MMA_ENTRIES = {"mma": "flash_attention_mma_fwd",
+                "tf32x3": "flash_attention_tf32_fwd"}
 
 
 def _route(dtype: torch.dtype, D: int, ptrs) -> str:
-    """The kernel a CUDA call launches: ``"mma"`` (tensor cores) for
-    bfloat16 with D a multiple of 8 and every pointer in ``ptrs`` 16-byte
-    aligned (its copies move 16 bytes), else ``"ffma"``."""
-    if (dtype == torch.bfloat16 and D % 8 == 0
-            and all(p % 16 == 0 for p in ptrs)):
-        return "mma"
+    """The kernel a CUDA call launches.  With D a multiple of 8 and every
+    pointer in ``ptrs`` 16-byte aligned (the tensor-core kernels' copies
+    move 16 bytes): ``"mma"`` for bfloat16, ``"tf32x3"`` for float32.
+    Else ``"ffma"``."""
+    if D % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "mma" if dtype == torch.bfloat16 else "tf32x3"
     return "ffma"
 
 
@@ -134,13 +143,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(route: str, q, k, v, o, scale: float, win: int) -> None:
     """Launch the ``route`` kernel on the current stream (``win`` 0: no
     window); raises on the launch's error."""
-    global launches, launches_mma, launches_ffma
+    global launches, launches_mma, launches_tf32x3, launches_ffma
     B, H, S, D = q.shape
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "mma":
-            err = build.function("flash_attention_mma_fwd", _MMA_ARGTYPES)(
+        if route in _MMA_ENTRIES:
+            err = build.function(_MMA_ENTRIES[route], _MMA_ARGTYPES)(
                 *ptrs, B, H, k.shape[1], S, D, scale, win, stream)
         else:
             err = build.function("flash_attention_fwd", _ARGTYPES)(
@@ -150,5 +159,7 @@ def _launch(route: str, q, k, v, o, scale: float, win: int) -> None:
     launches += 1
     if route == "mma":
         launches_mma += 1
+    elif route == "tf32x3":
+        launches_tf32x3 += 1
     else:
         launches_ffma += 1

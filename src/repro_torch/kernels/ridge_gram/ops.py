@@ -3,14 +3,20 @@
 Replaces ``repro/kernels/ridge_gram/ridge_gram.py`` (``_gram_kernel`` /
 ``gram_pallas``) and its wrapper ``repro/kernels/ridge_gram/ops.py``
 (``gram``).  The TPU kernel accumulates over n in a sequential grid axis;
-here n is split over ``gridDim.z`` so the few 32 × 32 output tiles still fill
-the card, and the per-split partials are summed in a fixed order by a second
-kernel (deterministic, no atomics).  Bound on an H100 SXM: FP32 operations —
-the 16 Grams of one DNN10 evaluation at n = 4800 are 1.7 GFLOP, about 26 µs
-at 67 TFLOP/s without tensor cores.
+here n is split over ``gridDim.z`` so the few 64 × 64 output tiles still
+fill the card, and the last block of each tile sums the per-split partials
+in a fixed order (deterministic, no atomics on the values, one launch).  The
+products run on the tensor cores in 3xTF32, which keeps f32 accuracy; the
+tiles of a symmetric xᵀx below its diagonal are mirrored, not computed.
+``gram_pair(o, z)`` computes a Step-4 layer's OᵀO and OᵀZ in one launch;
+``gram(x, y)`` is the twin of the JAX op.  Bound on an H100 SXM: the
+operations; the 8 pairs of one DNN10 evaluation at n = 4800 need 1.16e9
+operations (n·d1·(d1 + 1) for the symmetric OᵀO, 2·n·d1·d2 for OᵀZ), 7.0
+µs at 495 / 3 TFLOP/s.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -22,12 +28,19 @@ from repro_torch.kernels.ridge_gram.ref import gram_ref
 # kernel launches since the last reset (plain counter; callers set it to 0)
 launches = 0
 
-TILE = 32            # output tile edge and n-chunk of the kernel
-BLOCKS_PER_SM = 4    # split-K target: enough blocks in flight per SM
+TILE = 64            # output tile edge of the kernel
+CHUNK = 32           # rows of n a shared-memory stage holds
+BLOCKS_PER_SM = 2    # split-K target: the blocks an SM holds (the kernel's
+                     # launch bounds); the splits fill one wave of them
+MIN_CHUNKS = 4       # chunks a split takes at least, so that small Grams are
+                     # not cut into more partials than they have work
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
+             + (ctypes.c_void_p,))
+
+# per (device, stream): the kernel's per-tile counters, zeros between
+# launches (each launch's last blocks reset them)
+_counters = {}
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -41,18 +54,23 @@ def _check(x: torch.Tensor, y: torch.Tensor) -> None:
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("gram needs contiguous inputs")
     n, d1, d2 = x.shape[0], x.shape[1], y.shape[1]
-    if min(n, d1, d2) == 0 or max(n, d1 * d2) >= 2 ** 31:
+    if min(n, d1, d2) == 0 or max(n, d1 * (d1 + d2)) >= 2 ** 31:
         raise ValueError(f"gram cannot take n={n}, d1={d1}, d2={d2}")
 
 
-def split_plan(n: int, d1: int, d2: int, sms: int):
-    """(splits, rows_per_split) of the split over n: about BLOCKS_PER_SM
-    blocks per SM in all, each split a whole number of TILE-row chunks."""
-    tiles = -(-d1 // TILE) * -(-d2 // TILE)
-    chunks = -(-n // TILE)
-    want = max(1, min(chunks, -(-BLOCKS_PER_SM * sms // tiles)))
-    rows = -(-chunks // want) * TILE
-    return -(-n // rows), rows
+@functools.lru_cache(maxsize=1024)
+def split_plan(n: int, rows: int, cols: int, sms: int, sym: bool = False):
+    """(splits, rows_per_split) of the split over n for a (rows, cols)
+    result: at most BLOCKS_PER_SM blocks per SM in all (one wave) where
+    the tiles allow, each split a whole number of CHUNK-row chunks and at
+    least MIN_CHUNKS of them.  ``sym``: the first ``rows`` columns are a
+    symmetric xᵀx, whose tiles below the diagonal the kernel leaves out."""
+    t = -(-rows // TILE)
+    tiles = t * -(-cols // TILE) - (t * (t - 1) // 2 if sym else 0)
+    chunks = -(-n // CHUNK)
+    want = max(1, min(chunks // MIN_CHUNKS, BLOCKS_PER_SM * sms // tiles))
+    per = -(-chunks // want) * CHUNK
+    return -(-n // per), per
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,24 +79,80 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """G = XᵀY in f32; x: (n, d1), y: (n, d2) f32 -> (d1, d2).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+def _tile_counters(device: torch.device, stream: int, tiles: int):
+    """The zeroed per-tile counters of ``stream`` on ``device``, at least
+    ``tiles`` of them."""
+    key = (device.index, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 64), dtype=torch.int32, device=device)
+        _counters[key] = c
+    return c
+
+
+def _launch(x: torch.Tensor, y1: torch.Tensor, y2) -> tuple:
+    """xᵀy1 and (when ``y2`` is a tensor) xᵀy2 from one launch of the
+    kernel on the current stream; raises on the launch's error."""
     global launches
-    _check(x, y)
-    if x.device.type == "cpu":
-        return gram_ref(x, y)
-    if x.device.type != "cuda":
-        raise ValueError(f"gram runs on cuda or cpu, not {x.device}")
-    n, d1, d2 = x.shape[0], x.shape[1], y.shape[1]
-    splits, rows = split_plan(n, d1, d2, _sm_count(x.device.index))
-    part = torch.empty((splits, d1, d2), dtype=torch.float32, device=x.device)
-    out = torch.empty((d1, d2), dtype=torch.float32, device=x.device)
-    fn = build.function("ridge_gram_f32", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), part.data_ptr(), out.data_ptr(),
-                 n, d1, d2, splits, rows,
-                 torch.cuda.current_stream().cuda_stream)
+    n, da, d1 = x.shape[0], x.shape[1], y1.shape[1]
+    d2 = 0 if y2 is None else y2.shape[1]
+    dev = x.device
+    splits, rows = split_plan(n, da, d1 + d2, _sm_count(dev.index),
+                              y1 is x)
+    tiles = -(-da // TILE) * -(-(d1 + d2) // TILE)
+    # outputs and the scratch of whole partial tiles in one allocation, the
+    # scratch from a 16-byte boundary
+    at = -(-da * (d1 + d2) // 4) * 4
+    buf = torch.empty(at + (splits * tiles * TILE * TILE if splits > 1
+                            else 0), dtype=torch.float32, device=dev)
+    # (as_strided takes less host time than slicing and viewing)
+    out1 = buf.as_strided((da, d1), (d1, 1))
+    out2 = buf.as_strided((da, d2), (d2, 1), da * d1)
+    fn = build.function("ridge_gram_pair_f32", _ARGTYPES)
+    with _on(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), y1.data_ptr(),
+                 None if y2 is None else y2.data_ptr(), out1.data_ptr(),
+                 out2.data_ptr(),
+                 buf.data_ptr() + 4 * at if splits > 1 else None,
+                 _tile_counters(dev, stream, tiles).data_ptr(), n, da, d1,
+                 d2, splits, rows, stream)
     build.check(err, "ridge_gram")
     launches += 1
-    return out
+    return out1, out2
+
+
+def _on(device: torch.device):
+    """A context that makes ``device`` current, only where it is not."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _placed(x: torch.Tensor) -> bool:
+    """True for a CPU tensor (the plain version), False for a CUDA one (the
+    kernel); raises for any other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"gram runs on cuda or cpu, not {x.device}")
+    return False
+
+
+def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """G = XᵀY in f32; x: (n, d1), y: (n, d2) f32 -> (d1, d2).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel once."""
+    _check(x, y)
+    if _placed(x):
+        return gram_ref(x, y)
+    return _launch(x, y, None)[0]
+
+
+def gram_pair(o: torch.Tensor, z: torch.Tensor) -> tuple:
+    """(OᵀO, OᵀZ) in f32; o: (n, d1), z: (n, d2) f32 -> (d1, d1), (d1, d2).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    once for both."""
+    _check(o, z)
+    if _placed(o):
+        return gram_ref(o, o), gram_ref(o, z)
+    return _launch(o, o, z)

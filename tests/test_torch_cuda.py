@@ -73,7 +73,8 @@ def test_kl_kernel_gradient_matches_plain(cuda):
 
 @pytest.mark.parametrize("n,d1,d2", [(4800, 257, 257), (4800, 257, 128),
                                      (4800, 17, 3), (777, 45, 19),
-                                     (1, 1, 1), (70, 33, 65)])
+                                     (1, 1, 1), (70, 33, 65),
+                                     (300, 64, 128)])
 def test_gram_kernel_matches_plain(cuda, n, d1, d2):
     x, y = _normal(4, (n, d1), cuda), _normal(5, (n, d2), cuda)
     before = rg_ops.launches
@@ -86,11 +87,34 @@ def test_gram_kernel_matches_plain(cuda, n, d1, d2):
     assert torch.equal(got, rg_ops.gram(x, y))
 
 
+# (n, d1, d2) of gram_pair: the 8 server layers of DNN10 at n = 4800 (d1 the
+# bias-augmented input width), ragged n and widths, and widths that are all
+# multiples of 4
+@pytest.mark.parametrize("n,d1,d2", [
+    (4800, 257, 128), (4800, 129, 128), (4800, 129, 64), (4800, 65, 64),
+    (4800, 65, 32), (4800, 33, 32), (4800, 33, 16), (4800, 17, 3),
+    (1, 1, 1), (777, 17, 257), (777, 257, 1), (1, 257, 17), (777, 1, 17),
+    (512, 64, 32)])
+def test_gram_pair_kernel_matches_plain(cuda, n, d1, d2):
+    o, z = _normal(6, (n, d1), cuda), _normal(7, (n, d2), cuda)
+    before = rg_ops.launches
+    got = rg_ops.gram_pair(o, z)
+    assert rg_ops.launches == before + 1
+    for g, y in zip(got, (o, z)):
+        scale = (o.abs().T @ y.abs()).max().item()
+        torch.testing.assert_close(g, gram_ref(o, y), rtol=0,
+                                   atol=1e-5 * scale)
+    again = rg_ops.gram_pair(o, z)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_wrappers_refuse_mixed_devices(cuda):
     with pytest.raises(ValueError):
         kl_ops.kl_rows(torch.zeros(4, 4, device=cuda), torch.zeros(4, 4), 1.0)
     with pytest.raises(ValueError):
         rg_ops.gram(torch.zeros(4, 4, device=cuda), torch.zeros(4, 2))
+    with pytest.raises(ValueError):
+        rg_ops.gram_pair(torch.zeros(4, 4, device=cuda), torch.zeros(4, 2))
 
 
 def test_trainer_on_card_matches_cpu(cuda):
@@ -108,7 +132,8 @@ def test_trainer_on_card_matches_cpu(cuda):
         runs[dev] = (t, hist, kl_ops.launches, rg_ops.launches)
     tc, hc, kl_n, rg_n = runs["cuda"]
     tp, hp, _, _ = runs["cpu"]
-    assert kl_n == 2 * 2 * 4 and rg_n == 2 * 4
+    # one Gram-pair launch per server layer (4) at the one evaluation
+    assert kl_n == 2 * 2 * 4 and rg_n == 4
     for p, q in zip(tc.w_c + tc.w_s_inv, tp.w_c + tp.w_s_inv):
         for k in ("w", "b"):
             torch.testing.assert_close(p[k].cpu(), q[k], rtol=0, atol=1e-5)
@@ -203,30 +228,39 @@ FA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2 ** -7, 1e-5)}
 
 
 # the same cases as chip_smoke.py's FLASH_CASES: keep the two lists equal
-@pytest.mark.parametrize("B,H,KV,S,D,window,scale", [
-    (2, 4, 2, 128, 64, None, None), (2, 4, 2, 128, 64, 64, None),
-    (1, 8, 1, 256, 64, None, None), (1, 8, 1, 256, 64, 64, None),
-    (2, 3, 3, 96, 32, None, None), (2, 3, 3, 96, 32, 64, None),
-    (1, 2, 2, 64, 128, None, None), (1, 2, 2, 64, 128, 64, None),
-    (1, 4, 2, 1, 64, None, None), (1, 4, 2, 17, 80, None, None),
-    (2, 4, 2, 100, 80, 64, None), (1, 4, 2, 1000, 128, None, None),
-    (1, 40, 8, 300, 128, None, None), (1, 40, 8, 300, 128, 100, None),
-    (1, 32, 32, 200, 80, None, None),
-    (1, 4, 2, 2048, 64, 512, None), (1, 4, 2, 100, 64, 1, None),
-    (1, 4, 2, 128, 64, None, 0.3), (1, 4, 2, 100, 40, None, None),
-    (1, 4, 2, 100, 20, None, None), (1, 40, 8, 1000, 128, 100, None),
-    (1, 4, 2, 65, 64, None, None), (1, 4, 2, 100, 16, 64, None),
-    (1, 4, 2, 100, 96, 64, None), (1, 4, 2, 65, 112, None, None)])
+@pytest.mark.parametrize("B,H,KV,S,D,window,scale,v_shift", [
+    (2, 4, 2, 128, 64, None, None, 0.0), (2, 4, 2, 128, 64, 64, None, 0.0),
+    (1, 8, 1, 256, 64, None, None, 0.0), (1, 8, 1, 256, 64, 64, None, 0.0),
+    (2, 3, 3, 96, 32, None, None, 0.0), (2, 3, 3, 96, 32, 64, None, 0.0),
+    (1, 2, 2, 64, 128, None, None, 0.0), (1, 2, 2, 64, 128, 64, None, 0.0),
+    (1, 4, 2, 1, 64, None, None, 0.0), (1, 4, 2, 17, 80, None, None, 0.0),
+    (2, 4, 2, 100, 80, 64, None, 0.0), (1, 4, 2, 1000, 128, None, None, 0.0),
+    (1, 40, 8, 300, 128, None, None, 0.0),
+    (1, 40, 8, 300, 128, 100, None, 0.0),
+    (1, 32, 32, 200, 80, None, None, 0.0),
+    (1, 4, 2, 2048, 64, 512, None, 0.0), (1, 4, 2, 100, 64, 1, None, 0.0),
+    (1, 4, 2, 128, 64, None, 0.3, 0.0), (1, 4, 2, 100, 40, None, None, 0.0),
+    (1, 4, 2, 100, 20, None, None, 0.0),
+    (1, 40, 8, 1000, 128, 100, None, 0.0), (1, 4, 2, 65, 64, None, None, 0.0),
+    (1, 4, 2, 100, 16, 64, None, 0.0), (1, 4, 2, 100, 96, 64, None, 0.0),
+    (1, 4, 2, 65, 112, None, None, 0.0),
+    (4, 32, 32, 2048, 80, None, None, 2.0),
+    (1, 5, 1, 16384, 128, 8192, None, 2.0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, B, H, KV, S, D, window, scale,
-                                    dtype):
+                                    v_shift, dtype):
     q = _normal(30, (B, H, S, D), cuda).to(dtype)
     k = _normal(31, (B, KV, S, D), cuda).to(dtype)
-    v = _normal(32, (B, KV, S, D), cuda).to(dtype)
+    # v_shift 2: V of one sign, so that the terms of P V all have one sign
+    v = (_normal(32, (B, KV, S, D), cuda) + v_shift).to(dtype)
     # the op's own rule picks the kernel (the output is a fresh allocation,
     # aligned as q is); the routes are tested in tests/test_torch_flash.py
     route = fa_ops._route(dtype, D, (q.data_ptr(), k.data_ptr(),
                                      v.data_ptr(), q.data_ptr()))
+    # fresh tensors are aligned: every D % 8 == 0 case takes a tensor-core
+    # kernel, f32 the 3xTF32 one and bf16 the bf16 one
+    assert route == ("ffma" if D % 8 else
+                     "tf32x3" if dtype == torch.float32 else "mma")
     counter = f"launches_{route}"
     before = fa_ops.launches, getattr(fa_ops, counter)
     got = fa_ops.flash_attention(q, k, v, scale=scale, window=window)
@@ -266,6 +300,25 @@ def test_flash_unaligned_bf16_takes_the_ffma_kernel(cuda):
     rtol, atol = FA_TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(),
                                fa_ref(q, kv, kv, scale=0.125).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("case", ["d20", "q_unaligned"])
+def test_flash_f32_off_the_tensor_core_rule_takes_the_ffma_kernel(cuda,
+                                                                  case):
+    D = 20 if case == "d20" else 64
+    shape = (1, 4, 100, D)
+    q = _normal(37, shape, cuda)
+    if case == "q_unaligned":        # 4 bytes past an aligned address
+        buf = torch.empty(1 + q.numel(), device=cuda)
+        q = buf[1:].view(shape).copy_(q)
+    kv = _normal(38, (1, 2, 100, D), cuda)
+    before = fa_ops.launches_tf32x3, fa_ops.launches_ffma
+    got = fa_ops.flash_attention(q, kv, kv)
+    assert (fa_ops.launches_tf32x3, fa_ops.launches_ffma) == (before[0],
+                                                              before[1] + 1)
+    rtol, atol = FA_TOL[torch.float32]
+    torch.testing.assert_close(got, fa_ref(q, kv, kv, scale=D ** -0.5),
                                rtol=rtol, atol=atol)
 
 

@@ -162,24 +162,33 @@ _ALIGNED = (1 << 20, 2 << 20, 3 << 20, 4 << 20)
 @pytest.mark.parametrize("dtype,D,ptrs,route", [
     *[(torch.bfloat16, D, _ALIGNED, "mma")
       for D in (32, 64, 80, 128, 16, 40, 96, 112)],
-    *[(torch.float32, D, _ALIGNED, "ffma") for D in (32, 80, 128)],
+    *[(torch.float32, D, _ALIGNED, "tf32x3") for D in (32, 80, 128)],
     *[(torch.bfloat16, D, _ALIGNED, "ffma") for D in (1, 20, 127)],
     *[(torch.bfloat16, 80, tuple(p + 2 * (i == at) for i, p in
                                  enumerate(_ALIGNED)), "ffma")
       for at in range(4)],
     (torch.bfloat16, 64, tuple(p + 8 for p in _ALIGNED), "ffma"),
+    *[(torch.float32, D, _ALIGNED, "ffma") for D in (1, 20, 127)],
+    *[(torch.float32, 80, tuple(p + 4 * (i == at) for i, p in
+                                enumerate(_ALIGNED)), "ffma")
+      for at in range(4)],
+    (torch.float32, 64, tuple(p + 8 for p in _ALIGNED), "ffma"),
 ], ids=["bf16_d32", "bf16_d64", "bf16_d80", "bf16_d128", "bf16_d16",
         "bf16_d40", "bf16_d96", "bf16_d112", "f32_d32",
         "f32_d80", "f32_d128", "bf16_d1", "bf16_d20", "bf16_d127",
         "q_unaligned", "k_unaligned", "v_unaligned", "o_unaligned",
-        "all_8_byte_aligned"])
+        "all_8_byte_aligned", "f32_d1", "f32_d20", "f32_d127",
+        "f32_q_unaligned", "f32_k_unaligned", "f32_v_unaligned",
+        "f32_o_unaligned", "f32_all_8_byte_aligned"])
 def test_route_by_dtype_head_size_and_alignment(dtype, D, ptrs, route):
     assert fa_ops._route(dtype, D, ptrs) == route
 
 
 def test_cpu_call_launches_neither_route():
-    _, tx = _both(_inputs(5, 1, 4, 2, 33, 80), "bfloat16")
-    before = (fa_ops.launches, fa_ops.launches_mma, fa_ops.launches_ffma)
-    fa_ops.flash_attention(*tx)
-    assert (fa_ops.launches, fa_ops.launches_mma,
+    before = (fa_ops.launches, fa_ops.launches_mma, fa_ops.launches_tf32x3,
+              fa_ops.launches_ffma)
+    for dtype in ("bfloat16", "float32"):
+        _, tx = _both(_inputs(5, 1, 4, 2, 33, 80), dtype)
+        fa_ops.flash_attention(*tx)
+    assert (fa_ops.launches, fa_ops.launches_mma, fa_ops.launches_tf32x3,
             fa_ops.launches_ffma) == before

@@ -15,10 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import inversion as jinversion
 from repro.kernels.kl_mutual import ops as jkl_ops
 from repro.kernels.kl_mutual.kl_mutual import kl_rows_pallas
 from repro.kernels.ridge_gram import ops as jrg_ops
 from repro.kernels.ridge_gram.ridge_gram import gram_pallas
+from repro_torch.configs.splitme_dnn import DNNConfig
+from repro_torch.core import dnn, inversion
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.kl_mutual import ops as kl_ops
 from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
@@ -150,15 +153,89 @@ def test_gram_plain_matches_gram_pallas_direct():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("n,d1,d2", [(100, 257, 128), (777, 17, 3),
+                                     (33, 65, 64), (1, 1, 1)])
+def test_gram_pair_plain_matches_jax_inversion_gram(n, d1, d2):
+    """The port's (OᵀO, OᵀZ) against the JAX inversion's ``_gram`` with its
+    kernel policy, which runs the Pallas kernel in interpret mode."""
+    o, z = _normal(14, (n, d1)), _normal(15, (n, d2))
+    want = jinversion._gram(jnp.asarray(o), jnp.asarray(z), "kernel")
+    to, tz = torch.from_numpy(o), torch.from_numpy(z)
+    before = rg_ops.launches
+    got = rg_ops.gram_pair(to, tz)
+    assert rg_ops.launches == before        # the CPU runs no kernel
+    for g, w, y in zip(got, want, (o, z)):
+        scale = (np.abs(o).T @ np.abs(y)).max()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5 * scale)
+    for pol in ("kernel", "reference"):
+        for g, w in zip(dispatch.gram_pair(to, tz, policy=pol), got):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+    got_inv = inversion._gram(to, tz)
+    for g, w in zip(got_inv, got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_inversion_through_gram_pair_is_unchanged_on_cpu():
+    """invert_inverse_model, whose layers now take both Grams from one
+    gram_pair call, gives on the CPU exactly the weights of the same
+    inversion with one gram call per Gram."""
+    cfg = DNNConfig(hidden=(24, 16, 16, 8))
+    gen = torch.Generator().manual_seed(0)
+    inv = dnn.init_inverse_server(gen, cfg, "cpu")
+    smashed = torch.from_numpy(_normal(16, (200, cfg.layer_dims[
+        cfg.split_index])))
+    labels = torch.nn.functional.one_hot(
+        torch.from_numpy(np.random.default_rng(17).integers(0, 3, 200)),
+        3).float()
+    got = inversion.invert_inverse_model(inv, smashed, labels, cfg,
+                                         gamma=1.0)
+    # the same walk with two separate Gram calls
+    acts = dnn.mlp_activations(inv, labels, cfg.activation)
+    L = len(inv)
+    targets = [acts[L - 1 - l] for l in range(1, L)] + [labels]
+    o = smashed
+    for l, (z, layer) in enumerate(zip(targets, got)):
+        oa = inversion._augment(o)
+        a0, a1 = dispatch.gram(oa, oa), dispatch.gram(oa, z)
+        w_aug = torch.linalg.solve_ex(
+            a0 + 1.0 * torch.eye(len(a0)), a1).result
+        np.testing.assert_array_equal(layer["w"].numpy(),
+                                      w_aug[:-1].numpy())
+        np.testing.assert_array_equal(layer["b"].numpy(), w_aug[-1].numpy())
+        o = o @ layer["w"] + layer["b"]
+        if l < L - 1:
+            o = torch.relu(o)
+
+
 @pytest.mark.parametrize("n,d1,d2,sms", [
     (4800, 257, 257, 132), (4800, 17, 3, 132), (777, 45, 19, 132),
     (31, 5, 5, 132), (4800, 129, 64, 1)])
 def test_gram_split_plan_covers_n(n, d1, d2, sms):
     splits, rows = rg_ops.split_plan(n, d1, d2, sms)
-    assert rows % rg_ops.TILE == 0
+    assert rows % rg_ops.CHUNK == 0
     assert splits * rows >= n > (splits - 1) * rows
-    tiles = -(-d1 // 32) * -(-d2 // 32)
+    tiles = -(-d1 // rg_ops.TILE) * -(-d2 // rg_ops.TILE)
     assert splits == 1 or tiles * splits <= 2 * rg_ops.BLOCKS_PER_SM * sms
+    assert splits == 1 or rows >= rg_ops.MIN_CHUNKS * rg_ops.CHUNK
+
+
+# as gram_pair's launch calls it: rows = d1, cols = d1 + d2, and OᵀO
+# symmetric, its tiles below the diagonal left out of the grid
+@pytest.mark.parametrize("n,d1,cols,sms", [
+    (4800, 257, 385, 132), (4800, 17, 20, 132), (4800, 129, 193, 132),
+    (777, 45, 64, 132), (4800, 257, 385, 1)])
+def test_gram_split_plan_fills_one_wave_of_the_pair_grid(n, d1, cols, sms):
+    splits, rows = rg_ops.split_plan(n, d1, cols, sms, True)
+    assert rows % rg_ops.CHUNK == 0
+    assert splits * rows >= n > (splits - 1) * rows
+    t, c = -(-d1 // rg_ops.TILE), -(-cols // rg_ops.TILE)
+    blocks = t * c - t * (t - 1) // 2      # the tiles the kernel computes
+    if blocks <= rg_ops.BLOCKS_PER_SM * sms:
+        assert splits * blocks <= rg_ops.BLOCKS_PER_SM * sms
+    else:
+        assert splits == 1
+    assert splits == 1 or rows >= rg_ops.MIN_CHUNKS * rg_ops.CHUNK
 
 
 @pytest.mark.parametrize("bad", ["dtype", "rows", "contiguous", "empty"])
@@ -221,10 +298,26 @@ def test_build_root_is_the_checkout_or_a_user_cache(monkeypatch, tmp_path):
                                             / "repro_torch")
 
 
+def test_build_digest_covers_the_shared_header(monkeypatch, tmp_path):
+    """tf32x3.cuh is compiled only through the sources that include it, and
+    an edit to it changes the digest (so the library is rebuilt)."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in build.CSRC.iterdir():
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert "tf32x3.cuh" not in {p.name for p in build.sources()}
+    before = build.digest()
+    with open(csrc / "tf32x3.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.digest() != before
+
+
 def test_build_digest_covers_every_source():
     names = {p.name for p in build.sources()}
-    assert {"kl_mutual.cu", "ridge_gram.cu"} <= names
+    assert {"kl_mutual.cu", "ridge_gram.cu", "flash_attention_tf32.cu"} \
+        <= names
     assert len(build.digest()) == 16
     # the C entries pass pointers and the stream as 64-bit c_void_p
     assert kl_ops._ARGTYPES.count(ctypes.c_void_p) == 4
-    assert rg_ops._ARGTYPES.count(ctypes.c_void_p) == 5
+    assert rg_ops._ARGTYPES.count(ctypes.c_void_p) == 8

@@ -16,7 +16,11 @@ failure ends the run with a non-zero exit code:
    Grams of one Step-4 evaluation, then its 8 ``gram_pair`` launches timed,
    with the wrapper's host µs a call and the matmul yardstick's events and
    device time), then ``rwkv6_wkv`` and ``mamba2_scan`` (the serving path)
-   at b 4, L 2048 and at ragged shapes;
+   at b 4, L 2048, at a ragged length at full width, at small and odd
+   shapes, with a long memory (decay 0.999) and with exact 0 and 1 decays;
+   the SSD bound counts the least operations of the sequential and the
+   chunked form, and the SSD kernel is also timed at one, two and three of
+   its blocks on every SM;
 2b. the ``flash_attention`` op at the attention widths of Zamba2-2.7B and
    Qwen3-14B (and of ``benchmarks/bench_kernels.py``): each full-width case
    once through the op with the launch counters set to 0 just before and
@@ -25,7 +29,8 @@ failure ends the run with a non-zero exit code:
    kernel and the case with q off 16-byte alignment the FFMA kernel, by
    their per-route counters.  Then the kernels against the plain version
    at those and at ragged shapes in f32 and bf16 (and the sliding-window
-   case once more in f32), per element within 2e-4 in f32 and one bf16
+   case once more in f32, and with V or with q and k of one sign), per
+   element within 2e-4 in f32 and one bf16
    unit in the last place in bf16, with times, bounds and the times of the
    plain version, of ``scaled_dot_product_attention`` as a yardstick and,
    for the tensor-core cases, of the FFMA kernel on the same inputs;
@@ -293,30 +298,61 @@ def main_path_gram_shapes(cfg, n):
 # the serving path: WKV / SSD kernels, RWKV6-1.6B and Zamba2-2.7B
 # ---------------------------------------------------------------------------
 
-# (shape, constant decay or None); the first is the main path's shape
-WKV_CASES = [((4, 2048, 32, 64), None), ((1, 1, 32, 64), None),
-             ((2, 100, 5, 64), None), ((1, 100, 2, 128), None),
-             ((2, 50, 3, 16), None), ((1, 128, 2, 64), 1e-4)]
-SSD_CASES = [((4, 2048, 80, 64, 64), None), ((1, 1, 80, 64, 64), None),
-             ((2, 100, 5, 64, 64), None), ((1, 128, 2, 8, 16), 1e-4),
-             ((2, 37, 3, 16, 32), None), ((1, 40, 2, 128, 96), None)]
+# (shape, decay): the decay is None for the random one of wkv_inputs /
+# ssd_inputs, a number for a constant decay, or "0and1" for the random one
+# with exact zeros (about 5 %) and exact ones (about 10 %) among it.  The
+# first case is the main path's shape; then a ragged length at full width
+# (a last chunk of 17 tokens), one step, small and odd shapes, a strong
+# constant decay, a long memory across chunks (0.999) and the exact 0 / 1
+# decays; the ragged length, the long memory and the exact 0 / 1 decays are
+# also cases of tests/test_torch_cuda.py's test_wkv_kernel_matches_plain /
+# test_ssd_kernel_matches_plain
+WKV_CASES = [((4, 2048, 32, 64), None), ((4, 2048 + 17, 32, 64), None),
+             ((1, 1, 32, 64), None), ((2, 100, 5, 64), None),
+             ((1, 100, 2, 128), None), ((2, 50, 3, 16), None),
+             ((1, 128, 2, 64), 1e-4), ((1, 2048, 32, 64), 0.999),
+             ((1, 300, 8, 64), "0and1")]
+SSD_CASES = [((4, 2048, 80, 64, 64), None), ((4, 2048 + 17, 80, 64, 64), None),
+             ((1, 1, 80, 64, 64), None), ((2, 100, 5, 64, 64), None),
+             ((1, 128, 2, 8, 16), 1e-4), ((2, 37, 3, 16, 32), None),
+             ((1, 40, 2, 128, 96), None), ((1, 2048, 80, 64, 64), 0.999),
+             ((1, 300, 8, 64, 64), "0and1")]
+# tokens of a chunk of the SSD kernel (csrc/mamba2_scan.cu, kQ)
+SSD_CHUNK = 32
 
 
-def wkv_inputs(torch, normal, shape, w_const):
-    """r, k, v, u unit normal; w = sigmoid(normal) or a constant decay."""
+def exact_0and1(normal, d):
+    """d with about 5 % of its entries set to exactly 0 and 10 % to exactly
+    1, picked by a normal draw."""
+    pick = normal(*d.shape)
+    return d.masked_fill(pick < -1.645, 0.0).masked_fill(pick > 1.2816, 1.0)
+
+
+def wkv_inputs(torch, normal, shape, w_spec):
+    """r, k, v, u unit normal; w = sigmoid(normal), a constant, or the
+    sigmoid with exact 0s and 1s."""
     b, L, nh, P = shape
     r, k, v = (normal(b, L, nh, P) for _ in range(3))
-    w = (torch.full((b, L, nh, P), w_const, device=r.device) if w_const
-         else torch.sigmoid(normal(b, L, nh, P)))
+    if isinstance(w_spec, float):
+        w = torch.full((b, L, nh, P), w_spec, device=r.device)
+    else:
+        w = torch.sigmoid(normal(b, L, nh, P))
+        if w_spec == "0and1":
+            w = exact_0and1(normal, w)
     return r, k, v, w, normal(nh, P)
 
 
-def ssd_inputs(torch, normal, shape, a_const):
-    """decay = 0.35 + 0.6·sigmoid(normal) or a constant; dt = softplus of a
-    normal; B, C, x unit normal (tests/test_kernels.py's inputs)."""
+def ssd_inputs(torch, normal, shape, a_spec):
+    """decay = 0.35 + 0.6·sigmoid(normal), a constant, or the former with
+    exact 0s and 1s; dt = softplus of a normal; B, C, x unit normal
+    (tests/test_kernels.py's inputs)."""
     b, L, nh, N, P = shape
-    decay = (torch.full((b, L, nh), a_const, device=normal(1).device)
-             if a_const else torch.sigmoid(normal(b, L, nh)) * 0.6 + 0.35)
+    if isinstance(a_spec, float):
+        decay = torch.full((b, L, nh), a_spec, device=normal(1).device)
+    else:
+        decay = torch.sigmoid(normal(b, L, nh)) * 0.6 + 0.35
+        if a_spec == "0and1":
+            decay = exact_0and1(normal, decay)
     dt = torch.nn.functional.softplus(normal(b, L, nh))
     return decay, dt, normal(b, L, N), normal(b, L, N), normal(b, L, nh, P)
 
@@ -330,14 +366,42 @@ def wkv_bound(b, L, nh, P):
     return max(bytes_t, ops_t), "bytes" if bytes_t >= ops_t else "operations"
 
 
-def ssd_bound(b, L, nh, N, P):
-    """x read and y written once, decay and dt per (b, t, head), B and C per
-    (b, t); 5NP + P FP32 operations per (batch, head, step): u = dt·x (P),
-    h ← a·h + B u (3NP), y = C h (2NP)."""
+def ssd_bound_terms(b, L, nh, N, P, Q=SSD_CHUNK):
+    """The terms of the SSD bound, in ms: bytes (x read and y written once,
+    decay and dt per (b, t, head), B and C per (b, t)); the sequential
+    form's FP32 operations, 5NP + P per (batch, head, step): u = dt·x (P),
+    h ← a·h + B u (3NP), y = C h (2NP); and the chunked form's, at Q-token
+    chunks of q tokens each: matrix operations at the 3xTF32 rate, C Bᵀ on
+    and below the diagonal once per (batch, chunk) (q(q+1)N), and per
+    (batch, head, chunk) C h (2qNP), (C Bᵀ ∘ W) U (q(q+1)P) and the state
+    update (2qNP); FP32 operations beside them, per (batch, head, chunk) U
+    (qP), the decay weights, cum and the product with W (q² in all), y
+    (2qP), h ← cum h + … (2NP) and B ∘ W (qN)."""
     bytes_t = 4 * (2 * b * L * nh * P + 2 * b * L * nh + 2 * b * L * N) \
         / PEAK_BYTES * 1e3
-    ops_t = b * L * nh * (5 * N * P + P) / PEAK_FP32 * 1e3
+    seq_t = b * L * nh * (5 * N * P + P) / PEAK_FP32 * 1e3
+    qs = [min(Q, L - t0) for t0 in range(0, L, Q)]
+    mma = b * sum(q * (q + 1) * N + nh * (4 * q * N * P + q * (q + 1) * P)
+                  for q in qs)
+    rest = b * nh * sum(3 * q * P + q * q + 2 * N * P + q * N for q in qs)
+    chunked_t = (mma / PEAK_F32_MMA + rest / PEAK_FP32) * 1e3
+    return bytes_t, seq_t, chunked_t
+
+
+def ssd_bound(b, L, nh, N, P):
+    """(bound ms, what bounds it): the larger of the bytes and the least
+    operations of either form, the sequential form at the FP32 rate or the
+    chunked one (the kernel's) on the tensor cores in 3xTF32."""
+    bytes_t, seq_t, chunked_t = ssd_bound_terms(b, L, nh, N, P)
+    ops_t = min(seq_t, chunked_t)
     return max(bytes_t, ops_t), "bytes" if bytes_t >= ops_t else "operations"
+
+
+def ssd_bound_sequential(b, L, nh, N, P):
+    """The bound of the sequential form alone: the larger of the bytes and
+    its FP32 operations."""
+    bytes_t, seq_t, _ = ssd_bound_terms(b, L, nh, N, P)
+    return max(bytes_t, seq_t)
 
 
 def check_scan_kernel(torch, name, kernel, plain, cases, make_inputs, bound,
@@ -351,7 +415,7 @@ def check_scan_kernel(torch, name, kernel, plain, cases, make_inputs, bound,
         check(bool(torch.isfinite(got).all()), f"{name} {shape}: not finite")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        print(f"{name} {shape}{' const ' + str(const) if const else ''}: "
+        print(f"{name} {shape}{f' decay {const}' if const else ''}: "
               f"max |kernel - plain| = {err:.3e}, relative {err / scale:.3e}"
               f" (tol {SCAN_TOL} x max|y| = {SCAN_TOL * scale:.3e})")
         check(err <= SCAN_TOL * scale, f"{name} disagrees at {shape}")
@@ -391,42 +455,53 @@ FLASH_FULL = [
      (4, 32, 32, 2048, 80), None, "float32", 1),
 ]
 # correctness at other shapes, each in f32 and bf16: ((B, H, KV, S, D),
-# window, scale, v_shift), V drawn from a normal plus v_shift;
-# tests/test_kernels.py's four shapes with and without a window, S 1 / 17 /
-# 100 / 1000, D 32 / 64 / 80 / 128, Qwen3-14B's and
-# Zamba2-2.7B's heads, window 512 at S 2048, a window of 1, a scale other
-# than 1/sqrt(D), D 40 (a multiple of 8, not of 16), D 20 (the FFMA kernel
-# in bf16 too), Qwen3-14B's group of 5 at S 1000 with window 100, S 65 (one
-# key past a tile), D 16, 96 and 112 (with 32-80 and 128 above, every padded
-# head size of the tensor-core kernel); and V of one sign (v_shift 2) at
-# Zamba2-2.7B's shape and at Qwen3-14B's window of 8192 on one KV head,
-# where the terms of P V all have one sign and a truncating tensor-core sum
-# would drift with the number of keys (256 tiles of keys in the window
-# case).  The same cases as
-# tests/test_torch_cuda.py's test_flash_kernel_matches_plain: keep the two
-# lists equal
+# window, scale, v_shift, qk_shift), V drawn from a normal plus v_shift, q
+# and k each from a normal plus qk_shift; tests/test_kernels.py's four
+# shapes with and without a window, S 1 / 17 / 100 / 1000, D 32 / 64 / 80 /
+# 128, Qwen3-14B's and Zamba2-2.7B's heads, window 512 at S 2048, a window
+# of 1, a scale other than 1/sqrt(D), D 40 (a multiple of 8, not of 16), D
+# 20 (the FFMA kernel in bf16 too), Qwen3-14B's group of 5 at S 1000 with
+# window 100, S 65 (one key past a tile), D 16, 96 and 112 (with 32-80 and
+# 128 above, every padded head size of the tensor-core kernel); V of one
+# sign (v_shift 2) at Zamba2-2.7B's shape and at Qwen3-14B's window of 8192
+# on one KV head, where the terms of P V all have one sign and a truncating
+# tensor-core sum would drift with the number of keys (256 tiles of keys in
+# the window case); and q and k of one sign (qk_shift 2) at the same two
+# shapes, where the terms of S = Q Kᵀ all have one sign (the kernels sum S
+# over D in one accumulator).  The same cases as tests/test_torch_cuda.py's
+# test_flash_kernel_matches_plain (qk_shift 0) and
+# test_flash_kernel_one_sign_qk_matches_plain (qk_shift 2): keep the lists
+# equal
 FLASH_CASES = [
-    ((2, 4, 2, 128, 64), None, None, 0.0),
-    ((2, 4, 2, 128, 64), 64, None, 0.0),
-    ((1, 8, 1, 256, 64), None, None, 0.0),
-    ((1, 8, 1, 256, 64), 64, None, 0.0), ((2, 3, 3, 96, 32), None, None, 0.0),
-    ((2, 3, 3, 96, 32), 64, None, 0.0), ((1, 2, 2, 64, 128), None, None, 0.0),
-    ((1, 2, 2, 64, 128), 64, None, 0.0), ((1, 4, 2, 1, 64), None, None, 0.0),
-    ((1, 4, 2, 17, 80), None, None, 0.0), ((2, 4, 2, 100, 80), 64, None, 0.0),
-    ((1, 4, 2, 1000, 128), None, None, 0.0),
-    ((1, 40, 8, 300, 128), None, None, 0.0),
-    ((1, 40, 8, 300, 128), 100, None, 0.0),
-    ((1, 32, 32, 200, 80), None, None, 0.0),
-    ((1, 4, 2, 2048, 64), 512, None, 0.0), ((1, 4, 2, 100, 64), 1, None, 0.0),
-    ((1, 4, 2, 128, 64), None, 0.3, 0.0),
-    ((1, 4, 2, 100, 40), None, None, 0.0),
-    ((1, 4, 2, 100, 20), None, None, 0.0),
-    ((1, 40, 8, 1000, 128), 100, None, 0.0),
-    ((1, 4, 2, 65, 64), None, None, 0.0), ((1, 4, 2, 100, 16), 64, None, 0.0),
-    ((1, 4, 2, 100, 96), 64, None, 0.0),
-    ((1, 4, 2, 65, 112), None, None, 0.0),
-    ((4, 32, 32, 2048, 80), None, None, 2.0),
-    ((1, 5, 1, 16384, 128), 8192, None, 2.0),
+    ((2, 4, 2, 128, 64), None, None, 0.0, 0.0),
+    ((2, 4, 2, 128, 64), 64, None, 0.0, 0.0),
+    ((1, 8, 1, 256, 64), None, None, 0.0, 0.0),
+    ((1, 8, 1, 256, 64), 64, None, 0.0, 0.0),
+    ((2, 3, 3, 96, 32), None, None, 0.0, 0.0),
+    ((2, 3, 3, 96, 32), 64, None, 0.0, 0.0),
+    ((1, 2, 2, 64, 128), None, None, 0.0, 0.0),
+    ((1, 2, 2, 64, 128), 64, None, 0.0, 0.0),
+    ((1, 4, 2, 1, 64), None, None, 0.0, 0.0),
+    ((1, 4, 2, 17, 80), None, None, 0.0, 0.0),
+    ((2, 4, 2, 100, 80), 64, None, 0.0, 0.0),
+    ((1, 4, 2, 1000, 128), None, None, 0.0, 0.0),
+    ((1, 40, 8, 300, 128), None, None, 0.0, 0.0),
+    ((1, 40, 8, 300, 128), 100, None, 0.0, 0.0),
+    ((1, 32, 32, 200, 80), None, None, 0.0, 0.0),
+    ((1, 4, 2, 2048, 64), 512, None, 0.0, 0.0),
+    ((1, 4, 2, 100, 64), 1, None, 0.0, 0.0),
+    ((1, 4, 2, 128, 64), None, 0.3, 0.0, 0.0),
+    ((1, 4, 2, 100, 40), None, None, 0.0, 0.0),
+    ((1, 4, 2, 100, 20), None, None, 0.0, 0.0),
+    ((1, 40, 8, 1000, 128), 100, None, 0.0, 0.0),
+    ((1, 4, 2, 65, 64), None, None, 0.0, 0.0),
+    ((1, 4, 2, 100, 16), 64, None, 0.0, 0.0),
+    ((1, 4, 2, 100, 96), 64, None, 0.0, 0.0),
+    ((1, 4, 2, 65, 112), None, None, 0.0, 0.0),
+    ((4, 32, 32, 2048, 80), None, None, 2.0, 0.0),
+    ((1, 5, 1, 16384, 128), 8192, None, 2.0, 0.0),
+    ((4, 32, 32, 2048, 80), None, None, 0.0, 2.0),
+    ((1, 5, 1, 16384, 128), 8192, None, 0.0, 2.0),
 ]
 # |kernel − plain| ≤ atol + rtol·|plain| per element, as (rtol, atol): in
 # f32 the JAX package's own bound (tests/test_kernels.py), sums in another
@@ -598,16 +673,16 @@ def flash_phase(torch, port, normal):
     compare(f"{shape} window {w} float32 [{label} (query heads 0-{g - 1}, "
             f"KV head 0)]", got[:, :g], want, "float32", route)
     del q, k, v, got, want
-    for shape, w, scale, v_shift in FLASH_CASES:
+    for shape, w, scale, v_shift, qk_shift in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             q, k, v = qkv(shape, dtype)
-            v = v + v_shift
+            q, k, v = q + qk_shift, k + qk_shift, v + v_shift
             route = flash_route(fa, q, k, v)
             got = launch_once(route, lambda: fa.flash_attention(
                 q, k, v, scale=scale, window=w))
             want = plain(q, k, v, scale=scale or shape[-1] ** -0.5, window=w)
             compare(f"{shape} window {w} scale {scale} v + {v_shift} "
-                    f"{dtype}", got, want, dtype, route)
+                    f"q, k + {qk_shift} {dtype}", got, want, dtype, route)
             del q, k, v, got, want
     # q off 16-byte alignment, in both dtypes: the FFMA kernel
     shape = (1, 4, 2, 100, 64)
@@ -1124,6 +1199,22 @@ def main() -> int:
         torch, "mamba2_scan", port.ssd_ops.mamba2_scan, port.mamba2_scan_ref,
         SSD_CASES, lambda shape, c: ssd_inputs(torch, normal, shape, c),
         ssd_bound, ("ssd_kernel",))
+    ssd["bound_sequential_ms"] = ssd_bound_sequential(*SSD_CASES[0][0])
+    print(f"mamba2_scan {SSD_CASES[0][0]}: bound of the sequential form "
+          f"{ssd['bound_sequential_ms'] * 1e3:.2f} us (bytes or its FP32 "
+          f"operations)")
+    # the SSD kernel with one, two and three of its blocks on every SM (b
+    # rows of as many heads as the card has SMs): Zamba2's 320 blocks put
+    # three on some SMs and two on the others
+    ssd["ms_at_blocks_per_sm"] = {}
+    for bb in (1, 2, 3):
+        args = ssd_inputs(torch, normal, (bb, 2048, sms, 64, 64), None)
+        ssd["ms_at_blocks_per_sm"][bb] = time_ms(
+            torch, lambda: port.ssd_ops.mamba2_scan(*args), reps=10, inner=3)
+        del args
+    print(f"mamba2_scan at (b, 2048, {sms}, 64, 64), b blocks an SM: "
+          + ", ".join(f"b {bb}: {ms * 1e3:.2f} us" for bb, ms
+                      in ssd["ms_at_blocks_per_sm"].items()))
     torch.cuda.synchronize()
 
     # -- 2b. flash_attention vs plain ----------------------------------------

@@ -1,5 +1,5 @@
 // f32-accurate products on Hopper's tensor cores (3xTF32), shared by
-// ridge_gram.cu and flash_attention_tf32.cu.
+// ridge_gram.cu, flash_attention_tf32.cu and mamba2_scan.cu.
 //
 // A TF32 operand keeps 10 of float32's 23 mantissa bits.  Each f32 value a is
 // split into a TF32 high part and a TF32 low part,
@@ -42,6 +42,18 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
                                            uint32_t& lo) {
   hi = rna_tf32(a);
   lo = rna_tf32(a - __uint_as_float(hi));
+}
+
+// a = hi + lo with hi rounded to nearest and lo = a - hi exact in f32 but
+// not rounded to TF32: the tensor core reads the top 19 bits of a TF32
+// operand, so lo enters the product truncated, ~2^-21 of a where the
+// rounded lo of split_tf32 leaves ~2^-22.  Three instructions where
+// split_tf32 takes five; the CPU emulation of the SSD kernel, which uses
+// it, stays within its bound (tests/test_torch_scan_order.py).
+__device__ __forceinline__ void split_tf32_fast(float a, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = rna_tf32(a);
+  lo = __float_as_uint(a - __uint_as_float(hi));
 }
 
 // d += a b on one m16n8k8 tile: TF32 a (16 x 8, row) and b (8 x 8, col),

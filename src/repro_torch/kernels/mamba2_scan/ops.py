@@ -2,15 +2,15 @@
 
 Replaces ``repro/kernels/mamba2_scan/mamba2_scan.py`` (``_ssd_kernel`` /
 ``mamba2_scan_pallas``) and its wrapper ``repro/kernels/mamba2_scan/ops.py``
-(``mamba2_scan``).  The TPU kernel computes the chunked SSD form with MXU
-matmuls; this kernel computes the same function in its plain sequential
-order: one block per (batch, head), thread p holding column p of the
-(N, P) state in registers, B_t and C_t staged in shared memory.  Any L is
-taken without padding.  Bound on an H100 SXM at Zamba2-2.7B (nh 80, N 64,
-P 64), b 4, L 2048: FP32 operations — 13.4 GFLOP, 200 µs at 67 TFLOP/s,
-against 345 MB moved (103 µs at 3.35 TB/s).  The kernel is a chain of L
-dependent steps on 320 blocks and is latency-bound.  It has no backward, as
-the JAX package's has none.
+(``mamba2_scan``).  Like the TPU kernel, this one computes the chunked SSD
+form, its products on the tensor cores in 3xTF32: one block of 4 warps per
+(batch, head) walks chunks of 32 tokens with the (N, P) state in shared
+memory and the decay weights as running products
+(``ref.mamba2_scan_chunked_ref`` is the same order in f32).  Any L is taken
+without padding.  Bound on an H100 SXM at Zamba2-2.7B (nh 80, N 64, P 64),
+b 4, L 2048: bytes, 345 MB moved, 103 µs at 3.35 TB/s (the chunked form's
+operations take 79 µs, the sequential form's 13.4 GFLOP of FP32 200 µs).
+It has no backward, as the JAX package's has none.
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 # kernel launches since the last reset (plain counter; callers set it to 0)
 launches = 0
 
-MAX_N = 128          # the state size the kernel's register state allows
-MAX_P = 128          # the head size (threads per block)
+MAX_N = 128          # the state sizes the kernel's shared-memory
+MAX_P = 128          # layout takes
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 

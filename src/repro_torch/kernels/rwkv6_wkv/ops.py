@@ -4,13 +4,13 @@ Replaces ``repro/kernels/rwkv6_wkv/rwkv6_wkv.py`` (``_wkv_kernel`` /
 ``rwkv6_wkv_pallas``) and its wrapper ``repro/kernels/rwkv6_wkv/ops.py``
 (``rwkv6_wkv``).  The TPU kernel walks the sequence in a sequential grid
 axis of Q-step chunks with the (P, P) state in VMEM; here one block per
-(batch, head) walks the whole sequence, thread j holding column j of the
-state in registers, and any L is taken without padding.  Bound on an H100
-SXM at RWKV6-1.6B (nh 32, P 64), b 4, L 2048: bytes — r, k, v, w read and y
-written once are 336 MB, 100 µs at 3.35 TB/s, against 5.4 GFLOP of FP32
-(80 µs at 67 TFLOP/s).  The kernel itself is a chain of L dependent steps
-on 128 blocks and is latency-bound.  It has no backward, as the JAX
-package's has none.
+(batch, head) walks the whole sequence in the recurrence's own order, the
+state spread over the block in 4 x 4 tiles (256 threads at P ≤ 64), the
+r, k, v, w tiles double-buffered by cp.async, and any L is taken without
+padding.  Bound on an H100 SXM at RWKV6-1.6B (nh 32, P 64), b 4, L 2048:
+bytes — r, k, v, w read and y written once are 336 MB, 100 µs at 3.35
+TB/s, against 5.4 GFLOP of FP32 (80 µs at 67 TFLOP/s).  It has no
+backward, as the JAX package's has none.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 # kernel launches since the last reset (plain counter; callers set it to 0)
 launches = 0
 
-MAX_P = 128          # the head size the kernel's register state allows
+MAX_P = 128          # the head size the kernel's layout takes
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 

@@ -147,14 +147,32 @@ def test_trainer_on_card_matches_cpu(cuda):
 SCAN_TOL = 1e-5
 
 
+def _exact_0and1(seed, d):
+    """d with about 5 % of its entries set to exactly 0 and 10 % to exactly
+    1."""
+    pick = torch.tensor(np.random.default_rng(seed).random(size=d.shape),
+                        device=d.device)
+    return d.masked_fill(pick < 0.05, 0.0).masked_fill(pick > 0.9, 1.0)
+
+
+# the decay: None or False for the random one, a number for a constant one,
+# True for the constant 1e-4, "0and1" for exact 0s and 1s among the random
+# ones.  Cases: the main path's shape, small and odd shapes, a strong
+# constant decay, and (as in chip_smoke.py's WKV_CASES / SSD_CASES) a ragged
+# length at full width, a long memory (0.999) and exact 0 / 1 decays
 @pytest.mark.parametrize("b,L,nh,P,w_scale", [
     (4, 2048, 32, 64, None), (1, 1, 32, 64, None), (2, 100, 5, 64, None),
     (2, 50, 3, 16, None), (1, 70, 2, 128, None), (1, 33, 2, 32, None),
-    (1, 128, 2, 64, 1e-4)])
+    (1, 128, 2, 64, 1e-4), (4, 2048 + 17, 32, 64, None),
+    (1, 2048, 32, 64, 0.999), (1, 300, 8, 64, "0and1")])
 def test_wkv_kernel_matches_plain(cuda, b, L, nh, P, w_scale):
     r, k, v = (_normal(10 + i, (b, L, nh, P), cuda) for i in range(3))
-    w = (torch.full((b, L, nh, P), w_scale, device=cuda) if w_scale
-         else torch.sigmoid(_normal(13, (b, L, nh, P), cuda)))
+    if isinstance(w_scale, float):
+        w = torch.full((b, L, nh, P), w_scale, device=cuda)
+    else:
+        w = torch.sigmoid(_normal(13, (b, L, nh, P), cuda))
+        if w_scale == "0and1":
+            w = _exact_0and1(15, w)
     u = _normal(14, (nh, P), cuda)
     before = wkv_ops.launches
     got = wkv_ops.rwkv6_wkv(r, k, v, w, u)
@@ -164,13 +182,22 @@ def test_wkv_kernel_matches_plain(cuda, b, L, nh, P, w_scale):
     assert err <= SCAN_TOL * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("b,L,nh,N,P,strong", [
+@pytest.mark.parametrize("b,L,nh,N,P,decay", [
     (4, 2048, 80, 64, 64, False), (1, 1, 80, 64, 64, False),
     (2, 100, 5, 64, 64, False), (1, 128, 2, 8, 16, True),
-    (2, 37, 3, 16, 32, False), (1, 40, 2, 128, 96, False)])
-def test_ssd_kernel_matches_plain(cuda, b, L, nh, N, P, strong):
-    decay = (torch.full((b, L, nh), 1e-4, device=cuda) if strong else
-             torch.sigmoid(_normal(20, (b, L, nh), cuda)) * 0.6 + 0.35)
+    (2, 37, 3, 16, 32, False), (1, 40, 2, 128, 96, False),
+    (4, 2048 + 17, 80, 64, 64, False), (1, 2048, 80, 64, 64, 0.999),
+    (1, 300, 8, 64, 64, "0and1")])
+def test_ssd_kernel_matches_plain(cuda, b, L, nh, N, P, decay):
+    if decay is True:
+        decay = torch.full((b, L, nh), 1e-4, device=cuda)
+    elif isinstance(decay, float):
+        decay = torch.full((b, L, nh), decay, device=cuda)
+    else:
+        spec = decay
+        decay = torch.sigmoid(_normal(20, (b, L, nh), cuda)) * 0.6 + 0.35
+        if spec == "0and1":
+            decay = _exact_0and1(25, decay)
     dt = torch.nn.functional.softplus(_normal(21, (b, L, nh), cuda))
     B, C = _normal(22, (b, L, N), cuda), _normal(23, (b, L, N), cuda)
     x = _normal(24, (b, L, nh, P), cuda)
@@ -227,7 +254,8 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
 FA_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (2 ** -7, 1e-5)}
 
 
-# the same cases as chip_smoke.py's FLASH_CASES: keep the two lists equal
+# the same cases as chip_smoke.py's FLASH_CASES with qk_shift 0: keep the lists
+# equal
 @pytest.mark.parametrize("B,H,KV,S,D,window,scale,v_shift", [
     (2, 4, 2, 128, 64, None, None, 0.0), (2, 4, 2, 128, 64, 64, None, 0.0),
     (1, 8, 1, 256, 64, None, None, 0.0), (1, 8, 1, 256, 64, 64, None, 0.0),
@@ -268,6 +296,28 @@ def test_flash_kernel_matches_plain(cuda, B, H, KV, S, D, window, scale,
                                                            before[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     want = fa_ref(q, k, v, scale=scale or D ** -0.5, window=window)
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+# q and k of one sign (each a normal plus 2), so that the terms of S = Q Kᵀ
+# all have one sign, at Zamba2-2.7B's shape and at Qwen3-14B's window of
+# 8192 on one KV head; the same cases as chip_smoke.py's FLASH_CASES with
+# qk_shift 2
+@pytest.mark.parametrize("B,H,KV,S,D,window", [
+    (4, 32, 32, 2048, 80, None), (1, 5, 1, 16384, 128, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_one_sign_qk_matches_plain(cuda, B, H, KV, S, D, window,
+                                                dtype):
+    q = (_normal(40, (B, H, S, D), cuda) + 2.0).to(dtype)
+    k = (_normal(41, (B, KV, S, D), cuda) + 2.0).to(dtype)
+    v = _normal(42, (B, KV, S, D), cuda).to(dtype)
+    route = "tf32x3" if dtype == torch.float32 else "mma"
+    before = getattr(fa_ops, f"launches_{route}")
+    got = fa_ops.flash_attention(q, k, v, window=window)
+    assert getattr(fa_ops, f"launches_{route}") == before + 1
+    want = fa_ref(q, k, v, scale=D ** -0.5, window=window)
     rtol, atol = FA_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)

@@ -42,13 +42,17 @@ def _normal(seed, shape, scale=1.0):
 @pytest.mark.parametrize("temp", [1.0, 2.0])
 def test_kl_rows_plain_matches_pallas_interpret(n, d, bq, temp):
     x, y = _normal(0, (n, d), 3.0), _normal(1, (n, d), 3.0)
-    want = kl_rows_pallas(jnp.asarray(x), jnp.asarray(y), temperature=temp,
-                          bq=bq, interpret=True)
+    # the JAX result is fetched before torch runs: with JAX's asynchronous
+    # dispatch still computing beside it, after a JAX campaign in the same
+    # process, torch's CPU threads now and then returned one thread's block
+    # of rows ~6e-4 off (an f64 evaluation puts the JAX side at 3.5e-6)
+    want = np.asarray(kl_rows_pallas(jnp.asarray(x), jnp.asarray(y),
+                                     temperature=temp, bq=bq,
+                                     interpret=True))
     got = kl_rows_ref(torch.from_numpy(x), torch.from_numpy(y), temp)
     # atol 1e-6 plus 1e-6 relative: rows reach KL ≈ 12 at T = 1, where one
     # f32 ulp is already 1e-6
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
-                               atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     # the CPU wrapper is the plain version
     np.testing.assert_array_equal(
         kl_ops.kl_rows(torch.from_numpy(x), torch.from_numpy(y), temp).numpy(),

@@ -11,7 +11,8 @@ that the arithmetic meets the bounds the card holds the kernels to:
 2e-4 per element for f32 attention (``chip_smoke.py``).  The tensor core
 also truncates each sum it forms (rounds toward zero); emulating that shows
 why the kernels form each k8 step's products from zero and add them to
-their long sums with rounded f32 adds.  Inputs come from seeded numpy
+their long sums with rounded f32 adds, and why attention's scores, with q
+and k of one sign, can keep one accumulator.  Inputs come from seeded numpy
 generators.
 """
 import numpy as np
@@ -181,3 +182,36 @@ def test_emulated_pv_sum_from_zero_does_not_drift_with_one_sign_v(keys, D):
     err_tile = np.abs(_f64(by_tile / l) - exact).max()
     assert err_tile <= FLASH_F32_TOL / 50, err_tile
     assert err_into >= 10 * err_tile, (err_into, err_tile)
+
+
+@pytest.mark.parametrize("keys,D", [(2048, 80), (8192, 128)])
+def test_emulated_scores_with_one_sign_qk_stay_inside_the_f32_bound(keys, D):
+    """Query rows against all their keys (Zamba2-2.7B's 2048 at D 80, and
+    Qwen3-14B's window of 8192 at D 128), q and k each a normal plus 2, so
+    that the terms of S = q Kᵀ have one sign and |S| reaches ~600 before
+    the scale.  The attention kernel forms S in one accumulator, three mma
+    a k8 step over D (flash_attention_tf32.cu), each truncated; the drift
+    is nearly the same for every key, the softmax cancels what is common,
+    and the emulated O stays 50x inside the 2e-4 bound.  (The model covers
+    only the accumulator's truncation; on the card the same cases come
+    within a fifth of the bound, tests/test_torch_cuda.py.)"""
+    g = np.random.default_rng(4)
+    worst = 0.0
+    for _ in range(4):
+        q = (g.normal(size=D) + 2).astype(np.float32)
+        k = (g.normal(size=(keys, D)) + 2).astype(np.float32)
+        v = g.normal(size=(keys, D)).astype(np.float32)
+        qh, ql = split_tf32(q)
+        kh, kl = split_tf32(k)
+        s = np.zeros(keys, np.float32)
+        for d0 in range(0, D, 8):
+            s8 = slice(d0, d0 + 8)
+            for a, b in ((ql, kh), (qh, kl), (qh, kh)):
+                s = _rz(_f64(s) + _f64(b[:, s8]) @ _f64(a[s8]))
+        scale = D ** -0.5
+        exact = _f64(k) @ _f64(q) * scale
+        p = np.exp(_f64(s) * scale - (_f64(s) * scale).max())
+        pe = np.exp(exact - exact.max())
+        err = np.abs(p @ _f64(v) / p.sum() - pe @ _f64(v) / pe.sum()).max()
+        worst = max(worst, err)
+    assert worst <= FLASH_F32_TOL / 50, worst

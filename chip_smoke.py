@@ -12,7 +12,9 @@ failure ends the run with a non-zero exit code:
 2. kernels vs their plain PyTorch versions on the card, at the main-path
    shapes and at ragged ones, with times (CUDA events and the profiler),
    bounds, and the plain version's and (for the Gram) one library call's
-   times: ``kl_mutual`` and ``ridge_gram`` (the SplitMe path: the 16 single
+   times: ``kl_mutual``'s forward and backward kernels (with the wrappers'
+   host µs a call, and the plain backward's device operations) and
+   ``ridge_gram`` (the SplitMe path: the 16 single
    Grams of one Step-4 evaluation, then its 8 ``gram_pair`` launches timed,
    with the wrapper's host µs a call and the matmul yardstick's events and
    device time), then ``rwkv6_wkv`` and ``mamba2_scan`` (the serving path)
@@ -24,20 +26,22 @@ failure ends the run with a non-zero exit code:
 2b. the ``flash_attention`` op at the attention widths of Zamba2-2.7B and
    Qwen3-14B (and of ``benchmarks/bench_kernels.py``): each full-width case
    once through the op with the launch counters set to 0 just before and
-   read just after (its main path: no model calls it); aligned bf16 cases
-   must launch the bf16 tensor-core kernel, aligned f32 cases the 3xTF32
-   kernel and the case with q off 16-byte alignment the FFMA kernel, by
-   their per-route counters.  Then the kernels against the plain version
-   at those and at ragged shapes in f32 and bf16 (and the sliding-window
-   case once more in f32, and with V or with q and k of one sign), per
-   element within 2e-4 in f32 and one bf16
-   unit in the last place in bf16, with times, bounds and the times of the
-   plain version, of ``scaled_dot_product_attention`` as a yardstick and,
-   for the tensor-core cases, of the FFMA kernel on the same inputs;
+   read just after (its main path: no model calls it); bf16 cases must
+   launch the bf16 tensor-core kernel and f32 cases the 3xTF32 kernel, by
+   their per-route counters, those with q or k and v off 16-byte alignment
+   too, with copies as wide as the offsets allow.  Then the kernels
+   against the plain version at those and at ragged shapes in f32 and bf16
+   (and the sliding-window case once more in f32, with V or with q and k of
+   one sign, and with odd head sizes and inputs off alignment), per element
+   within 2e-4 in f32 and one bf16 unit in the last place in bf16, with
+   times, bounds and the times of the plain version and of
+   ``scaled_dot_product_attention`` as a yardstick (on aligned copies of
+   inputs off alignment);
 3. the SplitMe path: ``SplitMeTrainer`` on DNN10 at full width, M = 50
    clients of 96 samples, 5 rounds with the Step-4 evaluation on the last,
    then ``finalize()`` + ``evaluate()``; the kernels' launch counters must
-   show that every KL loss and every Gram pair went through the kernels;
+   show that every KL loss, every KL gradient of a training step and every
+   Gram pair went through the kernels;
    one more round under the profiler gives the device's busy time and idle
    share;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
@@ -184,7 +188,7 @@ def main_path(torch, port, sp, clients, test, device):
     trainer = port.SplitMeTrainer(port.DNN10, sp, clients, test, seed=0,
                                   device=device)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    port.kl_ops.launches = 0
+    port.kl_ops.launches = port.kl_ops.launches_bwd = 0
     port.rg_ops.launches = 0
     round_ms = []
     for r in range(ROUNDS):
@@ -197,14 +201,15 @@ def main_path(torch, port, sp, clients, test, device):
     w_server = trainer.finalize()
     final_acc = trainer.evaluate(w_server)
     sync()
-    launches = (port.kl_ops.launches, port.rg_ops.launches)
+    launches = (port.kl_ops.launches, port.kl_ops.launches_bwd,
+                port.rg_ops.launches)
     return trainer, hist, round_ms, w_server, final_acc, launches
 
 
 def round_profile(torch, trainer, top: int = 6):
     """One more round under torch.profiler (CUDA activity only): its wall
-    time, the device's busy time, and the kernels taking the most device
-    time (name, ms, calls)."""
+    time, the device's busy time, its device operations, and the kernels
+    taking the most device time (name, ms, calls)."""
     from torch.profiler import ProfilerActivity, profile
 
     def dev_us(e):
@@ -218,9 +223,10 @@ def round_profile(torch, trainer, top: int = 6):
         wall_ms = (time.perf_counter() - t0) * 1e3
     evts = prof.key_averages()
     busy_ms = sum(dev_us(e) for e in evts) / 1e3
+    n_ops = sum(e.count for e in evts if dev_us(e) > 0)
     heavy = sorted(evts, key=dev_us, reverse=True)[:top]
-    return m, wall_ms, busy_ms, [(e.key[:70], dev_us(e) / 1e3, e.count)
-                                 for e in heavy]
+    return m, wall_ms, busy_ms, n_ops, [(e.key[:70], dev_us(e) / 1e3, e.count)
+                                        for e in heavy]
 
 
 def card_vs_cpu(torch, port, sp, clients, test, devices):
@@ -275,6 +281,160 @@ def step4_vs_plain(torch, port, trainer, gamma):
            / max(q[k].abs().max().item() for k in q)
            for p, q in zip(got, want)]
     return rel, cond, trainer.evaluate(got), trainer.evaluate(want)
+
+
+# the kl_mutual kernels: (rows, d) of the main path (50 clients x 32 rows of
+# 256), a ragged width, a tiny one in single floats (d % 4 != 0), 32 values
+# a lane (d 1000) and a row streamed (d > 1024); the shapes of
+# tests/test_torch_cuda.py's test_kl_kernel_matches_plain
+KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000)]
+KL_T = 2.0               # the SplitMe temperature
+KL_HOST_BLOCKS = 9       # blocks of 50 calls a wrapper, for the host time
+
+
+def profile_ops(torch, fn, calls: int = 20):
+    """(device ms, device operations) per call of ``fn`` from torch.profiler:
+    every kernel (and copy) in the window."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = prof.key_averages()
+    ops = sum(e.count for e in evts if device_busy_ms([e]) > 0)
+    return device_busy_ms(evts) / calls, ops / calls
+
+
+def kl_rows_entering_the_device(torch, kl_ops, x, y, temperature):
+    """The forward wrapper in its earlier form, which entered
+    torch.cuda.device on every call: the yardstick of the lean wrapper's
+    host time (same checks, allocation and C entry)."""
+    kl_ops._check(x, y)
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    fn = kl_ops.build.function("kl_mutual_rows_f32", kl_ops._ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), *x.shape,
+                 1.0 / temperature, torch.cuda.current_stream().cuda_stream)
+    kl_ops.build.check(err, "kl_mutual")
+    return out
+
+
+def kl_phase(torch, port, normal):
+    """The kl_mutual forward and backward kernels against their plain
+    versions at KL_SHAPES (the backward with g at stride 0, one value for
+    every row), the gradient of dispatch.kl_loss at (50, 32, 256) against
+    the reference preset's autograd, then times at the main-path shape."""
+    kl_ops = port.kl_ops
+    fwd_err = bwd_err = bwd_rel = 0.0
+    for rows, d in KL_SHAPES:
+        x, y = normal(rows, d, scale=3.0), normal(rows, d, scale=3.0)
+        err = (kl_ops.kl_rows(x, y, KL_T)
+               - port.kl_rows_ref(x, y, KL_T)).abs().max().item()
+        g = torch.full((1,), 1.0 / 32, device=x.device).expand(rows)
+        want = port.kl_grad_ref(x, y, g, KL_T)
+        got = kl_ops.kl_grad(x, y, g, KL_T)
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"kl_mutual backward at ({rows}, {d}): {got.shape}")
+        scale = want.abs().max().item()
+        abs_err = (got - want).abs().max().item()
+        rel = abs_err / scale
+        print(f"kl_mutual ({rows}, {d}): forward max |kernel - plain| = "
+              f"{err:.3e} (tol {KL_TOL}); backward (g at stride 0) "
+              f"{rel:.3e} x max|grad| (tol {KL_TOL})")
+        check(err <= KL_TOL, f"kl_mutual disagrees at ({rows}, {d})")
+        check(rel <= KL_TOL, f"kl_mutual backward disagrees at ({rows}, {d})")
+        fwd_err, bwd_rel = max(fwd_err, err), max(bwd_rel, rel)
+        bwd_err = max(bwd_err, abs_err)
+    # gradient: the backward kernel inside autograd vs autograd of the plain
+    # graph
+    x, y = normal(50, 32, 256), normal(50, 32, 256)
+    grads = []
+    for pol in ("kernel", "reference"):
+        tx = x.clone().requires_grad_(True)
+        before = kl_ops.launches_bwd
+        port.dispatch.kl_loss(tx, y, temperature=KL_T,
+                              policy=pol).sum().backward()
+        check(kl_ops.launches_bwd == before + (pol == "kernel"),
+              f"kl_mutual backward kernel launches under {pol}")
+        grads.append(tx.grad)
+    gerr = (grads[0] - grads[1]).abs().max().item()
+    gtol = KL_TOL * grads[1].abs().max().item()
+    print(f"kl_mutual grad (50, 32, 256) through dispatch.kl_loss: max err = "
+          f"{gerr:.3e} (tol {gtol:.3e} = {KL_TOL} x max|grad|)")
+    check(gerr <= gtol, "kl_mutual gradient disagrees")
+    bwd_rel = max(bwd_rel, gerr / grads[1].abs().max().item())
+    bwd_err = max(bwd_err, gerr)
+
+    R, D = KL_SHAPES[0]
+    x, y = normal(R, D, scale=3.0), normal(R, D, scale=3.0)
+    # g: the cohort mean's 1/32 a row, at stride 0 (one value for every
+    # row, as autograd hands over the gradient of a sum)
+    g = torch.full((1,), 1.0 / 32, device=x.device).expand(R)
+    def fwd():
+        return kl_ops.kl_rows(x, y, KL_T)
+
+    def bwd():
+        return kl_ops.kl_grad(x, y, g, KL_T)
+    out = {}
+    # bytes: the forward reads x and y and writes one float a row, the
+    # backward reads x, y and g and writes gx; operations: about 16 FP32
+    # operations an element (scale, max, exp and sum for both rows, then
+    # the contraction or the gradient)
+    for key, call, plain, n_in, names in (
+            ("fwd", fwd, lambda: port.kl_rows_ref(x, y, KL_T), 2,
+             ("kl_rows_",)),
+            ("bwd", bwd, lambda: port.kl_grad_ref(x, y, g, KL_T), 3,
+             ("kl_grad_",))):
+        ms = time_ms(torch, call)
+        dev, = device_ms(torch, [call], names)
+        plain_ms = time_ms(torch, plain)
+        plain_dev, plain_ops = profile_ops(torch, plain)
+        bytes_t = (n_in * R * D + R) * 4 / PEAK_BYTES * 1e3
+        ops_t = 16 * R * D / PEAK_FP32 * 1e3
+        out[key] = {"ms": ms, "device_ms": dev,
+                    "plain_ms": plain_ms, "plain_device_ms": plain_dev,
+                    "plain_device_ops": plain_ops,
+                    "bound_ms": max(bytes_t, ops_t),
+                    "bound_by": "bytes" if bytes_t >= ops_t else "operations",
+                    "library_ms": None, "shape": [R, D]}
+    out["fwd"]["max_abs_err"] = fwd_err
+    out["bwd"]["max_abs_err"] = bwd_err
+    out["bwd"]["max_rel_err"] = bwd_rel
+    # host time a call: blocks of calls of the two wrappers and of the
+    # forward in its earlier form, in turns, and the median of each
+    # (a single block moves by 2x with the host's other work)
+    calls = {"fwd": fwd, "bwd": bwd,
+             "old": lambda: kl_rows_entering_the_device(torch, kl_ops, x, y,
+                                                        KL_T)}
+    blocks = {key: [] for key in calls}
+    for i in range(KL_HOST_BLOCKS):
+        for key in (calls if i % 2 == 0 else reversed(list(calls))):
+            blocks[key].append(host_us(torch, calls[key], calls=50))
+    host = {key: statistics.median(v) for key, v in blocks.items()}
+    out["fwd"]["host_us_per_call"] = host["fwd"]
+    out["bwd"]["host_us_per_call"] = host["bwd"]
+    old_host = out["fwd"]["host_us_entering_the_device"] = host["old"]
+    for key, what in (("fwd", "forward"), ("bwd", "backward")):
+        o = out[key]
+        dev = o["device_ms"] and round(o["device_ms"] * 1e3, 3)
+        print(f"kl_mutual {what} ({R}, {D}): {o['ms'] * 1e3:.2f} us/call "
+              f"(events), device {dev} us, host "
+              f"{o['host_us_per_call']:.2f} us/call, plain "
+              f"{o['plain_ms'] * 1e3:.2f} us (events), device "
+              f"{o['plain_device_ms'] * 1e3:.3f} us in "
+              f"{o['plain_device_ops']:.1f} device operations, bound "
+              f"{o['bound_ms'] * 1e3:.3f} us ({o['bound_by']}); library: none"
+              f" (no single PyTorch call computes the per-row softmax KL"
+              f"{' or its gradient' if key == 'bwd' else ''})")
+    print(f"kl_mutual forward wrapper host time: "
+          f"{out['fwd']['host_us_per_call']:.2f} us/call; entering "
+          f"torch.cuda.device on every call (the earlier form): {old_host:.2f} "
+          f"us/call (medians of {KL_HOST_BLOCKS} blocks of 50 calls, in "
+          f"turns; spread {min(blocks['fwd']):.2f}-{max(blocks['fwd']):.2f} "
+          f"and {min(blocks['old']):.2f}-{max(blocks['old']):.2f})")
+    return out
 
 
 def main_path_gram_pairs(cfg, n):
@@ -439,20 +599,27 @@ def check_scan_kernel(torch, name, kernel, plain, cases, make_inputs, bound,
 
 
 # the flash_attention op.  Full width: (label, (B, H, KV, S, D), window,
-# dtype, offset), q lying ``offset`` elements past a 16-byte-aligned address
-# (0: aligned, as a fresh tensor is); the first case of each route gives that
-# route's headline numbers in the kernels line
+# dtype, q offset, k and v offset), q (and k, v) lying that many elements
+# past a 16-byte-aligned address (0: aligned, as a fresh tensor is); the
+# first case of each route gives that route's headline numbers in the
+# kernels line
 FLASH_FULL = [
     ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "bfloat16",
-     0),
+     0, 0),
     ("zamba2-2.7b shared attention", (4, 32, 32, 2048, 80), None, "float32",
-     0),
-    ("qwen3-14b attention", (4, 40, 8, 2048, 128), None, "bfloat16", 0),
+     0, 0),
+    ("qwen3-14b attention", (4, 40, 8, 2048, 128), None, "bfloat16", 0, 0),
     ("qwen3-14b sliding window", (1, 40, 8, 16384, 128), 8192, "bfloat16",
-     0),
-    ("bench_kernels.py shape", (1, 4, 2, 512, 64), None, "float32", 0),
+     0, 0),
+    ("bench_kernels.py shape", (1, 4, 2, 512, 64), None, "float32", 0, 0),
     ("zamba2-2.7b shared attention, q 4 bytes off 16-byte alignment",
-     (4, 32, 32, 2048, 80), None, "float32", 1),
+     (4, 32, 32, 2048, 80), None, "float32", 1, 0),
+    ("zamba2-2.7b shared attention, k and v 4 bytes off 16-byte alignment",
+     (4, 32, 32, 2048, 80), None, "float32", 0, 1),
+    ("zamba2-2.7b shared attention, q 2 bytes off 16-byte alignment",
+     (4, 32, 32, 2048, 80), None, "bfloat16", 1, 0),
+    ("zamba2-2.7b shared attention, k and v 2 bytes off 16-byte alignment",
+     (4, 32, 32, 2048, 80), None, "bfloat16", 0, 1),
 ]
 # correctness at other shapes, each in f32 and bf16: ((B, H, KV, S, D),
 # window, scale, v_shift, qk_shift), V drawn from a normal plus v_shift, q
@@ -460,7 +627,7 @@ FLASH_FULL = [
 # shapes with and without a window, S 1 / 17 / 100 / 1000, D 32 / 64 / 80 /
 # 128, Qwen3-14B's and Zamba2-2.7B's heads, window 512 at S 2048, a window
 # of 1, a scale other than 1/sqrt(D), D 40 (a multiple of 8, not of 16), D
-# 20 (the FFMA kernel in bf16 too), Qwen3-14B's group of 5 at S 1000 with
+# 20 (not a multiple of 8), Qwen3-14B's group of 5 at S 1000 with
 # window 100, S 65 (one key past a tile), D 16, 96 and 112 (with 32-80 and
 # 128 above, every padded head size of the tensor-core kernel); V of one
 # sign (v_shift 2) at Zamba2-2.7B's shape and at Qwen3-14B's window of 8192
@@ -511,30 +678,52 @@ FLASH_CASES = [
 FLASH_TOL = {"float32": (0.0, 2e-4), "bfloat16": (2 ** -7, 1e-5)}
 
 
+# odd head sizes and inputs off 16-byte alignment, each in f32 and bf16:
+# ((B, H, KV, S, D), window, q offset, k and v offset) in elements; D 1, 20
+# and 127 (2-byte, 4-byte and 2-byte bf16 rows), q, or k and v, or all
+# three off alignment, k and v 2 elements off (4-byte copies in bf16), and
+# an odd D over 16 KV tiles.  The same cases as tests/test_torch_cuda.py's
+# test_flash_odd_d_and_unaligned_inputs_take_the_tensor_cores: keep the
+# lists equal
+FLASH_ODD = [
+    ((1, 4, 2, 100, 1), None, 0, 0), ((1, 4, 2, 100, 20), 64, 0, 0),
+    ((1, 4, 2, 100, 127), None, 0, 0), ((1, 4, 2, 100, 64), None, 1, 0),
+    ((1, 4, 2, 100, 64), None, 0, 1), ((1, 4, 2, 100, 80), 64, 1, 1),
+    ((1, 4, 2, 100, 127), None, 1, 1), ((2, 8, 2, 300, 80), None, 0, 2),
+    ((1, 4, 2, 1000, 127), None, 0, 0),
+]
+
+
 # the kernel of each route of the op (ops._route): bf16 and 3xTF32 on the
-# tensor cores, and the FFMA kernel
+# tensor cores
 FLASH_KERNELS = {
     "mma": ("flash_attn_mma_kernel",
             "src/repro_torch/kernels/csrc/flash_attention_mma.cu"),
     "tf32x3": ("flash_attn_tf32_kernel",
                "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"),
-    "ffma": ("flash_attn_ffma_kernel",
-             "src/repro_torch/kernels/csrc/flash_attention.cu"),
 }
 
 
-def flash_want_route(dtype, D, offset):
-    """The route a full-width case should take, by the op's documented rule
-    written out independently of ops._route: the tensor cores for D % 8 ==
-    0 on aligned tensors (bf16 or 3xTF32), else FFMA."""
-    if offset or D % 8:
-        return "ffma"
-    return "mma" if dtype == "bfloat16" else "tf32x3"
+def flash_want_route(dtype, D, q_off, kv_off):
+    """The (kernel, copy width in bytes) a case should take, by the op's
+    documented rule written out independently of ops._route: bf16 on the
+    bf16 tensor-core kernel and f32 on the 3xTF32 one; 16-byte copies where
+    the offsets ``q_off`` and ``kv_off`` (in elements, from aligned
+    addresses; o is a fresh allocation) and a row of D elements are
+    multiples of 16 bytes, else 4 where the K/V offset and the row allow,
+    else 2."""
+    item = 2 if dtype == "bfloat16" else 4
+    if (q_off * item % 16 == 0 and kv_off * item % 16 == 0
+            and D * item % 16 == 0):
+        width = 16
+    else:
+        width = 4 if kv_off * item % 4 == 0 and D * item % 4 == 0 else 2
+    return ("mma" if dtype == "bfloat16" else "tf32x3"), width
 
 
 def flash_route(fa, q, k, v):
-    """The route the op takes for q, k, v, by its own rule; the output is
-    a fresh allocation of torch's, aligned as q is."""
+    """The (kernel, copy width) the op takes for q, k, v, by its own rule;
+    the output is a fresh allocation of torch's."""
     return fa._route(q.dtype, q.shape[-1],
                      (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.data_ptr()))
 
@@ -570,19 +759,25 @@ def flash_phase(torch, port, normal):
     plain = port.flash_ref
     F = torch.nn.functional
 
-    def qkv(shape, dtype, offset=0):
-        """q, k, v from the generator; q ``offset`` elements past the start
-        of a fresh (aligned) allocation."""
+    def placed(a, offset):
+        """a copied ``offset`` elements past the start of a fresh (aligned)
+        allocation (a itself at offset 0)."""
+        if not offset:
+            return a
+        buf = torch.empty(offset + a.numel(), dtype=a.dtype, device=a.device)
+        return buf[offset:].view(a.shape).copy_(a)
+
+    def qkv(shape, dtype, q_off=0, kv_off=0):
+        """q, k, v from the generator; q ``q_off`` and k, v ``kv_off``
+        elements past the start of fresh (aligned) allocations."""
         B, H, KV, S, D = shape
         dt = getattr(torch, dtype)
-        q = normal(B, H, S, D).to(dt)
-        if offset:
-            buf = torch.empty(offset + q.numel(), dtype=dt, device=q.device)
-            q = buf[offset:].view(q.shape).copy_(q)
-        return q, normal(B, KV, S, D).to(dt), normal(B, KV, S, D).to(dt)
+        q = placed(normal(B, H, S, D).to(dt), q_off)
+        return (q, placed(normal(B, KV, S, D).to(dt), kv_off),
+                placed(normal(B, KV, S, D).to(dt), kv_off))
 
-    inputs = [qkv(shape, dtype, off)
-              for _, shape, _, dtype, off in FLASH_FULL]
+    inputs = [qkv(shape, dtype, qo, kvo)
+              for _, shape, _, dtype, qo, kvo in FLASH_FULL]
 
     # the op's main path: each full-width case once, through the public op;
     # the plain version and SDPA are made to fail should the op reach them
@@ -593,28 +788,29 @@ def flash_phase(torch, port, normal):
     try:
         torch.cuda.synchronize()
         fa.launches = fa.launches_mma = fa.launches_tf32x3 = 0
-        fa.launches_ffma = 0
-        outs = [fa.flash_attention(q, k, v, window=w)
-                for (q, k, v), (_, _, w, _, _) in zip(inputs, FLASH_FULL)]
+        outs = [fa.flash_attention(q, k, v, window=c[2])
+                for (q, k, v), c in zip(inputs, FLASH_FULL)]
         torch.cuda.synchronize()
         launches = {route: getattr(fa, f"launches_{route}")
                     for route in FLASH_KERNELS}
         total = fa.launches
     finally:
         fa.attention, F.scaled_dot_product_attention = saved
-    # every full-width case has a model's head size (64, 80, 128): aligned
-    # bf16 takes the bf16 tensor-core kernel, aligned f32 the 3xTF32 one,
-    # and the case with q off alignment the FFMA kernel
-    want = [flash_want_route(dt, shape[-1], off)
-            for _, shape, _, dt, off in FLASH_FULL]
-    want_launches = {route: want.count(route) for route in FLASH_KERNELS}
+    # every case, aligned or not, takes its dtype's tensor-core kernel, with
+    # copies as wide as the offsets allow
+    want = [flash_want_route(dt, shape[-1], qo, kvo)
+            for _, shape, _, dt, qo, kvo in FLASH_FULL]
+    want_launches = {route: [w[0] for w in want].count(route)
+                     for route in FLASH_KERNELS}
     print(f"flash_attention main path: {len(FLASH_FULL)} full-width calls, "
           f"{total} launches: {launches['mma']} of the bf16 tensor-core "
-          f"kernel, {launches['tf32x3']} of the 3xTF32 kernel, "
-          f"{launches['ffma']} of the FFMA kernel")
+          f"kernel, {launches['tf32x3']} of the 3xTF32 kernel")
     check(total == len(FLASH_FULL) and launches == want_launches,
           f"flash_attention launched {total} times, by route {launches}, "
           f"want {len(FLASH_FULL)}, {want_launches}")
+    got_routes = [flash_route(fa, *a) for a in inputs]
+    check(got_routes == want, f"flash_attention routes {got_routes}, want "
+          f"{want}")
 
     # worst |kernel - plain|, and worst share of the bound, by (route,
     # dtype), for the pairs compared
@@ -628,29 +824,29 @@ def flash_phase(torch, port, normal):
         diff = (got.float() - want.float()).abs()
         bound = atol + rtol * want.float().abs()
         err, share = diff.max().item(), (diff / bound).max().item()
-        print(f"flash_attention {label} [{route}]: max |kernel - plain| = "
-              f"{err:.3e}, at most {share:.3f} of atol {atol} + rtol {rtol} "
-              f"x |plain|")
+        print(f"flash_attention {label} [{route[0]}, copies of "
+              f"{route[1]} bytes]: max |kernel - plain| = {err:.3e}, at most "
+              f"{share:.3f} of atol {atol} + rtol {rtol} x |plain|")
         check(bool((diff <= bound).all()),
               f"flash_attention disagrees at {label}")
-        worst[route, dtype] = max(worst.get((route, dtype), 0.0), err)
-        worst_share[route, dtype] = max(worst_share.get((route, dtype), 0.0),
-                                        share)
+        key = route[0], dtype
+        worst[key] = max(worst.get(key, 0.0), err)
+        worst_share[key] = max(worst_share.get(key, 0.0), share)
         del diff, bound
 
     def launch_once(route, call):
         """call() through the op, checked to launch the ``route`` kernel
         once."""
-        counter = f"launches_{route}"
+        counter = f"launches_{route[0]}"
         before = fa.launches, getattr(fa, counter)
         out = call()
         check((fa.launches, getattr(fa, counter)) == (before[0] + 1,
                                                       before[1] + 1),
-              f"flash_attention did not launch its {route} kernel")
+              f"flash_attention did not launch its {route[0]} kernel")
         return out
 
-    for (label, shape, w, dtype, _), (q, k, v), o in zip(FLASH_FULL, inputs,
-                                                         outs):
+    for (label, shape, w, dtype, _, _), (q, k, v), o, route in zip(
+            FLASH_FULL, inputs, outs, got_routes):
         B, H, KV, S, D = shape
         g = flash_plain_heads(H, KV, S)
         want = plain(q[:, :g], k[:, :g * KV // H], v[:, :g * KV // H],
@@ -658,12 +854,12 @@ def flash_phase(torch, port, normal):
         if g < H:
             label += f" (query heads 0-{g - 1}, KV head 0)"
         compare(f"{shape} window {w} {dtype} [{label}]", o[:, :g], want,
-                dtype, flash_route(fa, q, k, v))
+                dtype, route)
         del want
     del outs
     # the sliding-window case once more in f32, so that the config's own
     # window and its tile skipping are held at f32 precision
-    label, shape, w, _, _ = next(c for c in FLASH_FULL if c[2] is not None)
+    label, shape, w = next(c[:3] for c in FLASH_FULL if c[2] is not None)
     B, H, KV, S, D = shape
     q, k, v = qkv(shape, "float32")
     route = flash_route(fa, q, k, v)
@@ -684,24 +880,31 @@ def flash_phase(torch, port, normal):
             compare(f"{shape} window {w} scale {scale} v + {v_shift} "
                     f"q, k + {qk_shift} {dtype}", got, want, dtype, route)
             del q, k, v, got, want
-    # q off 16-byte alignment, in both dtypes: the FFMA kernel
-    shape = (1, 4, 2, 100, 64)
-    for dtype in ("float32", "bfloat16"):
-        q, k, v = qkv(shape, dtype, offset=1)
-        route = flash_route(fa, q, k, v)
-        check(route == "ffma", f"unaligned {dtype} q routed to {route}")
-        got = launch_once(route, lambda: fa.flash_attention(q, k, v))
-        want = plain(q, k, v, scale=shape[-1] ** -0.5)
-        compare(f"{shape} q unaligned {dtype}", got, want, dtype, route)
+    # odd head sizes and inputs off alignment, in both dtypes: the
+    # tensor-core kernels with narrower copies
+    for shape, w, q_off, kv_off in FLASH_ODD:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = qkv(shape, dtype, q_off, kv_off)
+            route = flash_route(fa, q, k, v)
+            check(route == flash_want_route(dtype, shape[-1], q_off, kv_off),
+                  f"{shape} {dtype} offsets {q_off}, {kv_off} routed to "
+                  f"{route}")
+            got = launch_once(route, lambda: fa.flash_attention(q, k, v,
+                                                                window=w))
+            want = plain(q, k, v, scale=shape[-1] ** -0.5, window=w)
+            compare(f"{shape} window {w} q {q_off} and k, v {kv_off} "
+                    f"elements off alignment {dtype}", got, want, dtype,
+                    route)
+            del q, k, v, got, want
     torch.cuda.empty_cache()
 
     # times at full width
     from torch.nn.attention import SDPBackend, sdpa_kernel
     cases = []
     names = tuple(name for name, _ in FLASH_KERNELS.values())
-    for (label, shape, w, dtype, off), (q, k, v) in zip(FLASH_FULL, inputs):
+    for (label, shape, w, dtype, q_off, kv_off), (q, k, v), route in zip(
+            FLASH_FULL, inputs, got_routes):
         B, H, KV, S, D = shape
-        route = flash_route(fa, q, k, v)
         big = S > 8192
         reps, inner = (3, 1) if big else (10, 2) if S >= 2048 else (50, 10)
         ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, window=w),
@@ -709,17 +912,6 @@ def flash_phase(torch, port, normal):
         dev_ms, = device_ms(
             torch, [lambda: fa.flash_attention(q, k, v, window=w)],
             names, calls=3 if big else 10)
-        # the FFMA kernel on the same inputs, the time the tensor-core
-        # kernels replace
-        ffma_ms = None
-        if route != "ffma":
-            o = torch.empty_like(q)
-            win = 0 if w is None else w
-            ffma_ms, = device_ms(
-                torch, [lambda: fa._launch("ffma", q, k, v, o, D ** -0.5,
-                                           win)],
-                (FLASH_KERNELS["ffma"][0],), calls=3 if big else 10)
-            del o
         g = flash_plain_heads(H, KV, S)
         kp, vp = k[:, :g * KV // H], v[:, :g * KV // H]
         plain_ms = time_ms(torch, lambda: plain(q[:, :g], kp, vp,
@@ -728,15 +920,17 @@ def flash_phase(torch, port, normal):
         torch.cuda.empty_cache()
         # the yardstick: one SDPA call (never called by the port); the
         # window needs a boolean mask, and the KV heads repeated beforehand
-        # so that the memory-efficient kernel takes it; a q off alignment is
-        # given to it as an aligned copy (its kernel faults on the view)
-        qs = q.clone() if off else q
+        # so that the memory-efficient kernel takes it; inputs off
+        # alignment are given to it as aligned copies (its kernel faults on
+        # the views)
+        qs, ks, vs = ((a.clone() for a in (q, k, v)) if q_off or kv_off
+                      else (q, k, v))
         if w is None:
             ctx = contextlib.nullcontext()
-            kr, vr, mask, gqa = k, v, None, True
+            kr, vr, mask, gqa = ks, vs, None, True
         else:
             ctx = sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION])
-            kr, vr = (a.repeat_interleave(H // KV, 1) for a in (k, v))
+            kr, vr = (a.repeat_interleave(H // KV, 1) for a in (ks, vs))
             i = torch.arange(S, device=q.device)
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
             gqa = False
@@ -746,35 +940,36 @@ def flash_phase(torch, port, normal):
                     qs, kr, vr, attn_mask=mask, is_causal=w is None,
                     enable_gqa=gqa, scale=D ** -0.5),
                 reps=reps, inner=inner, warmup=2)
-        del qs, kr, vr, mask
+        del qs, ks, vs, kr, vr, mask
         torch.cuda.empty_cache()
         bound_ms, bound_by, ops, fp32_ms = flash_bound(*shape, w, dtype)
         rate = ops / (dev_ms or ms) / 1e9
         print(f"flash_attention {shape} window {w} {dtype} [{label}] "
-              f"[{route}]: {ms * 1e3:.2f} us/call (events), device "
+              f"[{route[0]}, copies of {route[1]} bytes]: "
+              f"{ms * 1e3:.2f} us/call (events), device "
               f"{dev_ms and round(dev_ms * 1e3, 2)} us = {rate:.2f} TFLOP/s, "
               f"bound {bound_ms * 1e3:.2f} us ({bound_by}"
               + (f"; at the FP32 rate {fp32_ms * 1e3:.2f} us" if fp32_ms
                  else "") + "), plain "
               f"{plain_ms * 1e3:.1f} us"
               f"{f' (on {g} query heads of KV head 0)' if g < H else ''}, "
-              f"SDPA {lib_ms * 1e3:.2f} us" + (
-                  f", FFMA kernel on these inputs {ffma_ms * 1e3:.2f} us"
-                  if ffma_ms else ""))
+              f"SDPA {lib_ms * 1e3:.2f} us"
+              f"{' (on aligned copies)' if q_off or kv_off else ''}")
         cases.append({"label": label, "shape": list(shape), "window": w,
-                      "dtype": dtype, "route": route, "ms": ms,
-                      "device_ms": dev_ms, "tflops": rate,
-                      "plain_ms": plain_ms,
+                      "dtype": dtype, "route": route[0],
+                      "copy_bytes": route[1], "q_offset": q_off,
+                      "kv_offset": kv_off, "ms": ms, "device_ms": dev_ms,
+                      "tflops": rate, "plain_ms": plain_ms,
                       "plain_heads": g, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "bound_fp32_ms": fp32_ms, "ffma_device_ms": ffma_ms})
+                      "bound_fp32_ms": fp32_ms})
     del inputs
     torch.cuda.empty_cache()
     out = {}
     for route in FLASH_KERNELS:
         mine = [c for c in cases if c["route"] == route]
         head = mine[0]
-        # the errors of the dtypes this route was compared in (each
+        # the errors of the dtype this route was compared in (each
         # tensor-core kernel takes one dtype)
         errs = {}
         for dt, short in (("float32", "f32"), ("bfloat16", "bf16")):
@@ -1004,7 +1199,7 @@ def import_port():
     from repro_torch.kernels.flash_attention.ref import (
         attention as flash_ref)
     from repro_torch.kernels.kl_mutual import ops as kl_ops
-    from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+    from repro_torch.kernels.kl_mutual.ref import kl_grad_ref, kl_rows_ref
     from repro_torch.kernels.ridge_gram import ops as rg_ops
     from repro_torch.kernels.ridge_gram.ref import gram_ref
     from repro_torch.kernels.mamba2_scan import ops as ssd_ops
@@ -1026,7 +1221,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     port = import_port()
-    kl_ops, rg_ops = port.kl_ops, port.rg_ops
+    rg_ops = port.rg_ops
     t_start = time.perf_counter()
 
     def phase(name):
@@ -1058,47 +1253,7 @@ def main() -> int:
 
     # -- 2. kernels vs plain versions ----------------------------------------
     phase("2. kernels vs plain versions")
-    kl_err = 0.0
-    for rows, d in ((1600, 256), (1000, 200)):
-        x, y = normal(rows, d, scale=3.0), normal(rows, d, scale=3.0)
-        err = (kl_ops.kl_rows(x, y, 2.0) - port.kl_rows_ref(x, y, 2.0))
-        err = err.abs().max().item()
-        print(f"kl_mutual ({rows}, {d}): max |kernel - plain| = {err:.3e} "
-              f"(tol {KL_TOL})")
-        check(err <= KL_TOL, f"kl_mutual disagrees at ({rows}, {d})")
-        kl_err = max(kl_err, err)
-    # gradient: autograd.Function (closed form) vs autograd of the plain graph
-    x, y = normal(50, 32, 256), normal(50, 32, 256)
-    grads = []
-    for pol in ("kernel", "reference"):
-        tx = x.clone().requires_grad_(True)
-        port.dispatch.kl_loss(tx, y, temperature=2.0,
-                              policy=pol).sum().backward()
-        grads.append(tx.grad)
-    gerr = (grads[0] - grads[1]).abs().max().item()
-    gtol = KL_TOL * grads[1].abs().max().item()
-    print(f"kl_mutual grad (50, 32, 256): max err = {gerr:.3e} "
-          f"(tol {gtol:.3e} = {KL_TOL} x max|grad|)")
-    check(gerr <= gtol, "kl_mutual gradient disagrees")
-
-    R, D = 1600, 256
-    x, y = normal(R, D, scale=3.0), normal(R, D, scale=3.0)
-    kl_ms = time_ms(torch, lambda: kl_ops.kl_rows(x, y, 2.0))
-    kl_plain_ms = time_ms(torch, lambda: port.kl_rows_ref(x, y, 2.0))
-    kl_dev_ms, = device_ms(torch, [lambda: kl_ops.kl_rows(x, y, 2.0)],
-                           ("kl_rows_kernel",))
-    # bytes: read x and y once, write the (R,) rows; operations: about 16
-    # FP32 operations per element (scale, max, exp and sum for both rows,
-    # then the contraction)
-    kl_bytes_t = (2 * R * D + R) * 4 / PEAK_BYTES * 1e3
-    kl_ops_t = 16 * R * D / PEAK_FP32 * 1e3
-    kl_bound = max(kl_bytes_t, kl_ops_t)
-    kl_bound_by = "bytes" if kl_bytes_t >= kl_ops_t else "operations"
-    print(f"kl_mutual ({R}, {D}): {kl_ms * 1e3:.2f} us/call (events), "
-          f"device {kl_dev_ms and round(kl_dev_ms * 1e3, 3)} us, plain "
-          f"{kl_plain_ms * 1e3:.2f} us, bound {kl_bound * 1e3:.3f} us "
-          f"({kl_bound_by}); library: none (no single PyTorch call computes "
-          f"the per-row softmax KL)")
+    kl = kl_phase(torch, port, normal)
 
     n = 4800
     shapes = main_path_gram_shapes(port.DNN10, n)
@@ -1228,8 +1383,9 @@ def main() -> int:
     sp = port.SystemParams()
     clients = port.oran.partition_non_iid(Xtr, ytr, sp.M,
                                           samples_per_client=96, seed=0)
-    trainer, hist, round_ms, w_server, final_acc, (kl_n, rg_n) = main_path(
-        torch, port, sp, clients, test, "cuda")
+    (trainer, hist, round_ms, w_server, final_acc,
+     (kl_n, kl_bwd_n, rg_n)) = main_path(torch, port, sp, clients, test,
+                                         "cuda")
     e_max = trainer.sp.E_max
     for m, ms in zip(hist, round_ms):
         print(f"round {m.round}: selected {m.n_selected} E {m.E} client KL "
@@ -1240,9 +1396,15 @@ def main() -> int:
     print(f"main path: {statistics.median(round_ms[1:]):.1f} ms per round "
           f"(median of rounds 1-{ROUNDS - 1}; round 0 {round_ms[0]:.1f} ms), "
           f"final accuracy {final_acc:.4f}, Step-4 weights finite: "
-          f"{step4_finite}; launches kl_mutual {kl_n} ridge_gram {rg_n}")
+          f"{step4_finite}; launches kl_mutual {kl_n} (backward "
+          f"{kl_bwd_n}) ridge_gram {rg_n}")
     check(kl_n == ROUNDS * 2 * e_max,
           f"kl_mutual launches {kl_n} != {ROUNDS * 2 * e_max}")
+    # one backward launch per executed training step: E_t steps of each of
+    # the two phases in round t (the steps after E_t run no backward)
+    steps = sum(2 * m.E for m in hist)
+    check(kl_bwd_n == steps,
+          f"kl_mutual backward launches {kl_bwd_n} != {steps} training steps")
     # one gram_pair launch (OᵀO and OᵀZ) per server layer: 8 at the last
     # round's evaluation and 8 in finalize
     check(rg_n == 2 * 8, f"ridge_gram launches {rg_n} != 16 "
@@ -1275,10 +1437,10 @@ def main() -> int:
                   and abs(acc_k - acc_p) <= 1e-3,
                   f"Step 4 with the Gram kernel disagrees with the plain "
                   f"Grams at gamma {gamma} (tol {STEP4_TOL})")
-    m, wall_ms, busy_ms, heavy = round_profile(torch, trainer)
+    m, wall_ms, busy_ms, n_ops, heavy = round_profile(torch, trainer)
     print(f"profiled round {m.round} (selected {m.n_selected}, E {m.E}): "
           f"wall {wall_ms:.1f} ms, device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / wall_ms:.4f}")
+          f"{1 - busy_ms / wall_ms:.4f}, {n_ops} device operations")
     for name, ms, calls in heavy:
         print(f"  {ms:8.3f} ms  {calls:5d} calls  {name}")
 
@@ -1310,10 +1472,13 @@ def main() -> int:
         {"name": "kl_mutual", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/kl_mutual.py:38",
-         "launches": kl_n, "max_abs_err": kl_err, "ms": kl_ms,
-         "plain_ms": kl_plain_ms, "bound_ms": kl_bound,
-         "bound_by": kl_bound_by, "library_ms": None,
-         "device_ms": kl_dev_ms, "shape": [R, D]},
+         "launches": kl_n, **kl["fwd"]},
+        # the closed-form backward beside the Pallas kernel (plain jnp in
+        # the JAX package), one kernel here
+        {"name": "kl_mutual (backward)", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
+         "replaces": "src/repro/kernels/kl_mutual/ops.py:33",
+         "launches": kl_bwd_n, **kl["bwd"]},
         {"name": "ridge_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
          "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:40",

@@ -2,15 +2,13 @@
 // in and out, with an optional sliding window:
 //   o[b, h, i] = sum_j softmax_j(scale * q[b, h, i] . k[b, g, j]) v[b, g, j]
 // over the keys j visible to query i (i - window < j <= i), g = h / (H / KV).
-// q, o are (B, H, S, D) and k, v (B, KV, S, D), row-major float32, D a
-// multiple of 8 up to 128, every pointer 16-byte aligned.
+// q, o are (B, H, S, D) and k, v (B, KV, S, D), row-major float32, any D
+// from 1 to 128, any element-aligned pointers.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/
 // flash_attention.py (_flash_kernel / flash_attention_pallas) for float32
-// inputs.  The wrapper (flash_attention/ops.py, _route) sends float32 with
-// D % 8 == 0 and 16-byte-aligned pointers here, bfloat16 with the same to
-// flash_attention_mma.cu, and everything else to the FFMA kernel of
-// flash_attention.cu.
+// inputs.  The wrapper (flash_attention/ops.py, _route) sends every float32
+// call here and every bfloat16 call to flash_attention_mma.cu.
 //
 // Bound on an H100 SXM at Zamba2-2.7B's shared attention (B 4, H = KV = 32,
 // S 2048, D 80): 4 D operations per visible (query, key) pair, 8.6e10 in
@@ -28,11 +26,21 @@
 // - Q goes once into shared memory (64 rows, f32) and its A fragments are
 //   read and split into TF32 hi and lo at each use: in registers they
 //   spilled at D = 80 and above.  K and V tiles of BK keys (64 up to DP =
-//   32, else 32) go through a 2-stage cp.async ring of 16-byte copies, with
-//   Q in the first group; copies are zero-filled for rows >= S and for the
-//   columns from D up to DP (D rounded up to 16).  Rows of shared memory are
-//   DP + 4 floats: = 4 mod 16, so the 8 rows of an A or B fragment and the
-//   4 V row pairs of a P V fragment fall in distinct banks.
+//   32, else 32) go through a 2-stage cp.async ring, with Q in the first
+//   group; copies are zero-filled for rows >= S and for the columns from D
+//   up to DP (D rounded up to 16).  The copies of Q, K and V are W bytes
+//   wide, a template parameter: 16 where q, k, v and a row of D floats are
+//   16-byte aligned and o takes float2 stores (every model width on fresh
+//   tensors; no run-time branch on alignment there: a run-time choice of
+//   Q's width inside it moved the compiler's register allocation, to
+//   spills at DP = 32 and 80), else 4 (any D and offset: a float is always
+//   4-byte aligned, so the ring stays asynchronous).  A 4-byte tile is one
+//   run of BK D floats in memory, walked flat with a run-time trip count
+//   (unrolled, the pieces a thread kept their addresses in registers
+//   across the tiles and spilled); its padding columns are zeroed once.
+//   Rows of shared memory are DP + 4 floats: = 4 mod 16, so the 8 rows of
+//   an A or B fragment and the 4 V row pairs of a P V fragment fall in
+//   distinct banks.
 // - S = Q K^T in 3xTF32, so the scores keep f32 accuracy; the three
 //   products go in three passes over the independent n8 tiles (tf32x3.cuh).
 //   scale multiplies the f32 scores, as in the JAX kernel, with log2(e)
@@ -56,7 +64,8 @@
 //   each tile's share.  S spans at most 16 k8 steps (D <= 128) and is
 //   formed in its accumulator.
 // - Epilogue: O / l (l == 0 -> 1, as in the JAX kernel), stored as float2
-//   with ragged rows guarded.
+//   with ragged rows guarded, or (4-byte kernels) one float at a time where
+//   D is odd or o is not 8-byte aligned.
 // - Occupancy: the launch bounds ask for 4 blocks an SM up to DP = 32 (at
 //   most 128 registers a thread), 3 up to DP = 80 (170) and 2 above, where
 //   the O accumulator alone takes 48-64 registers.
@@ -78,6 +87,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4-byte global -> shared copy (.cg takes 16 bytes only); src_bytes 0 writes
+// 4 zero bytes
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -105,9 +123,9 @@ __host__ __device__ constexpr int min_blocks(int dp) {
   return dp <= 32 ? 4 : dp <= 80 ? 3 : 2;
 }
 
-// rows [r0, r0 + BK) of src (S rows of D) into dst (BK rows of DP + 4
+// rows [r0, r0 + ROWS) of src (S rows of D) into dst (ROWS rows of DP + 4
 // floats, the first DP of them read): 16-byte chunks, zeros for rows >= S
-// and for the chunks from D to DP
+// and for the chunks from D to DP (D % 4 == 0, src 16-byte aligned)
 template <int DP, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int r0, int S, int D, int tid) {
@@ -126,12 +144,62 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
+// the same rows in 4-byte cp.async pieces (any D and float offset); only
+// the first D columns are written (zero_pad clears the rest once), zeros
+// for rows >= S.  The ROWS rows are one run of ROWS D floats at src + r0 D,
+// walked flat: float f lies in row f / D, the quotient from a float
+// reciprocal of D (exact: f < 2^13 and D <= 128 keep the rounding below
+// 0.5 / D), and the trip count is left to run time, so that no piece's
+// address is held across the tiles
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile_narrow(float* dst, const float* src,
+                                                 int r0, int S, int D,
+                                                 float rcp_d, int tid) {
+  constexpr int kRow = DP + 4;
+  const int end = ROWS * D;                  // floats of the tile
+  const int valid = min(S - r0, ROWS) * D;   // those of rows < S
+  const float* base = src + static_cast<size_t>(r0) * D;
+#pragma unroll 4
+  for (int f = tid; f < end; f += kThreads) {
+    const int r = static_cast<int>((f + 0.5f) * rcp_d);
+    const bool in = f < valid;
+    cp_async4(smem_u32(dst + r * kRow + (f - r * D)), in ? base + f : base,
+              in ? 4 : 0);
+  }
+}
+
+// columns [D, DP) of `rows` rows of DP + 4 floats set to zero, in the
+// tiles that narrow copies fill
 template <int DP>
+__device__ __forceinline__ void zero_pad(float* dst, int rows, int D,
+                                         int tid) {
+  constexpr int kRow = DP + 4;
+  for (int r = tid; r < rows; r += kThreads) {
+    for (int c = D; c < DP; ++c) dst[r * kRow + c] = 0.0f;
+  }
+}
+
+// a K or V tile of ROWS rows in pieces of W bytes
+template <int DP, int ROWS, int W>
+__device__ __forceinline__ void load_kv(float* dst, const float* src, int r0,
+                                        int S, int D, float rcp_d, int tid) {
+  static_assert(W == 16 || W == 4, "pieces of 16 or 4 bytes");
+  if constexpr (W == 16) {
+    load_tile<DP, ROWS>(dst, src, r0, S, D, tid);
+  } else {
+    load_tile_narrow<DP, ROWS>(dst, src, r0, S, D, rcp_d, tid);
+  }
+}
+
+// W: the width in bytes of the Q, K and V copies (16 only where all three
+// and o allow it)
+template <int DP, int W>
 __global__ void __launch_bounds__(kThreads, min_blocks(DP))
 flash_attn_tf32_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int H, int KV, int S, int D, float scale, int window) {
+                       int H, int KV, int S, int D, float scale,
+                       int window) {
   constexpr int kBK = block_keys(DP);
   constexpr int kSteps = DP / 8;   // k8 steps of Q K^T, n8 tiles of P V
   constexpr int kKeys8 = kBK / 8;  // n8 tiles of S, k8 steps of P V
@@ -160,9 +228,15 @@ flash_attn_tf32_kernel(const float* __restrict__ q,
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int ntiles = (hi - lo + kBK - 1) / kBK;  // >= 1: lo <= q0 < hi
 
-  load_tile<DP, kBQ>(q_s, qg, q0, S, D, tid);
-  load_tile<DP, kBK>(k_s, kg, lo, S, D, tid);
-  load_tile<DP, kBK>(v_s, vg, lo, S, D, tid);
+  const float rcp_d = 1.0f / D;  // for the narrow copies
+  if constexpr (W == 16) {
+    load_tile<DP, kBQ>(q_s, qg, q0, S, D, tid);
+  } else {
+    zero_pad<DP>(q_s, kBQ + 4 * kBK, D, tid);  // the Q, K and V tiles
+    load_tile_narrow<DP, kBQ>(q_s, qg, q0, S, D, rcp_d, tid);
+  }
+  load_kv<DP, kBK, W>(k_s, kg, lo, S, D, rcp_d, tid);
+  load_kv<DP, kBK, W>(v_s, vg, lo, S, D, rcp_d, tid);
   cp_async_commit();
 
   // the rows of this lane: c0, c1 of an m16n8 tile hold row r, c2, c3 row
@@ -186,14 +260,14 @@ flash_attn_tf32_kernel(const float* __restrict__ q,
     const int k0 = lo + it * kBK;
     const int st = it & 1;
     if (it + 1 < ntiles) {  // the next tile into the other stage
-      load_tile<DP, kBK>(k_s + (st ^ 1) * kBK * kRow, kg, k0 + kBK, S, D,
-                         tid);
-      load_tile<DP, kBK>(v_s + (st ^ 1) * kBK * kRow, vg, k0 + kBK, S, D,
-                         tid);
+      load_kv<DP, kBK, W>(k_s + (st ^ 1) * kBK * kRow, kg, k0 + kBK, S, D,
+                          rcp_d, tid);
+      load_kv<DP, kBK, W>(v_s + (st ^ 1) * kBK * kRow, vg, k0 + kBK, S, D,
+                          rcp_d, tid);
     }
     cp_async_commit();  // possibly empty: one group per iteration
     cp_async_wait1();  // this tile's group has landed
-    __syncthreads();
+    __syncthreads();   // (and the zeroed padding is seen)
     const float* ks = k_s + st * kBK * kRow;
     const float* vs = v_s + st * kBK * kRow;
 
@@ -323,79 +397,116 @@ flash_attn_tf32_kernel(const float* __restrict__ q,
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
     if (l[r] == 0.0f) l[r] = 1.0f;
   }
+  // float2 where D is even and o 8-byte aligned (then every pair (d, d + 1)
+  // is; always at W = 16), else one float at a time
+  if (W == 16 || (D % 2 == 0 && reinterpret_cast<uintptr_t>(o) % 8 == 0)) {
 #pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
-    const int d = 8 * j + 2 * t;
-    if (d < D) {  // D % 8 == 0, so d + 1 < D too
+    for (int j = 0; j < kSteps; ++j) {
+      const int d = 8 * j + 2 * t;
+      if (d < D) {  // D even, so d + 1 < D too
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          if (row < S) {
+            *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * D +
+                                       d) =
+                make_float2(acc[j][2 * r] / l[r], acc[j][2 * r + 1] / l[r]);
+          }
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int d = 8 * j + 2 * t;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
-        if (row < S) {
-          *reinterpret_cast<float2*>(og + static_cast<size_t>(row) * D + d) =
-              make_float2(acc[j][2 * r] / l[r], acc[j][2 * r + 1] / l[r]);
-        }
+        float* to = og + static_cast<size_t>(row) * D + d;
+        if (row < S && d < D) to[0] = acc[j][2 * r] / l[r];
+        if (row < S && d + 1 < D) to[1] = acc[j][2 * r + 1] / l[r];
       }
     }
   }
 }
 
-template <int DP>
+template <int DP, int W>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int H, int KV, int S, int D, float scale,
                    int window, cudaStream_t stream) {
   const int smem = (kBQ + 4 * block_keys(DP)) * (DP + 4) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_tf32_kernel<DP>,
+      flash_attn_tf32_kernel<DP, W>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attn_tf32_kernel<DP><<<grid, kThreads, smem, stream>>>(
+  flash_attn_tf32_kernel<DP, W><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, H, KV, S, D, scale, window);
   return cudaGetLastError();
 }
 
 // D rounded up to a multiple of 16, the kernel's padded head size
+template <int W>
 cudaError_t launch_d(const float* q, const float* k, const float* v, float* o,
                      int B, int H, int KV, int S, int D, float scale,
                      int window, cudaStream_t s) {
   switch ((D + 15) / 16) {
-    case 1: return launch<16>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    case 2: return launch<32>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    case 3: return launch<48>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    case 4: return launch<64>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    case 5: return launch<80>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    case 6: return launch<96>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    case 7: return launch<112>(q, k, v, o, B, H, KV, S, D, scale, window, s);
-    default: return launch<128>(q, k, v, o, B, H, KV, S, D, scale, window, s);
+#define REPRO_LAUNCH(DP) \
+  return launch<DP, W>(q, k, v, o, B, H, KV, S, D, scale, window, s)
+    case 1: REPRO_LAUNCH(16);
+    case 2: REPRO_LAUNCH(32);
+    case 3: REPRO_LAUNCH(48);
+    case 4: REPRO_LAUNCH(64);
+    case 5: REPRO_LAUNCH(80);
+    case 6: REPRO_LAUNCH(96);
+    case 7: REPRO_LAUNCH(112);
+    default: REPRO_LAUNCH(128);
+#undef REPRO_LAUNCH
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+// the widest copy, 16 or 4 bytes, that the address p and a row of D floats
+// both allow
+int width(const void* p, int D) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p) | (4u * D);
+  return a % 16 == 0 ? 16 : 4;
 }
 
 }  // namespace
 
 // q, o: (B, H, S, D); k, v: (B, KV, S, D); row-major float32 on the device,
-// every pointer 16-byte aligned.  H must be a multiple of KV, D a multiple
-// of 8 in [8, 128]; window 0 means none, else key j is visible to query i iff
-// i - window < j <= i.  Returns the cudaError_t of the launch.
+// element-aligned.  H must be a multiple of KV, D in [1, 128]; window 0 means
+// none, else key j is visible to query i iff i - window < j <= i.  kv_width
+// is the width in bytes of the Q, K and V copies: 16 where q, k, v and a row
+// of D floats are 16-byte aligned and o 8-byte aligned, else 4 (ops._route
+// picks the widest).  Returns the cudaError_t of the launch.
 extern "C" int flash_attention_tf32_fwd(const void* q, const void* k,
                                         const void* v, void* o, int B, int H,
                                         int KV, int S, int D, float scale,
-                                        int window, void* stream) {
-  if (B < 0 || H < 0 || KV < 1 || S < 0 || D < 8 || D > 128 || D % 8 != 0 ||
-      H % KV != 0 || B > 65535 || H > 65535 || window < 0 || !aligned16(q) ||
-      !aligned16(k) || !aligned16(v) || !aligned16(o)) {
+                                        int window, int kv_width,
+                                        void* stream) {
+  if (B < 0 || H < 0 || KV < 1 || S < 0 || D < 1 || D > 128 ||
+      H % KV != 0 || B > 65535 || H > 65535 || window < 0 ||
+      (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 4 ||
+      (kv_width != 16 && kv_width != 4) ||
+      (kv_width == 16 &&
+       (width(q, D) < 16 || width(k, D) < 16 || width(v, D) < 16 ||
+        reinterpret_cast<uintptr_t>(o) % 8 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || H == 0 || S == 0) {
     return static_cast<int>(cudaGetLastError());
   }
-  const cudaError_t err = launch_d(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), B, H, KV, S, D,
-      scale, window, static_cast<cudaStream_t>(stream));
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      kv_width == 16
+          ? launch_d<16>(qf, kf, vf, of, B, H, KV, S, D, scale, window, s)
+          : launch_d<4>(qf, kf, vf, of, B, H, KV, S, D, scale, window, s);
   return static_cast<int>(err);
 }

@@ -1,5 +1,5 @@
-"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention_mma.cu``,
-``csrc/flash_attention_tf32.cu`` and ``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/flash_attention_mma.cu``
+and ``csrc/flash_attention_tf32.cu``).
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention_pallas``) and its wrapper
@@ -13,21 +13,25 @@ operations over the visible (query, key) pairs, 0.087 ms at the bf16
 tensor-core rate and 0.52 ms at the f32-accurate 3xTF32 rate (495 / 3
 TFLOP/s), against 168 MB of bf16 bytes (0.050 ms).
 
-A CUDA call takes one of three kernels, by a fixed rule (``_route``) on the
-inputs' dtype, head size and alignment, never by trying one and then
-another:
+A CUDA call takes one of two tensor-core kernels, by its dtype alone
+(``_route``), for every head size D in [1, 128] and every element-aligned
+pointer:
 
-* ``"mma"``: bfloat16 with D a multiple of 8 and 16-byte-aligned pointers
-  (every model width: 32, 64, 80, 128).  Tensor cores (``mma.sync`` bf16 with
-  f32 accumulation, K/V through a ``cp.async`` ring), P split into two bf16
-  halves so that P·V keeps ~16 bits of p.
-* ``"tf32x3"``: float32 with the same D and alignment.  Tensor cores in
-  3xTF32 (each f32 operand split into TF32 high and low parts, three
-  ``mma.sync`` m16n8k8 products), each 8-key step of P·V summed from zero
-  and added to O with rounded FP32 adds, so that O does not drift with the
-  number of keys (the tensor core truncates its sums).
-* ``"ffma"``: everything else (another D, an unaligned pointer), in either
-  dtype.  FP32 FFMA without tensor cores.
+* ``"mma"``: bfloat16.  ``mma.sync`` bf16 with f32 accumulation, K/V
+  through a ring of asynchronous copies, P split into two bf16 halves so
+  that P·V keeps ~16 bits of p.
+* ``"tf32x3"``: float32.  3xTF32 (each f32 operand split into TF32 high and
+  low parts, three ``mma.sync`` m16n8k8 products), each 8-key step of P·V
+  summed from zero and added to O with rounded FP32 adds, so that O does
+  not drift with the number of keys (the tensor core truncates its sums).
+
+Both pad D up to a multiple of 16 with zeros.  Their copies of Q, K and V
+are W bytes wide, a template parameter of the kernel that ``_route``
+returns with it: 16 where q, k, v and a row of D elements are 16-byte
+aligned and o takes pair stores (every model width, 32, 64, 80, 128, on
+fresh tensors), else 4 where k, v and the row allow (Q in bfloat16 then in
+pairs or, at an odd offset, single elements), else (bfloat16 with an odd D
+or an odd element offset of k or v) 2-byte loads through registers.
 
 It has no backward, as the JAX package's has none.
 """
@@ -47,28 +51,30 @@ from repro_torch.kernels.flash_attention.ref import attention
 launches = 0
 launches_mma = 0
 launches_tf32x3 = 0
-launches_ffma = 0
 
 MAX_D = 128          # the head size the kernel's register tiles allow
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
-             + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-_MMA_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
-                 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-# the C entries of the tensor-core routes (one signature, _MMA_ARGTYPES)
-_MMA_ENTRIES = {"mma": "flash_attention_mma_fwd",
-                "tf32x3": "flash_attention_tf32_fwd"}
+_DTYPES = (torch.float32, torch.bfloat16)
+# the C entries of the two routes, one signature: q, k, v, o, B, H, KV, S,
+# D, scale, window, the copy width, stream
+_ENTRIES = {"mma": "flash_attention_mma_fwd",
+            "tf32x3": "flash_attention_tf32_fwd"}
+_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+             + (ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
 
 
-def _route(dtype: torch.dtype, D: int, ptrs) -> str:
-    """The kernel a CUDA call launches.  With D a multiple of 8 and every
-    pointer in ``ptrs`` 16-byte aligned (the tensor-core kernels' copies
-    move 16 bytes): ``"mma"`` for bfloat16, ``"tf32x3"`` for float32.
-    Else ``"ffma"``."""
-    if D % 8 == 0 and all(p % 16 == 0 for p in ptrs):
-        return "mma" if dtype == torch.bfloat16 else "tf32x3"
-    return "ffma"
+def _route(dtype: torch.dtype, D: int, ptrs) -> tuple:
+    """(kernel, copy width in bytes) of a CUDA call with ``ptrs`` (q, k,
+    v, o): ``"mma"`` for bfloat16, ``"tf32x3"`` for float32.  16-byte
+    copies need q, k, v and a row of D elements 16-byte aligned and o
+    aligned for pair stores; else 4-byte copies (cp.async), where k, v and
+    the row allow, else 2 (bfloat16 through registers)."""
+    route = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    q, k, v, o = ptrs
+    row = D * dtype.itemsize
+    if (q | k | v | row) % 16 == 0 and o % (2 * dtype.itemsize) == 0:
+        return route, 16
+    return route, 4 if (k | v | row) % 4 == 0 else 2
 
 
 def _check(q, k, v, causal, window) -> None:
@@ -121,6 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     that ``_route`` picks, on the current stream."""
+    global launches, launches_mma, launches_tf32x3
     _check(q, k, v, causal, window)
     B, H, S, D = q.shape
     if scale is None:
@@ -136,30 +143,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # a window of S keys or more masks nothing; 0 tells the kernel "none"
     win = 0 if window is None or window >= S else int(window)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    _launch(_route(q.dtype, D, ptrs), q, k, v, o, float(scale), win)
-    return o
-
-
-def _launch(route: str, q, k, v, o, scale: float, win: int) -> None:
-    """Launch the ``route`` kernel on the current stream (``win`` 0: no
-    window); raises on the launch's error."""
-    global launches, launches_mma, launches_tf32x3, launches_ffma
-    B, H, S, D = q.shape
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    route, width = _route(q.dtype, D, ptrs)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route in _MMA_ENTRIES:
-            err = build.function(_MMA_ENTRIES[route], _MMA_ARGTYPES)(
-                *ptrs, B, H, k.shape[1], S, D, scale, win, stream)
-        else:
-            err = build.function("flash_attention_fwd", _ARGTYPES)(
-                *ptrs, _DTYPES[q.dtype], B, H, k.shape[1], S, D, scale, win,
-                stream)
+        err = build.function(_ENTRIES[route], _ARGTYPES)(
+            *ptrs, B, H, k.shape[1], S, D, float(scale), win, width,
+            torch.cuda.current_stream().cuda_stream)
     build.check(err, f"flash_attention ({route})")
     launches += 1
     if route == "mma":
         launches_mma += 1
-    elif route == "tf32x3":
-        launches_tf32x3 += 1
     else:
-        launches_ffma += 1
+        launches_tf32x3 += 1
+    return o

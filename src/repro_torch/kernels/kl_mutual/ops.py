@@ -1,16 +1,19 @@
-"""Wrapper of the CUDA mutual-KL kernel (``csrc/kl_mutual.cu``) and its
+"""Wrapper of the CUDA mutual-KL kernels (``csrc/kl_mutual.cu``) and their
 ``autograd.Function``.
 
 Replaces ``repro/kernels/kl_mutual/kl_mutual.py`` (``_kl_kernel`` /
 ``kl_rows_pallas``) and ``repro/kernels/kl_mutual/ops.py`` (``_kl_mean``
 custom_vjp).  The Pallas wrapper vmaps one (32, 256) call per client; here
 the rows of the whole cohort go to ONE launch over an (R, d) layout, one warp
-per row.  Bound on an H100 SXM: memory — 3.3 MB read at (1600, 256), about
-1 µs at 3.35 TB/s, so launch overhead dominates at that size.
+per row.  Bound on an H100 SXM: memory — 3.28 MB at (1600, 256), 0.98 µs at
+3.35 TB/s, so launch overhead dominates at that size.
 
 The backward is the closed form ∂x = g·(softmax(x/T) − softmax(y/T))/T per
-row, in plain PyTorch ops, as the JAX package also computes it outside
-Pallas; y is the stop-gradient target and gets no gradient.
+row, as the JAX package computes it outside Pallas (where XLA fuses it into
+one pass): on the card ONE launch of ``kl_mutual_grad_f32``, which reads g
+at its own stride (0 where autograd hands one value over for every row)
+instead of copying it, on the CPU its plain version ``kl_grad_ref``.  y is the stop-gradient target and gets
+no gradient.
 """
 from __future__ import annotations
 
@@ -19,13 +22,32 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+from repro_torch.kernels.kl_mutual.ref import kl_grad_ref, kl_rows_ref
 
-# kernel launches since the last reset (plain counter; callers set it to 0)
+# kernel launches since the last reset (plain counters; callers set them to
+# 0): the forward's and the backward's
 launches = 0
+launches_bwd = 0
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+# x, y, g, g's stride, gx, rows, d, 1 / T, stream
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int64, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p))
+
+
+def _launch(name: str, argtypes, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` with ``args`` and the current stream of
+    ``device``, entering the device only when it is not the current one;
+    raises on the launch's error."""
+    fn = build.function(name, argtypes)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    build.check(err, name)
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -54,13 +76,35 @@ def kl_rows(x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"kl_rows runs on cuda or cpu, not {x.device}")
     rows, d = x.shape
     out = torch.empty(rows, dtype=torch.float32, device=x.device)
-    fn = build.function("kl_mutual_rows_f32", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), rows, d,
-                 1.0 / temperature, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "kl_mutual")
+    _launch("kl_mutual_rows_f32", _ARGTYPES, x.device, x.data_ptr(),
+            y.data_ptr(), out.data_ptr(), rows, d, 1.0 / temperature)
     launches += 1
     return out
+
+
+def kl_grad(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+            temperature: float = 1.0) -> torch.Tensor:
+    """∂/∂x of Σ_r g[r]·D_KL(x_r ‖ y_r): (R, d) f32 x and y, (R,) f32 g at
+    any stride -> (R, d).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel on the current stream."""
+    global launches_bwd
+    _check(x, y)
+    if g.shape != x.shape[:1] or g.dtype != torch.float32:
+        raise ValueError(f"kl_grad needs g of shape ({x.shape[0]},) in "
+                         f"float32, got {tuple(g.shape)} {g.dtype}")
+    if g.device != x.device:
+        raise ValueError(f"x on {x.device} but g on {g.device}")
+    if x.device.type == "cpu":
+        return kl_grad_ref(x, y, g, temperature)
+    if x.device.type != "cuda":
+        raise ValueError(f"kl_grad runs on cuda or cpu, not {x.device}")
+    rows, d = x.shape
+    gx = torch.empty_like(x)
+    _launch("kl_mutual_grad_f32", _BWD_ARGTYPES, x.device, x.data_ptr(),
+            y.data_ptr(), g.data_ptr(), g.stride(0), gx.data_ptr(), rows, d,
+            1.0 / temperature)
+    launches_bwd += 1
+    return gx
 
 
 class KLRows(torch.autograd.Function):
@@ -75,7 +119,4 @@ class KLRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        t = ctx.temperature
-        p_x = torch.softmax(x / t, -1)
-        p_y = torch.softmax(y / t, -1)
-        return g[:, None] * (p_x - p_y) / t, None, None
+        return kl_grad(x, y, g, ctx.temperature), None, None

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the fused mutual-KL kernel."""
+"""Plain PyTorch versions of the fused mutual-KL kernels."""
 import torch
 
 
@@ -9,3 +9,13 @@ def kl_rows_ref(x: torch.Tensor, y: torch.Tensor,
     logp_x = torch.log_softmax(x.float() / temperature, -1)
     logp_y = torch.log_softmax(y.float() / temperature, -1)
     return torch.sum(logp_y.exp() * (logp_y - logp_x), -1)
+
+
+def kl_grad_ref(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                temperature: float = 1.0) -> torch.Tensor:
+    """The gradient in x of Σ_r g[r]·D_KL(x_r ‖ y_r), the closed form
+    g[r]·(softmax(x_r/T) − softmax(y_r/T))/T (y is a target and gets none);
+    x, y: (R, d), g: (R,) -> (R, d)."""
+    p_x = torch.softmax(x / temperature, -1)
+    p_y = torch.softmax(y / temperature, -1)
+    return g[:, None] * (p_x - p_y) / temperature

@@ -18,7 +18,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention as fa_ref
 from repro_torch.kernels.kl_mutual import ops as kl_ops
-from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+from repro_torch.kernels.kl_mutual.ref import kl_grad_ref, kl_rows_ref
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 from repro_torch.kernels.ridge_gram import ops as rg_ops
@@ -45,8 +45,21 @@ def _normal(seed, shape, device, scale=1.0):
                         device=device)
 
 
-@pytest.mark.parametrize("rows,d", [(1600, 256), (1000, 200), (7, 3),
-                                    (33, 1000)])
+# (rows, d) of the KL kernels: the main path's (50 clients x 32 rows of
+# 256), a ragged width, single floats (d % 4 != 0), 32 values a lane (d
+# 1000) and a row streamed (d > 1024)
+_KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000)]
+
+
+def _off_alignment(t, offset):
+    """t copied ``offset`` floats past an aligned address (t at 0)."""
+    if not offset:
+        return t
+    buf = torch.empty(offset + t.numel(), device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("rows,d", _KL_SHAPES)
 @pytest.mark.parametrize("temp", [1.0, 2.0])
 def test_kl_kernel_matches_plain(cuda, rows, d, temp):
     x, y = _normal(0, (rows, d), cuda, 3.0), _normal(1, (rows, d), cuda, 3.0)
@@ -57,13 +70,40 @@ def test_kl_kernel_matches_plain(cuda, rows, d, temp):
                                atol=1e-5)
 
 
+# g at stride 1 (a value per row), or at stride 0 (one value for every
+# row, as a mean over the rows hands it over); x off 16-byte alignment takes
+# the kernels' single-float loads at d % 4 == 0
+@pytest.mark.parametrize("rows,d", _KL_SHAPES)
+@pytest.mark.parametrize("g_stride", [1, 0])
+@pytest.mark.parametrize("x_offset", [0, 1])
+def test_kl_grad_kernel_matches_plain(cuda, rows, d, g_stride, x_offset):
+    x = _off_alignment(_normal(2, (rows, d), cuda, 3.0), x_offset)
+    y = _normal(3, (rows, d), cuda, 3.0)
+    g = (_normal(4, (rows,), cuda) if g_stride
+         else torch.full((1,), 0.37, device=cuda).expand(rows))
+    before = kl_ops.launches, kl_ops.launches_bwd
+    got = kl_ops.kl_grad(x, y, g, 2.0)
+    assert (kl_ops.launches, kl_ops.launches_bwd) == (before[0],
+                                                      before[1] + 1)
+    want = kl_grad_ref(x, y, g, 2.0)
+    # KL_TOL x max|grad|, the bound chip_smoke.py holds it to
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    before = kl_ops.launches
+    torch.testing.assert_close(kl_ops.kl_rows(x, y, 2.0),
+                               kl_rows_ref(x, y, 2.0), rtol=1e-6, atol=1e-5)
+    assert kl_ops.launches == before + 1
+
+
 def test_kl_kernel_gradient_matches_plain(cuda):
     x, y = _normal(2, (50, 32, 256), cuda), _normal(3, (50, 32, 256), cuda)
     grads = {}
     for pol in ("kernel", "reference"):
         tx = x.clone().requires_grad_(True)
+        before = kl_ops.launches_bwd
         loss = dispatch.kl_loss(tx, y, temperature=2.0, policy=pol)
         loss.sum().backward()
+        # the kernel preset's backward is one launch of the gradient kernel
+        assert kl_ops.launches_bwd == before + (pol == "kernel")
         grads[pol] = (loss.detach(), tx.grad)
     torch.testing.assert_close(grads["kernel"][0], grads["reference"][0],
                                rtol=0, atol=1e-6)
@@ -124,16 +164,19 @@ def test_trainer_on_card_matches_cpu(cuda):
     cfg = DNNConfig(hidden=(64, 64, 32, 32, 16))
     runs = {}
     for dev in ("cuda", "cpu"):
-        kl_ops.launches = rg_ops.launches = 0
+        kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
         t = SplitMeTrainer(cfg, SystemParams(M=10, E_max=4), clients, test,
                            batch_size=8, e_initial=4, seed=0, device=dev)
         hist = [t.run_round(eval_acc=r == 1) for r in range(2)]
         t.fetch_history()
-        runs[dev] = (t, hist, kl_ops.launches, rg_ops.launches)
-    tc, hc, kl_n, rg_n = runs["cuda"]
-    tp, hp, _, _ = runs["cpu"]
-    # one Gram-pair launch per server layer (4) at the one evaluation
+        runs[dev] = (t, hist, kl_ops.launches, kl_ops.launches_bwd,
+                     rg_ops.launches)
+    tc, hc, kl_n, kl_bwd_n, rg_n = runs["cuda"]
+    tp, hp, _, _, _ = runs["cpu"]
+    # one Gram-pair launch per server layer (4) at the one evaluation, one
+    # KL gradient launch per executed training step of the two phases
     assert kl_n == 2 * 2 * 4 and rg_n == 4
+    assert kl_bwd_n == sum(2 * m.E for m in hc)
     for p, q in zip(tc.w_c + tc.w_s_inv, tp.w_c + tp.w_s_inv):
         for k in ("w", "b"):
             torch.testing.assert_close(p[k].cpu(), q[k], rtol=0, atol=1e-5)
@@ -283,12 +326,13 @@ def test_flash_kernel_matches_plain(cuda, B, H, KV, S, D, window, scale,
     v = (_normal(32, (B, KV, S, D), cuda) + v_shift).to(dtype)
     # the op's own rule picks the kernel (the output is a fresh allocation,
     # aligned as q is); the routes are tested in tests/test_torch_flash.py
-    route = fa_ops._route(dtype, D, (q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), q.data_ptr()))
-    # fresh tensors are aligned: every D % 8 == 0 case takes a tensor-core
-    # kernel, f32 the 3xTF32 one and bf16 the bf16 one
-    assert route == ("ffma" if D % 8 else
-                     "tf32x3" if dtype == torch.float32 else "mma")
+    route, width = fa_ops._route(dtype, D, (q.data_ptr(), k.data_ptr(),
+                                            v.data_ptr(), q.data_ptr()))
+    # every case takes a tensor-core kernel, f32 the 3xTF32 one and bf16 the
+    # bf16 one; fresh tensors are aligned, so the copies are as wide as a
+    # row of D elements allows
+    assert route == ("tf32x3" if dtype == torch.float32 else "mma")
+    assert width == _widest_copy(dtype, D, 0, 0)
     counter = f"launches_{route}"
     before = fa_ops.launches, getattr(fa_ops, counter)
     got = fa_ops.flash_attention(q, k, v, scale=scale, window=window)
@@ -337,39 +381,79 @@ def test_flash_kernel_never_reaches_the_plain_version_or_sdpa(cuda,
     assert fa_ops.launches == before + 1
 
 
-def test_flash_unaligned_bf16_takes_the_ffma_kernel(cuda):
-    shape = (1, 4, 100, 64)
-    buf = torch.empty(1 + 4 * 100 * 64, dtype=torch.bfloat16, device=cuda)
-    q = buf[1:].view(shape)          # 2 bytes past an aligned address
-    q.copy_(_normal(35, shape, cuda))
-    kv = _normal(36, (1, 2, 100, 64), cuda).to(torch.bfloat16)
-    before = fa_ops.launches_mma, fa_ops.launches_ffma
-    got = fa_ops.flash_attention(q, kv, kv)
-    assert (fa_ops.launches_mma, fa_ops.launches_ffma) == (before[0],
-                                                           before[1] + 1)
-    rtol, atol = FA_TOL[torch.bfloat16]
-    torch.testing.assert_close(got.float(),
-                               fa_ref(q, kv, kv, scale=0.125).float(),
-                               rtol=rtol, atol=atol)
+def _widest_copy(dtype, D, q_off, kv_off):
+    """The copy width, in bytes, for q ``q_off`` and k, v ``kv_off``
+    elements past aligned addresses (and a fresh output): 16 where both
+    offsets and a row of D elements are multiples of 16 bytes, else 4
+    where the K/V offset and the row are multiples of 4 bytes, else 2."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    if q_off * item % 16 == 0 and kv_off * item % 16 == 0 \
+            and D * item % 16 == 0:
+        return 16
+    return 4 if kv_off * item % 4 == 0 and D * item % 4 == 0 else 2
+
+
+def _placed(t, offset):
+    """t copied ``offset`` elements past an aligned address (t at 0)."""
+    if not offset:
+        return t
+    buf = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def _flash_takes_the_tensor_cores(cuda, dtype, shape, window, q_off, kv_off,
+                                  seed):
+    """q ``q_off`` and k, v ``kv_off`` elements past aligned addresses: the
+    op launches its dtype's tensor-core kernel once, with copies as wide as
+    the offsets allow, and matches the plain version."""
+    B, H, KV, S, D = shape
+    q = _placed(_normal(seed, (B, H, S, D), cuda).to(dtype), q_off)
+    k = _placed(_normal(seed + 1, (B, KV, S, D), cuda).to(dtype), kv_off)
+    v = _placed(_normal(seed + 2, (B, KV, S, D), cuda).to(dtype), kv_off)
+    route = "tf32x3" if dtype == torch.float32 else "mma"
+    assert fa_ops._route(dtype, D, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    q.data_ptr())) == (
+        route, _widest_copy(dtype, D, q_off, kv_off))
+    before = fa_ops.launches, getattr(fa_ops, f"launches_{route}")
+    got = fa_ops.flash_attention(q, k, v, window=window)
+    assert (fa_ops.launches, getattr(fa_ops, f"launches_{route}")) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == q.shape
+    rtol, atol = FA_TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), fa_ref(q, k, v, scale=D ** -0.5, window=window).float(),
+        rtol=rtol, atol=atol)
+
+
+def test_flash_unaligned_bf16_takes_the_mma_kernel(cuda):
+    # q 2 bytes past an aligned address
+    _flash_takes_the_tensor_cores(cuda, torch.bfloat16, (1, 4, 2, 100, 64),
+                                  None, 1, 0, 35)
 
 
 @pytest.mark.parametrize("case", ["d20", "q_unaligned"])
-def test_flash_f32_off_the_tensor_core_rule_takes_the_ffma_kernel(cuda,
-                                                                  case):
-    D = 20 if case == "d20" else 64
-    shape = (1, 4, 100, D)
-    q = _normal(37, shape, cuda)
-    if case == "q_unaligned":        # 4 bytes past an aligned address
-        buf = torch.empty(1 + q.numel(), device=cuda)
-        q = buf[1:].view(shape).copy_(q)
-    kv = _normal(38, (1, 2, 100, D), cuda)
-    before = fa_ops.launches_tf32x3, fa_ops.launches_ffma
-    got = fa_ops.flash_attention(q, kv, kv)
-    assert (fa_ops.launches_tf32x3, fa_ops.launches_ffma) == (before[0],
-                                                              before[1] + 1)
-    rtol, atol = FA_TOL[torch.float32]
-    torch.testing.assert_close(got, fa_ref(q, kv, kv, scale=D ** -0.5),
-                               rtol=rtol, atol=atol)
+def test_flash_f32_off_the_old_tensor_core_rule_takes_the_tf32x3_kernel(
+        cuda, case):
+    # D 20 (not a multiple of 8), or q 4 bytes past an aligned address
+    D, q_off = (20, 0) if case == "d20" else (64, 1)
+    _flash_takes_the_tensor_cores(cuda, torch.float32, (1, 4, 2, 100, D),
+                                  None, q_off, 0, 37)
+
+
+# odd head sizes and inputs off alignment: ((B, H, KV, S, D), window, q
+# offset, k and v offset) in elements; the same cases as chip_smoke.py's
+# FLASH_ODD: keep the lists equal
+@pytest.mark.parametrize("shape,window,q_off,kv_off", [
+    ((1, 4, 2, 100, 1), None, 0, 0), ((1, 4, 2, 100, 20), 64, 0, 0),
+    ((1, 4, 2, 100, 127), None, 0, 0), ((1, 4, 2, 100, 64), None, 1, 0),
+    ((1, 4, 2, 100, 64), None, 0, 1), ((1, 4, 2, 100, 80), 64, 1, 1),
+    ((1, 4, 2, 100, 127), None, 1, 1), ((2, 8, 2, 300, 80), None, 0, 2),
+    ((1, 4, 2, 1000, 127), None, 0, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_odd_d_and_unaligned_inputs_take_the_tensor_cores(
+        cuda, shape, window, q_off, kv_off, dtype):
+    _flash_takes_the_tensor_cores(cuda, dtype, shape, window, q_off, kv_off,
+                                  50)
 
 
 def test_flash_wrapper_refuses_mixed_devices(cuda):

@@ -155,24 +155,29 @@ def test_wrapper_runs_without_grad_and_at_the_size_limits():
                                   _t(0, 1, 3, 8)).shape == (0, 2, 3, 8)
 
 
-# the kernel a CUDA call takes, from dtype, head size and pointers alone
+# the kernel a CUDA call takes and its copy width in bytes, from dtype, head
+# size and pointers alone: every input goes to a tensor-core kernel; 16-byte
+# copies where q, k, v and the row are 16-byte aligned and o takes pair
+# stores, else 4 where k, v and the row allow, else 2
 _ALIGNED = (1 << 20, 2 << 20, 3 << 20, 4 << 20)
 
 
 @pytest.mark.parametrize("dtype,D,ptrs,route", [
-    *[(torch.bfloat16, D, _ALIGNED, "mma")
+    *[(torch.bfloat16, D, _ALIGNED, ("mma", 16))
       for D in (32, 64, 80, 128, 16, 40, 96, 112)],
-    *[(torch.float32, D, _ALIGNED, "tf32x3") for D in (32, 80, 128)],
-    *[(torch.bfloat16, D, _ALIGNED, "ffma") for D in (1, 20, 127)],
+    *[(torch.float32, D, _ALIGNED, ("tf32x3", 16)) for D in (32, 80, 128)],
+    *[(torch.bfloat16, D, _ALIGNED, ("mma", w))
+      for D, w in ((1, 2), (20, 4), (127, 2))],
     *[(torch.bfloat16, 80, tuple(p + 2 * (i == at) for i, p in
-                                 enumerate(_ALIGNED)), "ffma")
-      for at in range(4)],
-    (torch.bfloat16, 64, tuple(p + 8 for p in _ALIGNED), "ffma"),
-    *[(torch.float32, D, _ALIGNED, "ffma") for D in (1, 20, 127)],
+                                 enumerate(_ALIGNED)), ("mma", w))
+      for at, w in enumerate((4, 2, 2, 4))],
+    (torch.bfloat16, 64, tuple(p + 8 for p in _ALIGNED), ("mma", 4)),
+    *[(torch.float32, D, _ALIGNED, ("tf32x3", w))
+      for D, w in ((1, 4), (20, 16), (127, 4))],
     *[(torch.float32, 80, tuple(p + 4 * (i == at) for i, p in
-                                enumerate(_ALIGNED)), "ffma")
-      for at in range(4)],
-    (torch.float32, 64, tuple(p + 8 for p in _ALIGNED), "ffma"),
+                                enumerate(_ALIGNED)), ("tf32x3", w))
+      for at, w in enumerate((4, 4, 4, 4))],
+    (torch.float32, 64, tuple(p + 8 for p in _ALIGNED), ("tf32x3", 4)),
 ], ids=["bf16_d32", "bf16_d64", "bf16_d80", "bf16_d128", "bf16_d16",
         "bf16_d40", "bf16_d96", "bf16_d112", "f32_d32",
         "f32_d80", "f32_d128", "bf16_d1", "bf16_d20", "bf16_d127",
@@ -185,10 +190,9 @@ def test_route_by_dtype_head_size_and_alignment(dtype, D, ptrs, route):
 
 
 def test_cpu_call_launches_neither_route():
-    before = (fa_ops.launches, fa_ops.launches_mma, fa_ops.launches_tf32x3,
-              fa_ops.launches_ffma)
+    before = (fa_ops.launches, fa_ops.launches_mma, fa_ops.launches_tf32x3)
     for dtype in ("bfloat16", "float32"):
         _, tx = _both(_inputs(5, 1, 4, 2, 33, 80), dtype)
         fa_ops.flash_attention(*tx)
-    assert (fa_ops.launches, fa_ops.launches_mma, fa_ops.launches_tf32x3,
-            fa_ops.launches_ffma) == before
+    assert (fa_ops.launches, fa_ops.launches_mma,
+            fa_ops.launches_tf32x3) == before

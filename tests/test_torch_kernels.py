@@ -24,7 +24,7 @@ from repro_torch.configs.splitme_dnn import DNNConfig
 from repro_torch.core import dnn, inversion
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.kl_mutual import ops as kl_ops
-from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
+from repro_torch.kernels.kl_mutual.ref import kl_grad_ref, kl_rows_ref
 from repro_torch.kernels.ridge_gram import ops as rg_ops
 from repro_torch.kernels.ridge_gram.ref import gram_ref
 
@@ -95,6 +95,69 @@ def test_kl_loss_policies_agree_per_client():
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(out["kernel"][1], out["reference"][1],
                                rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", [(50, 32, 256), (7, 3)])
+@pytest.mark.parametrize("temp", [1.0, 2.0])
+def test_kl_grad_ref_matches_jax_grad(shape, temp):
+    """The plain closed-form gradient (the backward kernel's plain version)
+    against jax.grad of repro.kernels.kl_mutual.ops.kl_loss, whose forward
+    runs the Pallas kernel in interpret mode on the CPU: per client m a
+    weight w_m times the mean over its B rows, so g = w_m / B per row."""
+    x, y = _normal(18, shape, 2.0), _normal(19, shape, 2.0)
+    x3, y3 = x.reshape(-1, *shape[-2:]), y.reshape(-1, *shape[-2:])
+    w = np.random.default_rng(20).uniform(0.5, 2.0, len(x3)).astype(
+        np.float32)
+    jy = jnp.asarray(y3)
+
+    def loss(a):
+        per = jax.vmap(lambda xm, ym: jkl_ops.kl_loss(
+            xm, ym, temperature=temp))(a, jy)
+        return jnp.sum(jnp.asarray(w) * per)
+    want = np.asarray(jax.grad(loss)(jnp.asarray(x3))).reshape(shape)
+    B, d = shape[-2:]
+    g = torch.from_numpy(np.repeat(w / B, B))
+    got = kl_grad_ref(torch.from_numpy(x.reshape(-1, d)),
+                      torch.from_numpy(y.reshape(-1, d)), g, temp)
+    np.testing.assert_allclose(got.numpy().reshape(shape), want, rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("g_kind", ["mean", "stride_0"])
+def test_kl_backward_on_cpu_is_the_plain_gradient(g_kind):
+    """KLRows.backward on CPU tensors returns kl_grad_ref's gradient exactly
+    and launches neither kernel: g from the cohort mean of dispatch.kl_loss,
+    or one value at stride 0 from a sum over the rows."""
+    x, y = _normal(21, (5, 8, 24), 2.0), _normal(22, (5, 8, 24), 2.0)
+    before = kl_ops.launches, kl_ops.launches_bwd
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = torch.from_numpy(y)
+    if g_kind == "mean":
+        dispatch.kl_loss(tx, ty, temperature=2.0).sum().backward()
+        g = torch.full((40,), 1.0 / 8)
+    else:
+        kl_ops.KLRows.apply(tx.reshape(40, 24), ty.reshape(40, 24),
+                            2.0).sum().backward()
+        g = torch.ones(1).expand(40)
+    want = kl_grad_ref(torch.from_numpy(x).reshape(40, 24),
+                       ty.reshape(40, 24), g, 2.0)
+    np.testing.assert_array_equal(tx.grad.reshape(40, 24).numpy(),
+                                  want.numpy())
+    assert (kl_ops.launches, kl_ops.launches_bwd) == before
+
+
+@pytest.mark.parametrize("bad", ["g_shape", "g_dtype", "g_device"])
+def test_kl_grad_wrapper_rejects_a_bad_g(bad):
+    x = y = torch.zeros(8, 6)
+    g = torch.zeros(8)
+    if bad == "g_shape":
+        g = torch.zeros(8, 1)
+    elif bad == "g_dtype":
+        g = g.double()
+    else:
+        g = g.to("meta")
+    with pytest.raises(ValueError):
+        kl_ops.kl_grad(x, y, g, 1.0)
 
 
 def test_kl_paper_matches_jax():
@@ -324,4 +387,6 @@ def test_build_digest_covers_every_source():
     assert len(build.digest()) == 16
     # the C entries pass pointers and the stream as 64-bit c_void_p
     assert kl_ops._ARGTYPES.count(ctypes.c_void_p) == 4
+    assert kl_ops._BWD_ARGTYPES.count(ctypes.c_void_p) == 5
+    assert kl_ops._BWD_ARGTYPES[3] == ctypes.c_int64    # g's stride
     assert rg_ops._ARGTYPES.count(ctypes.c_void_p) == 8

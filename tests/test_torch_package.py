@@ -50,7 +50,8 @@ def test_port_files_exist():
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
-                "mamba2_scan.cu", "flash_attention.cu"):
+                "mamba2_scan.cu", "flash_attention_mma.cu",
+                "flash_attention_tf32.cu"):
         assert (PORT / "kernels" / "csrc" / src).is_file()
 
 

@@ -44,6 +44,20 @@ failure ends the run with a non-zero exit code:
    Gram pair went through the kernels;
    one more round under the profiler gives the device's busy time and idle
    share;
+3b. the SplitMe campaign: ``run_campaign("splitme", ...)`` over the
+   paper's 30 rounds for 4 seeds in one program, Step 4 every 10 rounds
+   and after the last, one CUDA graph per round shape and one for the
+   evaluation, with ``strict_transfers`` (sync debug mode "error") held
+   through the device phase and exactly one host transfer; its round
+   shapes, graphs and capture seconds; ms per round graphed and eager
+   (``scan=False``), medians of campaigns timed in turns; graphed
+   against eager (bitwise expected); steady rounds and one evaluating
+   round under the profiler (idle share, device operations, launches a
+   round of the KL and Gram kernels by name: graph replays do not move
+   the wrappers' counters); the whole 30-round campaign graphed (capture
+   and evaluations included) against eager with its post-hoc evaluation;
+   and the same campaign graphed on the card against the CPU: params,
+   losses and per-round accuracy (at a well-conditioned gamma);
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -283,11 +297,262 @@ def step4_vs_plain(torch, port, trainer, gamma):
     return rel, cond, trainer.evaluate(got), trainer.evaluate(want)
 
 
+# the SplitMe campaign (phase 3b): the paper's 30 rounds (§V-B, the horizon
+# of examples/oran_splitfl_campaign.py) for 4 seeds in one program, the
+# Step-4 evaluation every 10 rounds and after the last; graphed and eager
+# campaigns timed in CAMPAIGN_TURNS turns; the steady rounds PROFILE_STEADY
+# (no evaluation) and the evaluating round PROFILE_EVAL profiled; the same
+# campaign graphed on the card and run on the CPU (every round shape, the
+# seed fold, the eval graph): params and losses within CARD_CPU_TOL,
+# accuracy per round within CMP_ACC_SAMPLES test samples at the
+# well-conditioned CMP_EVAL_GAMMA (at the default 1e-3 the f32 ridge is
+# ill-conditioned: its accuracy difference is printed, not checked)
+CAMPAIGN_ROUNDS, CAMPAIGN_SEEDS, CAMPAIGN_EVAL_EVERY = 30, (0, 1, 2, 3), 10
+CAMPAIGN_TURNS = 3
+PROFILE_STEADY, PROFILE_EVAL = range(10, 19), 19
+CMP_EVAL_GAMMA, CMP_ACC_SAMPLES = 10.0, 1
+CAMPAIGN_KERNELS = {"kl_mutual": ("kl_rows_kernel", "kl_rows_online_kernel"),
+                    "kl_mutual (backward)": ("kl_grad_kernel",
+                                             "kl_grad_online_kernel"),
+                    "ridge_gram": ("gram_tf32_kernel",)}
+
+
+def campaign_max_diff(a, b):
+    """Largest |difference| of two campaigns' params and losses."""
+    perr = max((p[k].cpu() - q[k].cpu()).abs().max().item()
+               for i in range(len(a.seeds))
+               for ha, hb in zip(a.params_for(i), b.params_for(i))
+               for p, q in zip(ha, hb) for k in p)
+    return perr, float(abs(a.losses - b.losses).max())
+
+
+def timed(torch, fn):
+    """fn() and its wall ms, the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def campaign_window(torch, evts, rounds: int):
+    """Per round of a profiled window: device busy ms, device operations,
+    and for each of CAMPAIGN_KERNELS (launches, device µs a launch)."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_us(e) for e in evts) / 1e3
+    n_ops = sum(e.count for e in evts if dev_us(e) > 0)
+    per = {}
+    for name, keys in CAMPAIGN_KERNELS.items():
+        hit = [e for e in evts if any(k in e.key for k in keys)]
+        n = sum(e.count for e in hit)
+        per[name] = (n / rounds, sum(dev_us(e) for e in hit) / n if n
+                     else None)
+    return busy_ms / rounds, n_ops / rounds, per
+
+
+def campaign_phase(torch, port, sp, clients, test):
+    """Phase 3b: the paper's campaign through run_campaign, graphed and
+    eager; returns the per-kernel numbers of the graphed steady rounds."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    camp = port.campaign
+    kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS, test_data=test,
+              device="cuda")
+    S = len(CAMPAIGN_SEEDS)
+
+    def graphed(**more):
+        return camp.run_campaign("splitme", port.DNN10, sp, clients,
+                                 eval_every=CAMPAIGN_EVAL_EVERY,
+                                 strict_transfers=True, **kw, **more)
+
+    def eager():
+        return camp.run_campaign("splitme", port.DNN10, sp, clients,
+                                 scan=False, **kw)
+
+    # the main path: strict transfers held through the device phase
+    camp.HOST_TRANSFERS = 0
+    res = graphed()
+    check(camp.HOST_TRANSFERS == 1,
+          f"scanned campaign made {camp.HOST_TRANSFERS} host transfers")
+    shapes = res.graphs["shapes"]
+    for (kb, eb), rs in shapes.items():
+        print(f"campaign shape (cohort {kb}, E {eb}): rounds {rs[0]}-{rs[-1]}"
+              f" ({len(rs)})")
+    print(f"campaign: {res.graphs['graphs']} CUDA graphs ({len(shapes)} "
+          f"round shapes + the evaluation), capture {res.graphs['capture_s']:.3f}"
+          f" s; HOST_TRANSFERS {camp.HOST_TRANSFERS} with strict_transfers "
+          f"(sync debug mode 'error') through the device phase")
+    check(res.graphs["graphs"] == len(shapes) + 1, "one graph per shape + eval")
+    check(bool(torch.isfinite(torch.as_tensor(res.losses)).all()),
+          "non-finite campaign loss")
+    steady_shape = max(shapes, key=lambda s: len(shapes[s]))
+    steady = shapes[steady_shape][1:]          # its first round captures
+    check(set(PROFILE_STEADY) | {PROFILE_EVAL} <= set(steady),
+          f"profiled rounds outside the steady shape {steady_shape}")
+    acc = res.accuracy_per_round
+    for r in range(CAMPAIGN_ROUNDS):
+        if not (r + 1) % CAMPAIGN_EVAL_EVERY or r == CAMPAIGN_ROUNDS - 1:
+            print(f"campaign round {r}: accuracy per seed "
+                  f"{[round(float(v), 4) for v in acc[r]]}")
+            check(all(0.0 <= v <= 1.0 for v in acc[r]),
+                  f"accuracy out of range at round {r}")
+        else:
+            check(bool(torch.isnan(torch.as_tensor(acc[r])).all()),
+                  f"round {r} evaluated")
+
+    # graphed against eager, and their ms per round in turns; the whole
+    # campaign too: the graphed rounds with capture, warm-ups and the
+    # evaluating rounds, against the eager rounds and the post-hoc
+    # evaluation, and each run_campaign call's wall (host plan included)
+    g_ms, e_ms, g_host, whole = [], [], [], []
+    for turn in range(CAMPAIGN_TURNS):
+        marks = []
+        g, g_wall = timed(torch, lambda: graphed(
+            _round_hook=lambda r: marks.append(time.perf_counter())))
+        e, e_wall = timed(torch, eager)
+        _, ev_ms = timed(torch, lambda: camp.evaluate_campaign(
+            e, port.DNN10, test, client_data=clients))
+        whole.append((float(sum(g.round_ms)), float(sum(e.round_ms)) + ev_ms))
+        print(f"turn {turn}: whole campaign, graphed {whole[-1][0]:.1f} ms of "
+              f"rounds (capture {g.graphs['capture_s'] * 1e3:.1f} ms, eval "
+              f"rounds included; call {g_wall:.1f} ms), eager "
+              f"{sum(e.round_ms):.1f} ms of rounds + {ev_ms:.1f} ms post-hoc "
+              f"evaluation = {whole[-1][1]:.1f} ms (call {e_wall:.1f} ms): "
+              f"{whole[-1][1] / whole[-1][0]:.2f}x")
+        if turn == 0:
+            perr, lerr = campaign_max_diff(g, e)
+            print(f"graphed vs eager campaign: max param diff {perr:.3e}, "
+                  f"max loss diff {lerr:.3e}, bitwise "
+                  f"{perr == 0.0 and lerr == 0.0}")
+            check(perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL,
+                  "graphed and eager campaigns disagree")
+            rerr = campaign_max_diff(g, res)
+            check(rerr == (0.0, 0.0), f"two graphed campaigns differ {rerr}")
+        g_ms.append(statistics.median(g.round_ms[steady]))
+        e_ms.append(statistics.median(e.round_ms[steady]))
+        g_host.append(statistics.median(
+            [(marks[r] - marks[r - 1]) * 1e3 for r in steady]))
+        print(f"turn {turn}: graphed {g_ms[-1]:.3f} ms/round (host "
+              f"{g_host[-1]:.3f} ms), eager {e_ms[-1]:.3f} ms/round "
+              f"(medians over rounds {steady[0]}-{steady[-1]})")
+    gm, em = statistics.median(g_ms), statistics.median(e_ms)
+    print(f"campaign ms per round (cohort {steady_shape[0]}, E "
+          f"{steady_shape[1]}, {S} seeds, medians of {CAMPAIGN_TURNS}): "
+          f"graphed {gm:.3f} ms ({S * 1e3 / gm:.1f} seed-rounds/s; host "
+          f"{statistics.median(g_host):.3f} ms a round), eager {em:.3f} ms "
+          f"({S * 1e3 / em:.1f} seed-rounds/s): {em / gm:.1f}x")
+    wg = statistics.median(w[0] for w in whole)
+    we = statistics.median(w[1] for w in whole)
+    print(f"campaign whole {CAMPAIGN_ROUNDS} rounds ({S} seeds, medians of "
+          f"{CAMPAIGN_TURNS}): graphed {wg:.1f} ms, eager with its post-hoc "
+          f"evaluation {we:.1f} ms: {we / wg:.2f}x")
+
+    # the steady rounds and one evaluating round under the profiler
+    win = {}
+
+    def hook(r):
+        if r == PROFILE_STEADY[0] - 1 or r in (PROFILE_STEADY[-1],
+                                                 PROFILE_EVAL):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if "prof" in win:
+                win["prof"].stop()
+                win[win["name"]] = (win["prof"].key_averages(),
+                                    (now - win["t0"]) * 1e3)
+            if r != PROFILE_EVAL:
+                win["name"] = "eval" if r == PROFILE_STEADY[-1] else "steady"
+                win["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                win["prof"].start()
+                torch.cuda.synchronize()
+                win["t0"] = time.perf_counter()
+            else:
+                del win["prof"]
+    camp.run_campaign("splitme", port.DNN10, sp, clients,
+                      eval_every=CAMPAIGN_EVAL_EVERY, _round_hook=hook, **kw)
+    n_steady = len(PROFILE_STEADY)
+    evts, wall = win["steady"]
+    busy, n_ops, per = campaign_window(torch, evts, n_steady)
+    wall /= n_steady
+    print(f"profiled graphed rounds {PROFILE_STEADY[0]}-{PROFILE_STEADY[-1]}"
+          f": wall {wall:.3f} ms a round, device busy {busy:.3f} ms, idle "
+          f"share {1 - busy / wall:.4f}, {n_ops:.1f} device operations a "
+          f"round; " + "; ".join(
+              f"{k} {n:.1f} launches a round, {us and round(us, 3)} us a "
+              f"launch" for k, (n, us) in per.items()))
+    eb = steady_shape[1]
+    check(per["kl_mutual"][0] == 2 * eb
+          and per["kl_mutual (backward)"][0] == 2 * eb
+          and per["ridge_gram"][0] == 0,
+          f"steady round launches {per} != 2 x E {eb} KL forward and "
+          f"backward, no Gram")
+    evts, wall_e = win["eval"]
+    busy_e, n_ops_e, per_e = campaign_window(torch, evts, 1)
+    print(f"profiled graphed round {PROFILE_EVAL} with the evaluation: wall "
+          f"{wall_e:.3f} ms, device busy {busy_e:.3f} ms, {n_ops_e:.0f} "
+          f"device operations; " + "; ".join(
+              f"{k} {n:.0f} launches, {us and round(us, 3)} us a launch"
+              for k, (n, us) in per_e.items()))
+    check(per_e["kl_mutual"][0] == 2 * eb
+          and per_e["kl_mutual (backward)"][0] == 2 * eb
+          and per_e["ridge_gram"][0] == 8 * S,
+          f"evaluating round launches {per_e} != 2 x E {eb} KL, 8 Gram "
+          f"pairs a seed")
+
+    # the campaign graphed on the card against the CPU: every round shape,
+    # the seed fold and the eval graph
+    runs = [camp.run_campaign("splitme", port.DNN10, sp, clients,
+                              eval_every=CAMPAIGN_EVAL_EVERY,
+                              eval_gamma=CMP_EVAL_GAMMA, **dict(kw, device=d))
+            for d in ("cuda", "cpu")]
+    check(runs[0].graphs["shapes"] == shapes,
+          f"card vs CPU campaign shapes {runs[0].graphs['shapes']}")
+    perr, lerr = campaign_max_diff(*runs)
+    acc_a, acc_b = (r.accuracy_per_round for r in runs)
+    evaluated = np.isfinite(acc_b).all(axis=1)
+    check(bool((np.isfinite(acc_a) == np.isfinite(acc_b)).all())
+          and evaluated.tolist() == np.isfinite(acc).all(axis=1).tolist(),
+          "card and CPU campaigns evaluate different rounds")
+    n_test = len(test[1])
+    aerr = float(abs(acc_a[evaluated] - acc_b[evaluated]).max()) * n_test
+    # at the default gamma: each device's own post-hoc evaluation
+    acc_d = [camp.evaluate_campaign(r, port.DNN10, test, client_data=clients)
+             for r in runs]
+    aerr_d = float(abs(acc_d[0] - acc_d[1]).max()) * n_test
+    print(f"campaign card (graphed) vs CPU, {S} seeds, {CAMPAIGN_ROUNDS} "
+          f"rounds, shapes {sorted(shapes)}: max param diff {perr:.3e}, max "
+          f"loss diff {lerr:.3e} (tol {CARD_CPU_TOL}); accuracy at rounds "
+          f"{np.nonzero(evaluated)[0].tolist()}, gamma {CMP_EVAL_GAMMA}: "
+          f"max diff {aerr:.2f} of {n_test} test samples (tol "
+          f"{CMP_ACC_SAMPLES}), final {acc_a[-1].round(4).tolist()} vs "
+          f"{acc_b[-1].round(4).tolist()}; at gamma 1e-3 (ill-conditioned, "
+          f"not checked) {acc_d[0].round(4).tolist()} vs "
+          f"{acc_d[1].round(4).tolist()}, {aerr_d:.0f} samples apart")
+    check(perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL,
+          "campaign on the card and on the CPU disagree")
+    check(aerr <= CMP_ACC_SAMPLES + 1e-6,
+          "campaign accuracy on the card and on the CPU disagree")
+    print(f"campaign final accuracy per seed: "
+          f"{[round(float(v), 4) for v in res.accuracy]}")
+    # the KL kernels run in every round; the Gram kernel only in the
+    # evaluating ones (9 rounds in 10 launch none)
+    out = {name: {"campaign_launches_per_round": n,
+                  "campaign_device_us_per_launch": us}
+           for name, (n, us) in list(per.items())[:2]}
+    n, us = per_e["ridge_gram"]
+    out["ridge_gram"] = {"campaign_launches_per_eval_round": n,
+                         "campaign_device_us_per_launch": us}
+    return out
+
+
 # the kl_mutual kernels: (rows, d) of the main path (50 clients x 32 rows of
 # 256), a ragged width, a tiny one in single floats (d % 4 != 0), 32 values
-# a lane (d 1000) and a row streamed (d > 1024); the shapes of
+# a lane (d 1000), a row streamed (d > 1024), and the campaign's cohorts of
+# 32 and 50 clients x 4 seeds x 32 rows; the shapes of
 # tests/test_torch_cuda.py's test_kl_kernel_matches_plain
-KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000)]
+KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000),
+             (4096, 256), (6400, 256)]
 KL_T = 2.0               # the SplitMe temperature
 KL_HOST_BLOCKS = 9       # blocks of 50 calls a wrapper, for the host time
 
@@ -1206,6 +1471,7 @@ def import_port():
     from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+    from repro_torch.launch import campaign
     from repro_torch.models.transformer import build_model
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     return types.SimpleNamespace(**locals())
@@ -1447,6 +1713,11 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    # -- 3b. SplitMe campaign ------------------------------------------------
+    phase("3b. SplitMe campaign")
+    graphed = campaign_phase(torch, port, sp, clients, test)
+    torch.cuda.empty_cache()
+
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
     for arch in ZOO_ARCHS:
@@ -1472,13 +1743,14 @@ def main() -> int:
         {"name": "kl_mutual", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/kl_mutual.py:38",
-         "launches": kl_n, **kl["fwd"]},
+         "launches": kl_n, **kl["fwd"], **graphed["kl_mutual"]},
         # the closed-form backward beside the Pallas kernel (plain jnp in
         # the JAX package), one kernel here
         {"name": "kl_mutual (backward)", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/ops.py:33",
-         "launches": kl_bwd_n, **kl["bwd"]},
+         "launches": kl_bwd_n, **kl["bwd"],
+         **graphed["kl_mutual (backward)"]},
         {"name": "ridge_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
          "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:40",
@@ -1488,7 +1760,8 @@ def main() -> int:
          "library_ms": g_lib, "device_ms": g_dev,
          "library_device_ms": g_lib_dev, "host_us_per_call": g_host / 8,
          "bound_fp32_ms": g_bound_fp32, "max_rel_err": gram_rel,
-         "shape": "16 Grams of one evaluation, 8 gram_pair calls"},
+         "shape": "16 Grams of one evaluation, 8 gram_pair calls",
+         **graphed["ridge_gram"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},

@@ -1,5 +1,6 @@
 """O-RAN SFL resource & latency cost model (paper §IV-A/B, eq. 16-21) —
-numpy copy of the per-round parts of ``repro.core.cost``.
+numpy copy of the per-round parts of ``repro.core.cost`` and of its
+vectorized ``schedule_metrics`` for a static schedule.
 
 All quantities are per global round; the optimization target is
 K_ε(E) · cost(t) with K_ε from Corollary 4.  ``G_m`` (channel gain on the
@@ -119,3 +120,33 @@ def round_energy(a: np.ndarray, b: np.ndarray, E: int,
     t_up = uplink_time(a, b, sp)
     return float(np.sum(a * (sp.p_tx_w * t_up
                              + sp.p_cpu_w * E * (sp.Q_C + sp.Q_S))))
+
+
+def schedule_metrics(a: np.ndarray, b: np.ndarray, E: np.ndarray,
+                     sp: SystemParams, trace=None):
+    """Eq. 18 latency, eq. 20 cost and the per-round energy for a whole
+    stacked schedule in one vectorized pass: ``a``/``b`` are ``(R, M)``,
+    ``E`` is ``(R,)``.  Every row equals the scalar ``total_time`` /
+    ``round_cost`` / ``round_energy`` of that round.  Returns
+    ``(sim_time, cost, energy)``, each ``(R,)``.  A scenario ``trace`` is a
+    later slice of the port and raises."""
+    if trace is not None:
+        raise NotImplementedError("later slice: scenarios are not ported yet")
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    E = np.asarray(E, np.float64)[:, None]                     # (R, 1)
+    q_c, q_s, gain = sp.Q_C[None], sp.Q_S[None], sp.G_m[None]
+    size = sp.S_m[None] + sp.omega * sp.d_model_bits           # (1, M)
+    with np.errstate(divide="ignore"):
+        t_co = size / np.maximum(b * sp.B * gain, 1e-12)
+    t_co = np.where(a > 0, t_co, 0.0)
+    sel = a.sum(axis=1) > 0                                    # (R,)
+    t1 = np.max(np.where(a > 0, E * q_c + t_co, -np.inf), axis=1)
+    t2 = np.max(np.where(a > 0, E * q_s, -np.inf), axis=1)
+    sim = np.where(sel, t1 + t2, 0.0)
+    r_co = np.sum(a * b, axis=1) * sp.B * sp.p_c               # eq. 16
+    r_cp = np.sum(a * E * (q_c + q_s), axis=1) * sp.p_tr       # eq. 17
+    cost = sp.rho * (r_co / sp.B + r_cp) + (1 - sp.rho) * sim  # eq. 20
+    energy = np.sum(a * (sp.p_tx_w * t_co
+                         + sp.p_cpu_w * E * (q_c + q_s)), axis=1)
+    return sim, cost, energy

@@ -7,14 +7,21 @@ targets derive from the round state), a ``comm_model`` and a host-side
 selection/allocation ``Policy``.  The engine owns the round:
 
 * replication of the global parameters onto a written-out client axis —
-  weights are held stacked as (M, d_in, d_out) / (M, d_out), standing in for
+  weights are held stacked as (C, d_in, d_out) / (C, d_out), standing in for
   the JAX package's vmap over clients,
-* the masked E_max-step local SGD: step i updates only while i < E, but
-  every step draws its batch and computes its loss (the loss metric of the
-  SplitMe spec is the mean over all E_max steps, frozen tail included, as in
-  the reference); the tail skips backward and update, which the reference
-  computes as the exact no-op p − lr·0·g,
+* the masked local SGD: step i updates only while i < E, as
+  ``p − lr·do·g`` with ``do = (i < E)``, and every step draws its batch and
+  computes its loss.  The full round (the trainer's) runs no backward for
+  the frozen tail after a host-side int E, where the reference computes the
+  exact no-op p − lr·0·g,
+* the loss metric: the mean over all E_max steps, frozen tail included (the
+  reference SplitMe metric), or with ``loss_over_mask`` over the executed
+  steps only (the campaign's),
 * masked FedAvg over the selected set A_t, with |A_t| clamped to ≥ 1.
+
+``build_round_fn(gather=True)`` trains only a gathered, padded client
+cohort, for one or more seeds at once: the seeds' stacked parameters are replicated onto their cohorts and the (seed, cohort) pairs
+folded into the one client axis, so a kernel launch covers every seed.
 
 Randomness is an input: JAX's threefry streams cannot be reproduced, so the
 round takes the per-phase, per-client, per-step batch indices as an
@@ -22,8 +29,7 @@ round takes the per-phase, per-client, per-step batch indices as an
 backward of the sum of per-client losses (the clients are independent).
 
 Not ported in this slice (raise): the five baseline frameworks, wire
-quantization, scenarios and fault guards, ``gather=True`` and the sharded
-round.
+quantization, scenarios and fault guards, and the sharded round.
 """
 from __future__ import annotations
 
@@ -108,6 +114,9 @@ class PhaseSpec:
     data_key: str
     target_fn: Callable[[ParamsTuple, Dict[int, Params],
                          Dict[str, torch.Tensor]], torch.Tensor]
+    # False: the loss metric is the mean over all E_max steps (the seed
+    # SplitMe metric); True: the mean over the executed steps only
+    loss_over_mask: bool = True
 
 
 @dataclass(frozen=True)
@@ -126,44 +135,67 @@ def replicate(params: Params, m: int) -> Params:
     return [{k: v.expand(m, *v.shape) for k, v in p.items()} for p in params]
 
 
+def _fold(params: Params, kb: int) -> Params:
+    """Seed-stacked (S, ...) params onto each seed's ``kb`` cohort slots:
+    (S·kb, ...), seed-major (a view for one seed, a copy for more)."""
+    return [{k: v.unsqueeze(1).expand(v.shape[0], kb, *v.shape[1:])
+             .reshape(v.shape[0] * kb, *v.shape[1:]) for k, v in p.items()}
+            for p in params]
+
+
 def _phase_runner(phase: PhaseSpec, e_max: int):
-    """Masked E_max-step SGD of the phase's loss over the whole cohort."""
-    def run(w: Params, data, target, e_steps: int, idx):
+    """Masked e_max-step SGD of the phase's loss over a stacked cohort.
+
+    ``do`` is the (e_max,) f32 executed-step mask on the data's device;
+    the first ``n_grad`` steps run a backward and the update
+    ``p − (lr·do_i)·g`` (the reference's order), the rest compute only
+    their loss.  Returns the trained weights and the (C,) loss metric."""
+    def run(w: Params, data, target, do, idx, n_grad: int):
         rows = torch.arange(data.shape[0], device=data.device)[:, None]
+        step = phase.lr * do
         losses = []
         for i in range(e_max):
-            sel = idx[:, i]                             # (M, B)
+            sel = idx[:, i]                             # (C, B)
             xb, tb = data[rows, sel], target[rows, sel]
-            if i < e_steps:
+            if i < n_grad:
                 leaves = [{k: v.detach().requires_grad_(True)
                            for k, v in p.items()} for p in w]
                 with torch.enable_grad():
                     loss = phase.loss_fn(leaves, xb, tb)
                     flat = [v for p in leaves for v in p.values()]
                     grads = iter(torch.autograd.grad(loss.sum(), flat))
-                w = [{k: v.detach() - phase.lr * next(grads)
+                w = [{k: v.detach() - step[i] * next(grads)
                       for k, v in p.items()} for p in leaves]
             else:
                 loss = phase.loss_fn(w, xb, tb)
             losses.append(loss.detach())
-        # the loss metric is the mean over all E_max steps, the frozen tail
-        # after e_steps included (the reference SplitMe metric)
-        return w, torch.stack(losses).mean(0)           # (M,)
+        losses = torch.stack(losses)                    # (e_max, C)
+        if phase.loss_over_mask:
+            return w, ((losses * do[:, None]).sum(0)
+                       / do.sum().clamp(min=1.0))
+        return w, losses.mean(0)
 
     return run
+
+
+def _step_mask(e_max: int, e_steps, device) -> torch.Tensor:
+    """(e_max,) f32: 1 for the executed steps i < e_steps (an int or a
+    0-d tensor on ``device``)."""
+    return (torch.arange(e_max, device=device) < e_steps).float()
 
 
 def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                 a_mask: torch.Tensor, e_steps: int, idx: torch.Tensor):
     """One masked round over the full client axis."""
-    m = ctx["x"].shape[0]
+    m, e_max = ctx["x"].shape[0], idx.shape[2]
+    do = _step_mask(e_max, e_steps, ctx["x"].device)
     updated: Dict[int, Params] = {}
     phase_losses = []
     for pi, ph in enumerate(spec.phases):
         tgt = ph.target_fn(params, updated, ctx)
         w_rep = replicate(params[ph.param_idx], m)
-        w_new, loss_m = runners[pi](w_rep, ctx[ph.data_key], tgt, e_steps,
-                                    idx[pi])
+        w_new, loss_m = runners[pi](w_rep, ctx[ph.data_key], tgt, do,
+                                    idx[pi], e_steps)
         updated[ph.param_idx] = w_new
         phase_losses.append(loss_m)
     # masked FedAvg numerators, |A_t| and the loss sums
@@ -177,9 +209,52 @@ def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     return new_params, losses
 
 
+def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
+                   sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps,
+                   idx: torch.Tensor):
+    """One masked round over the gathered cohort ``sel_idx`` (kb,) of every
+    seed: ``params`` leaves are seed-stacked (S, ...), ``idx`` is the
+    full-M draw (S, n_phases, M, e_max, B).  The (seed, slot) pairs form
+    one client axis of S·kb, seed-major; masked FedAvg and the loss sums
+    run per seed."""
+    S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
+    kb = sel_idx.shape[0]
+    folded_sel = sel_idx.repeat(S)                      # client of each slot
+    ctx_c = {k: v[folded_sel] for k, v in ctx.items()}
+    folded = tuple(_fold(p, kb) for p in params)
+    do = _step_mask(e_max, e_steps, sel_idx.device)
+    # the full per-client streams, gathered: client m's batches are the
+    # same whether or not the other clients are computed
+    cohort_idx = idx[:, :, sel_idx].transpose(0, 1).reshape(
+        len(spec.phases), S * kb, e_max, B)
+    updated: Dict[int, Params] = {}
+    phase_losses = []
+    for pi, ph in enumerate(spec.phases):
+        tgt = ph.target_fn(folded, updated, ctx_c)
+        w_new, loss_c = runners[pi](folded[ph.param_idx], ctx_c[ph.data_key],
+                                    tgt, do, cohort_idx[pi], e_max)
+        updated[ph.param_idx] = w_new
+        phase_losses.append(loss_c.reshape(S, kb))
+    wsum = sel_mask.sum().clamp(min=1.0)
+    new_params = tuple(
+        [{k: (sel_mask @ v.reshape(S, kb, -1)).reshape(S, *v.shape[1:])
+          / wsum for k, v in p.items()} for p in updated[i]]
+        if i in updated else params[i]
+        for i in range(len(params)))
+    losses = tuple((l * sel_mask).sum(1) / wsum for l in phase_losses)
+    return new_params, losses
+
+
+def _check_on(device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} must be on {device}, not {t.device}")
+
+
 def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
                    x: torch.Tensor, y: torch.Tensor, *, e_max: int,
-                   gather: bool = False, policy: PolicyLike = None,
+                   gather: bool = False,
+                   policy: PolicyLike = None,
                    guards=None, with_faults: bool = False):
     """One federated round for `spec` over the fixed client dataset
     ``x`` (M, n, d) f32 and ``y`` (M, n) int labels, on their device.
@@ -188,9 +263,18 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     (params_tuple, per_phase_losses)``: ``a_mask`` (M,) f32 selection,
     ``e_steps`` the int count of executed local steps (≤ ``e_max``, the
     number of steps run), ``idx`` the (n_phases, M, e_max, B) int64 batch
-    indices.  The policy is the one bound into the spec."""
-    if gather:
-        raise _later("the gathered-cohort round (gather=True)")
+    indices.  The policy is the one bound into the spec.
+
+    ``gather=True`` returns ``round_fn(params, sel_idx, sel_mask, e_steps,
+    idx)`` over S seeds at once: the params' leaves are seed-stacked
+    (S, ...), ``idx`` is the full-M draw (S, n_phases, M, e_max, B), and
+    the losses are (S,).  Only the cohort ``sel_idx`` (kb,) int64, shared
+    by the seeds, is trained (pads index client 0 and carry ``sel_mask``
+    0); ``idx`` is gathered by ``sel_idx``, and ``e_steps`` may be a 0-d
+    tensor on the data's device (a CUDA graph's operand): every one of the
+    e_max steps runs its backward and the masked update.  The gathered
+    round checks no index values (that would wait on the card); its
+    callers check them on the host."""
     if guards is not None or with_faults:
         raise _later("fault guards")
     if policy is not None and dispatch.get_policy(policy) != spec.policy:
@@ -205,12 +289,28 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     runners = [_phase_runner(ph, e_max) for ph in spec.phases]
     idx_shape = (len(spec.phases), M, e_max, spec.batch_size)
 
+    def check_idx(idx, lead=()):
+        if tuple(idx.shape) != lead + idx_shape or idx.dtype != torch.int64:
+            raise ValueError(f"batch indices must be int64 {lead + idx_shape}"
+                             f", got {idx.dtype} {tuple(idx.shape)}")
+
+    if gather:
+        def round_fn(params: ParamsTuple, sel_idx, sel_mask, e_steps, idx):
+            check_idx(idx, tuple(idx.shape[:1]))
+            if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 \
+                    or tuple(sel_mask.shape) != tuple(sel_idx.shape):
+                raise ValueError("sel_idx must be int64 (kb,) and sel_mask "
+                                 "(kb,)")
+            _check_on(x.device, idx=idx, sel_idx=sel_idx, sel_mask=sel_mask)
+            with torch.no_grad():
+                return _gathered_core(spec, runners, params, ctx, sel_idx,
+                                      sel_mask, e_steps, idx)
+
+        return round_fn
+
     def round_fn(params: ParamsTuple, a_mask, e_steps: int, idx):
-        if tuple(idx.shape) != idx_shape or idx.dtype != torch.int64:
-            raise ValueError(f"batch indices must be int64 {idx_shape}, got "
-                             f"{idx.dtype} {tuple(idx.shape)}")
-        if idx.device != x.device or a_mask.device != x.device:
-            raise ValueError(f"indices and mask must be on {x.device}")
+        check_idx(idx)
+        _check_on(x.device, idx=idx, a_mask=a_mask)
         with torch.no_grad():
             return _round_core(spec, runners, params, ctx, a_mask,
                                int(e_steps), idx)
@@ -280,11 +380,16 @@ def _as_float(x: np.ndarray):
 
 def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
                   temperature: float = 2.0, batch_size: int = 32,
+                  masked_loss_metric: bool = False,
                   policy: KernelPolicy = dispatch.KERNEL) -> FrameworkSpec:
     """SplitMe spec.  Both mutual-KL phase losses go through
     ``dispatch.kl_loss`` (the CUDA kernel on the card): with temperature 2
     the client phase's "logits" are the post-ReLU smashed activations and
-    the server phase's the linear output of s⁻¹."""
+    the server phase's the linear output of s⁻¹.
+    ``masked_loss_metric=False`` keeps the seed trainer's loss metric (the
+    mean over all E_max steps); ``True`` averages over the executed steps
+    only, which lets the campaign run exactly its E bucket's steps.  The
+    trained parameters are the same either way."""
     tau, pol = temperature, policy
 
     def client_step(w, x_b, t_b):
@@ -317,8 +422,10 @@ def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
     return FrameworkSpec(
         name="splitme", init_fn=init,
         phases=(
-            PhaseSpec("client", 0, lr_c, client_step, "x", client_targets),
-            PhaseSpec("server", 1, lr_s, server_step, "y1", server_targets),
+            PhaseSpec("client", 0, lr_c, client_step, "x", client_targets,
+                      loss_over_mask=masked_loss_metric),
+            PhaseSpec("server", 1, lr_s, server_step, "y1", server_targets,
+                      loss_over_mask=masked_loss_metric),
         ),
         comm_model=comm, batch_size=batch_size, policy=pol)
 

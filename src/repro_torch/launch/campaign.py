@@ -1,0 +1,608 @@
+"""Multi-seed SplitMe campaign on one device; port of the SplitMe parts of
+``repro.launch.campaign`` (``run_campaign``, its host plan and
+``evaluate_campaign``).
+
+The system-side trajectory (A_t, b_t, E_t) of SplitMe does not depend on
+the learned parameters, so it is planned on the host once
+(``plan_schedule``) and shared by every seed; the schedule-derived metrics
+(comm_bits, selected count, latency, cost, energy) are vectorized over it
+up front.  Every round trains only its selected cohort (the engine's
+gathered round), padded to a (cohort-bucket, E-bucket) shape, and all
+seeds run in one program: their stacked parameters are folded into the
+round's client axis, so one kernel launch covers every seed.
+
+Execution modes:
+
+* ``scan=True`` (default) — the counterpart of the reference's
+  ``lax.scan`` over rounds.  On CUDA each (cohort-bucket, E-bucket) round
+  shape is captured once as a CUDA graph, at its first round, after one
+  eager warm-up on the capture stream whose effect is undone; every round
+  of that shape, the first included, is a replay.  A round's operands (its
+  number, E, |A_t|, the padded cohort and the full-M batch indices) sit in
+  one int64 row of a table uploaded before the device phase; a round costs
+  the host one device-to-device copy of its row and one replay.  The Step-4
+  evaluation is a second graph, replayed after the rounds that evaluate
+  (every ``eval_every`` rounds and the last).  Losses and accuracies land
+  in device buffers, fetched to the host once per campaign
+  (``_host_fetch``).  The graphs share one memory pool: they run one after
+  another, and every tensor that outlives a replay (the parameters and the
+  metric buffers) is allocated outside them.  On the CPU the same round
+  bodies run without capture.  On CUDA a capture that fails raises; there
+  is no fallback to the eager loop.
+* ``scan=False`` — the per-round loop of eager gathered rounds, one host
+  transfer per round, the baseline the graphs are measured against.
+
+Randomness is an input, as in the trainer: each seed's CPU
+``torch.Generator(seed)`` draws its initial parameters (unless ``params=``
+gives them) and then, round by round, its full-M batch indices (unless
+``index_source=`` gives them).  The port does not reproduce JAX's threefry
+streams; the parity tests feed both packages the same parameters and
+batches.
+
+Not ported in this slice (raise): the baseline frameworks, ``mesh=``
+(sharded rounds), wire formats other than f32, scenarios, fault guards,
+checkpoints and resume, population mode and config sweeps.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.splitme_dnn import DNNConfig
+from repro_torch.core import engine
+from repro_torch.core.cost import SystemParams, schedule_metrics
+from repro_torch.core.engine import RoundMetrics, _later
+from repro_torch.device import DeviceLike, resolve_device
+
+# Device→host transfer accounting: every metrics pull of a campaign goes
+# through _host_fetch (the scanned campaign: exactly 1; the loop: 1 a round)
+HOST_TRANSFERS = 0
+
+# index_source(seed position, round, E bucket) -> (n_phases, M, E bucket, B)
+IndexSource = Callable[[int, int, int], Any]
+
+
+def _host_fetch(tree):
+    """The single device→host transfer point for campaign metrics: a
+    tensor, or a dict / list / tuple of them, to numpy."""
+    global HOST_TRANSFERS
+    HOST_TRANSFERS += 1
+    return _to_numpy(tree)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+@dataclass
+class RoundSchedule:
+    """Precomputed system-side trajectory, shared by every seed."""
+    a: np.ndarray      # (R, M) binary selection masks
+    b: np.ndarray      # (R, M) bandwidth fractions
+    E: np.ndarray      # (R,)   local-update counts
+    trace: Any = None  # scenario traces are a later slice: always None
+
+    @property
+    def rounds(self) -> int:
+        return len(self.E)
+
+
+@dataclass
+class CampaignResult:
+    framework: str
+    seeds: Tuple[int, ...]
+    schedule: RoundSchedule
+    params: Any               # params tuple, each leaf stacked over seeds
+    losses: np.ndarray        # (n_seeds, rounds, n_phases)
+    metrics: List[RoundMetrics]   # system metrics per round (seed-invariant)
+    accuracy: Optional[np.ndarray] = None   # (n_seeds,) if test_data given
+    accuracy_per_round: Optional[np.ndarray] = None  # (rounds, n_seeds), NaN
+    # off eval rounds (scan mode with test_data / eval_every)
+    # the port's own measurements: each round's wall time in ms (on CUDA
+    # from events on the rounds' stream); for scan=True on CUDA
+    # {"shapes": {(kb, eb): [rounds]}, "graphs": n, "capture_s": t}
+    round_ms: Optional[np.ndarray] = None
+    graphs: Optional[dict] = None
+
+    def params_for(self, i: int):
+        """The i-th seed's params tuple (unstacked)."""
+        return _seed_params(self.params, i)
+
+
+def _seed_params(params, i: int):
+    return tuple([{k: v[i] for k, v in p.items()} for p in ps]
+                 for ps in params)
+
+
+def plan_schedule(framework: str, sp: SystemParams, cfg: DNNConfig,
+                  rounds: int, *, policy_seed: int = 0, K: int = 10,
+                  E: int = 10, e_initial: int = 20,
+                  n_samples_per_client: Optional[int] = None,
+                  quant=None, scenario=None, scenario_seed: int = 0
+                  ) -> Tuple[SystemParams, RoundSchedule]:
+    """Run the framework's host-side policy for `rounds` rounds.
+
+    Returns the framework's derived SystemParams copy and the schedule.
+    A ``scenario`` is a later slice of the port and raises."""
+    if scenario is not None:
+        raise _later("scenarios")
+    sp, policy = engine.make_policy(
+        framework, sp, cfg, seed=policy_seed, K=K, E=E, e_initial=e_initial,
+        n_samples_per_client=n_samples_per_client, quant=quant)
+    a_l, b_l, e_l = [], [], []
+    for _ in range(rounds):
+        a, b, e = policy.step()
+        a_l.append(a), b_l.append(b), e_l.append(e)
+    return sp, RoundSchedule(a=np.stack(a_l), b=np.stack(b_l),
+                             E=np.asarray(e_l, np.int32))
+
+
+def _bucket_cohorts(values, cap: int, max_exact: int = 8) -> Dict[int, int]:
+    """Map each schedule value (cohort size, E, or segment length) to a
+    shape bucket: few distinct values → exact shapes (one graph each); many
+    → powers of two up to ``cap`` (at most log2(cap) + 1 shapes)."""
+    distinct = sorted(set(int(c) for c in values))
+    if len(distinct) <= max_exact:
+        return {k: k for k in distinct}
+    buckets, b = [], 1
+    while b < cap:
+        buckets.append(b)
+        b *= 2
+    buckets.append(cap)
+    return {k: next(x for x in buckets if x >= k) for k in distinct}
+
+
+def _schedule_system_metrics(spec, sched: RoundSchedule, sp: SystemParams):
+    """All schedule-derived metrics for every round in one vectorized pass:
+    comm_bits via the spec's stacked-schedule comm_model, latency / cost /
+    energy via ``cost.schedule_metrics``."""
+    comm = np.atleast_1d(np.asarray(
+        spec.comm_model(sched.a, sched.E, sp), np.float64))
+    nsel = sched.a.sum(axis=1).astype(int)
+    sim, cost, energy = schedule_metrics(sched.a, sched.b, sched.E, sp,
+                                         trace=sched.trace)
+    return comm, nsel, sim, cost, energy
+
+
+def _plan_segments(kb_r: Sequence[int], eb_r: Sequence[int]
+                   ) -> List[Tuple[int, int, int, int]]:
+    """Contiguous maximal runs of rounds sharing a (cohort, E) shape bucket:
+    [(kb, eb, start, length)] in round order."""
+    segs, start = [], 0
+    R = len(kb_r)
+    for r in range(1, R + 1):
+        if r == R or (kb_r[r], eb_r[r]) != (kb_r[start], eb_r[start]):
+            segs.append((kb_r[start], eb_r[start], start, r - start))
+            start = r
+    return segs
+
+
+def _split_at_checkpoints(segs, every: Optional[int]
+                          ) -> List[Tuple[int, int, int, int]]:
+    """Additionally split the (kb, eb, start, length) runs at global rounds
+    divisible by ``every``, so every checkpoint boundary lands on a segment
+    edge (checkpoints themselves are a later slice of the port)."""
+    if not every:
+        return segs
+    out = []
+    for kb, eb, start, length in segs:
+        r, end = start, start + length
+        while r < end:
+            nxt = min(end, (r // every + 1) * every)
+            out.append((kb, eb, r, nxt - r))
+            r = nxt
+    return out
+
+
+def _make_metrics(sched, comm, nsel, sim, cost, energy, losses, acc_rounds
+                  ) -> List[RoundMetrics]:
+    metrics = []
+    for r in range(sched.rounds):
+        acc_r = float("nan")
+        if acc_rounds is not None and np.isfinite(acc_rounds[r]).any():
+            acc_r = float(np.nanmean(acc_rounds[r]))
+        metrics.append(RoundMetrics(
+            round=r, n_selected=int(nsel[r]), E=int(sched.E[r]),
+            comm_bits=float(comm[r]), sim_time=float(sim[r]),
+            cost=float(cost[r]), energy=float(energy[r]), accuracy=acc_r,
+            client_loss=float(losses[:, r, 0].mean()),
+            server_loss=float(losses[:, r, 1].mean())
+            if losses.shape[-1] > 1 else float("nan")))
+    return metrics
+
+
+def _round_shapes(sched: RoundSchedule, sp: SystemParams):
+    """Each round's (cohort bucket, E bucket)."""
+    counts = sched.a.sum(axis=1).astype(int)
+    size_of = _bucket_cohorts(counts, sp.M)
+    e_of = _bucket_cohorts(sched.E, int(sp.E_max))
+    return ([size_of[int(c)] for c in counts],
+            [max(1, e_of[int(e)]) for e in sched.E])
+
+
+def _cohort(a_r: np.ndarray, kb: int) -> Tuple[np.ndarray, int]:
+    """Round r's selected clients padded to ``kb`` (pads index client 0
+    and carry mask 0) and their count."""
+    sel = np.nonzero(a_r)[0]
+    idx = np.zeros(kb, np.int64)
+    idx[:len(sel)] = sel
+    return idx, len(sel)
+
+
+def _initial_state(spec, seeds, params, index_source, eb_r, M: int, n: int,
+                   device: torch.device):
+    """Seed-stacked initial params on ``device`` and every round's
+    (S, n_phases, M, E bucket, B) int64 batch indices on the host, checked
+    to lie in [0, n)."""
+    gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
+    if params is None:
+        params = [spec.init_fn(g, torch.device("cpu")) for g in gens]
+    if len(params) != len(seeds):
+        raise ValueError(f"params for {len(params)} seeds, campaign has "
+                         f"{len(seeds)}")
+    def leaf(v):
+        return (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.array(v, np.float32)))
+
+    stacked = tuple(
+        [{k: torch.stack([leaf(ps[i][l][k]) for ps in params])
+          .to(device=device, dtype=torch.float32) for k in ps0[l]}
+         for l in range(len(ps0))]
+        for i, ps0 in enumerate(params[0]))
+    shape = (len(spec.phases), M)
+    B = spec.batch_size
+
+    def draw(i, r, eb):
+        if index_source is not None:
+            return torch.as_tensor(index_source(i, r, eb), dtype=torch.int64)
+        return torch.randint(0, n, shape + (eb, B), generator=gens[i])
+
+    indices = []
+    for r, eb in enumerate(eb_r):
+        idx = torch.stack([draw(i, r, eb) for i in range(len(seeds))])
+        if tuple(idx.shape[1:]) != shape + (eb, B):
+            raise ValueError(f"round {r}: batch indices must be "
+                             f"{shape + (eb, B)}, got {tuple(idx.shape[1:])}")
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+            raise ValueError(f"round {r}: batch indices must lie in [0, {n})")
+        indices.append(idx)
+    return stacked, indices
+
+
+@contextlib.contextmanager
+def _no_syncs(device: torch.device, on: bool):
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block on CUDA;
+    nothing on the CPU."""
+    if not on or device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
+                 client_data: Dict[str, np.ndarray], *, rounds: int,
+                 seeds: Sequence[int], test_data=None,
+                 K: int = 10, E: int = 10, e_initial: int = 20,
+                 policy_seed: Optional[int] = None, scan: bool = True,
+                 mesh=None, eval_every: Optional[int] = None,
+                 eval_gamma: float = 1e-3, strict_transfers: bool = False,
+                 policy=None, quant=None, scenario=None,
+                 scenario_seed: int = 0, guards=None,
+                 checkpoint_every: Optional[int] = None,
+                 checkpoint_dir=None, resume: bool = False,
+                 device: DeviceLike = None, params=None,
+                 index_source: Optional[IndexSource] = None,
+                 _round_hook: Optional[Callable[[int], None]] = None,
+                 **hyper) -> CampaignResult:
+    """Train ``len(seeds)`` independent SplitMe runs over one shared
+    schedule (drawn from ``policy_seed``, default ``min(seeds)``), all
+    seeds in one program (see the module docstring).  ``hyper`` forwards to
+    the spec factory (lr_c / lr_s / temperature / batch_size).
+
+    ``scan=True`` graphs the rounds on CUDA and fetches the metrics once;
+    the Step-4 evaluation runs after every ``eval_every``-th round and the
+    last (with ``test_data``).  ``scan=False`` is the eager per-round loop,
+    with a post-hoc evaluation.  ``strict_transfers=True`` runs the scanned
+    device phase under ``torch.cuda.set_sync_debug_mode("error")``, so any
+    synchronizing call (a stray metric pull, ``.item()``, a pageable copy)
+    raises; on the CPU it has no effect.
+
+    The port's own keywords: ``device`` (the card unless ``"cpu"``);
+    ``params``, one initial ``(w_c, w_s_inv)`` per seed as numpy arrays or
+    tensors; ``index_source(i, r, e_bucket)``, seed i's full-M batch
+    indices of round r, ``(n_phases, M, e_bucket, batch_size)`` int64;
+    ``_round_hook(r)``, called on the host once round r is queued.  Each
+    round's wall time lands in ``CampaignResult.round_ms``.
+
+    Raise as later slices of the port: any framework but ``"splitme"``,
+    ``mesh``, ``quant`` other than None / ``"none"``, ``scenario``,
+    ``guards`` and ``checkpoint_every`` / ``checkpoint_dir`` / ``resume``.
+    """
+    if mesh is not None:
+        raise _later("the sharded campaign (mesh=)")
+    engine._check_quant(quant)
+    if scenario is not None:
+        raise _later("scenarios")
+    if guards not in (None, False):
+        raise _later("fault guards")
+    if checkpoint_every or checkpoint_dir is not None or resume:
+        raise _later("checkpoints and resume")
+    dev = resolve_device(device)
+    x = torch.as_tensor(client_data["x"], dtype=torch.float32, device=dev)
+    y = torch.as_tensor(client_data["y"], dtype=torch.int64, device=dev)
+    if x.shape[0] != sp.M:
+        raise ValueError(f"client_data has {x.shape[0]} clients but "
+                         f"SystemParams.M={sp.M}")
+    n_m = int(x.shape[1])
+    if policy_seed is None:
+        policy_seed = min(seeds)
+    sp, sched = plan_schedule(framework, sp, cfg, rounds, K=K, E=E,
+                              e_initial=e_initial, policy_seed=policy_seed,
+                              n_samples_per_client=n_m, quant=quant,
+                              scenario=scenario, scenario_seed=scenario_seed)
+    # the loss metric averages over the executed steps only, so a round
+    # runs exactly its E bucket's steps; the trained params equal the
+    # serial trainer's (masked updates are exact no-ops)
+    spec = engine.make_spec(framework, cfg, masked_loss_metric=True,
+                            policy=policy, quant=quant, **hyper)
+    comm, nsel, sim, cost, energy = _schedule_system_metrics(spec, sched, sp)
+    if not scan and eval_every:
+        raise ValueError("eval_every (per-round eval) requires scan=True; "
+                         "the loop only evaluates post-hoc")
+    kb_r, eb_r = _round_shapes(sched, sp)
+    params, indices = _initial_state(spec, seeds, params, index_source, eb_r,
+                                     int(sp.M), n_m, dev)
+    fns = {s: engine.build_round_fn(spec, cfg, x, y, e_max=s[1], gather=True)
+           for s in dict.fromkeys(zip(kb_r, eb_r))}
+
+    if not scan:
+        losses, params, round_ms = _run_rounds_loop(
+            fns, sched, kb_r, eb_r, params, indices)
+        result = CampaignResult(
+            framework=framework, seeds=tuple(seeds), schedule=sched,
+            params=params, losses=losses,
+            metrics=_make_metrics(sched, comm, nsel, sim, cost, energy,
+                                  losses, None), round_ms=round_ms)
+        if test_data is not None:
+            result.accuracy = evaluate_campaign(
+                result, cfg, test_data, client_data=client_data,
+                gamma=eval_gamma, policy=spec.policy)
+        return result
+
+    eval_fn = None
+    do_eval = np.zeros(rounds, bool)
+    if test_data is not None:
+        x_test = torch.as_tensor(test_data[0], dtype=torch.float32,
+                                 device=dev)
+        y_test = torch.as_tensor(test_data[1], dtype=torch.int64, device=dev)
+        eval_fn = engine.build_eval_fn(spec, cfg, x_test, y_test,
+                                       client_data={"x": x, "y": y},
+                                       gamma=eval_gamma)
+        if eval_every:
+            do_eval[eval_every - 1::eval_every] = True
+        do_eval[rounds - 1] = True
+
+    params, buffers, clock, graphs = _run_rounds_scan(
+        fns, sched, kb_r, eb_r, params, indices, do_eval, eval_fn,
+        strict=strict_transfers, round_hook=_round_hook)
+    host = _host_fetch(buffers)            # THE per-campaign transfer
+    round_ms = clock.round_ms()
+    losses = np.transpose(host["loss"], (1, 0, 2))        # (S, R, n_ph)
+    acc_rounds = host.get("acc")                           # (R, S)
+    result = CampaignResult(
+        framework=framework, seeds=tuple(seeds), schedule=sched,
+        params=params, losses=losses,
+        metrics=_make_metrics(sched, comm, nsel, sim, cost, energy, losses,
+                              acc_rounds),
+        accuracy_per_round=acc_rounds, round_ms=round_ms, graphs=graphs)
+    if test_data is not None:
+        result.accuracy = acc_rounds[rounds - 1]
+    return result
+
+
+class _RoundClock:
+    """Each round's wall time: CUDA events on ``stream`` (read once the
+    campaign's fetch has synchronized), or the host clock on the CPU."""
+
+    def __init__(self, stream=None):
+        self.stream, self.marks = stream, []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.stream is None:
+            self.marks.append(time.perf_counter())
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        self.marks.append(ev)
+
+    def round_ms(self) -> np.ndarray:
+        if self.stream is None:
+            return np.diff(self.marks) * 1e3
+        return np.array([a.elapsed_time(b) for a, b
+                         in zip(self.marks, self.marks[1:])])
+
+
+def _run_rounds_loop(fns, sched, kb_r, eb_r, params, indices):
+    """The eager per-round loop: one gathered round call per round, one
+    host transfer per round when its loss row is pulled."""
+    dev = params[0][0]["w"].device
+    clock = _RoundClock(torch.cuda.current_stream(dev)
+                        if dev.type == "cuda" else None)
+    loss_rows = []
+    for r in range(sched.rounds):
+        kb, eb = kb_r[r], eb_r[r]
+        sel, k = _cohort(sched.a[r], kb)
+        mask = np.zeros(kb, np.float32)
+        mask[:k] = 1.0
+        params, loss_r = fns[kb, eb](
+            params, torch.from_numpy(sel).to(dev),
+            torch.from_numpy(mask).to(dev), int(sched.E[r]),
+            indices[r].to(dev))
+        loss_rows.append(loss_r)
+        clock.mark()
+    losses = np.stack(
+        [np.stack(_host_fetch(row), axis=-1) for row in loss_rows],
+        axis=1)                                   # (S, R, n_phases)
+    return losses, params, clock.round_ms()
+
+
+def _run_rounds_scan(fns, sched, kb_r, eb_r, params, indices, do_eval,
+                     eval_fn, *, strict: bool, round_hook):
+    """All rounds, one graph replay each on CUDA (the same bodies eagerly on
+    the CPU); returns (params, device metric buffers, the rounds'
+    ``_RoundClock``, graph stats)."""
+    dev = params[0][0]["w"].device
+    R = sched.rounds
+    S, n_ph, M, _, B = indices[0].shape
+    cuda = dev.type == "cuda"
+    state = [v for ps in params for p in ps for v in p.values()]
+    loss_buf = torch.full((R, S, n_ph), float("nan"), device=dev)
+    acc_buf = torch.full((R, S), float("nan"), device=dev)
+    r_slot = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices]
+    shapes = list(dict.fromkeys(zip(kb_r, eb_r)))
+    rows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
+    where, rounds_of = [], {s: [] for s in shapes}
+    for r in range(R):
+        s = (kb_r[r], eb_r[r])
+        sel, k = _cohort(sched.a[r], s[0])
+        rows[s].append(torch.cat([torch.tensor([r, int(sched.E[r]), k]),
+                                  torch.from_numpy(sel),
+                                  indices[r].reshape(-1)]))
+        where.append(len(rows[s]) - 1)
+        rounds_of[s].append(r)
+    tables = {s: torch.stack(v).to(dev) for s, v in rows.items()}
+    ops = {s: torch.empty_like(t[0]) for s, t in tables.items()}
+
+    def round_body(s):
+        kb, eb = s
+        fn, op = fns[s], ops[s]
+
+        def body():
+            r = op[0:1]
+            mask = (torch.arange(kb, device=dev) < op[2]).float()
+            new, losses = fn(params, op[3:3 + kb], mask, op[1],
+                             op[3 + kb:].view(S, n_ph, M, eb, B))
+            for old, v in zip(state, (v for ps in new for p in ps
+                                      for v in p.values())):
+                old.copy_(v)
+            loss_buf.index_copy_(0, r, torch.stack(losses, -1)[None])
+            r_slot.copy_(r)
+        return body
+
+    def eval_body():
+        acc = torch.stack([eval_fn(_seed_params(params, i))
+                           for i in range(S)])
+        acc_buf.index_copy_(0, r_slot, acc[None])
+
+    bodies = {s: round_body(s) for s in shapes}
+    bodies["eval"] = eval_body
+    buffers = {"loss": loss_buf}
+    if eval_fn is not None:
+        buffers["acc"] = acc_buf
+    stream = torch.cuda.Stream(device=dev) if cuda else None
+    if cuda:
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        pool = torch.cuda.graph_pool_handle()
+    graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
+    capture_s = 0.0
+
+    def run(key, restore=()):
+        nonlocal capture_s
+        if not cuda:
+            bodies[key]()
+            return
+        if key not in graphs:
+            graphs[key], secs = _capture(bodies[key], pool, restore)
+            capture_s += secs
+        graphs[key].replay()
+
+    with _no_syncs(dev, strict), torch.cuda.stream(stream):
+        clock = _RoundClock(stream)
+        for r in range(R):
+            s = (kb_r[r], eb_r[r])
+            ops[s].copy_(tables[s][where[r]])
+            run(s, state)
+            if do_eval[r]:
+                run("eval")
+            clock.mark()
+            if round_hook is not None:
+                round_hook(r)
+    if not cuda:
+        return params, buffers, clock, None
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    stats = {"shapes": {s: rounds_of[s] for s in shapes},
+             "graphs": len(graphs), "capture_s": capture_s}
+    return params, buffers, clock, stats
+
+
+def _capture(body, pool, restore):
+    """A CUDA graph of ``body`` on the current (side) stream, after one
+    eager warm-up (building the kernels, library handles and workspaces
+    outside the graph) whose writes to ``restore`` are undone.  The LU
+    solves of the evaluation are pinned to cuSOLVER, whose getrf/getrs are
+    stream ordered: the default backend picks it for one matrix too, but a
+    process-wide "magma" preference would make the capture fail (MAGMA's
+    hybrid LU waits on the host).  Returns the graph and the seconds of the
+    capture itself; a failed capture raises."""
+    saved = [t.clone() for t in restore]
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        body()
+        for t, v in zip(restore, saved):
+            t.copy_(v)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        graph.capture_begin(pool=pool)
+        try:
+            body()
+        except BaseException:
+            with contextlib.suppress(Exception):
+                graph.capture_end()
+            raise
+        graph.capture_end()
+        return graph, time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def evaluate_campaign(result: CampaignResult, cfg: DNNConfig, test_data,
+                      client_data=None, gamma: float = 1e-3,
+                      policy=None) -> np.ndarray:
+    """Per-seed test accuracy of a finished campaign (post-hoc; the scanned
+    campaign replays the same evaluation after its eval rounds): Step 4
+    recovers each seed's server model from the client data's Grams, then
+    the stitched forward runs on the test split.  One host transfer."""
+    spec = engine.make_spec(result.framework, cfg, policy=policy)
+    if client_data is None:
+        raise ValueError("splitme evaluation needs client_data for Step 4")
+    dev = result.params[0][0]["w"].device
+    eval_fn = engine.build_eval_fn(
+        spec, cfg,
+        torch.as_tensor(test_data[0], dtype=torch.float32, device=dev),
+        torch.as_tensor(test_data[1], dtype=torch.int64, device=dev),
+        client_data={k: torch.as_tensor(
+            client_data[k], dtype=torch.float32 if k == "x" else torch.int64,
+            device=dev) for k in ("x", "y")},
+        gamma=gamma)
+    acc = torch.stack([eval_fn(result.params_for(i))
+                       for i in range(len(result.seeds))])
+    return np.asarray(_host_fetch(acc), dtype=np.float64)

@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.splitme_dnn import DNNConfig
+from repro_torch.configs.splitme_dnn import DNN10, DNNConfig
+from repro_torch.core import engine
 from repro_torch.core.cost import SystemParams
 from repro_torch.core.splitme import SplitMeTrainer
 from repro_torch.data import oran
@@ -26,6 +27,7 @@ from repro_torch.kernels.ridge_gram.ref import gram_ref
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
 from repro_torch.configs.base import get_config
+from repro_torch.launch import campaign
 from repro_torch.models.transformer import build_model
 from repro_torch.runtime.steps import make_prefill_step
 
@@ -47,8 +49,10 @@ def _normal(seed, shape, device, scale=1.0):
 
 # (rows, d) of the KL kernels: the main path's (50 clients x 32 rows of
 # 256), a ragged width, single floats (d % 4 != 0), 32 values a lane (d
-# 1000) and a row streamed (d > 1024)
-_KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000)]
+# 1000), a row streamed (d > 1024), and the campaign's cohorts of 32 and 50
+# clients x 4 seeds x 32 rows
+_KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000),
+              (4096, 256), (6400, 256)]
 
 
 def _off_alignment(t, offset):
@@ -462,3 +466,126 @@ def test_flash_wrapper_refuses_mixed_devices(cuda):
         fa_ops.flash_attention(q, torch.zeros(1, 2, 4, 8), q)
     with pytest.raises(ValueError):
         fa_ops.flash_attention(torch.zeros(1, 2, 4, 8), q, q)
+
+
+# ---------------------------------------------------------------------------
+# the graphed SplitMe campaign (tests/test_campaign.py's fixture)
+# ---------------------------------------------------------------------------
+
+def _campaign_data():
+    X, y = oran.generate(n_per_class=300, seed=0)
+    (Xtr, ytr), test = oran.train_test_split(X, y)
+    cd = oran.partition_non_iid(Xtr, ytr, 12, samples_per_client=32, seed=0)
+    return cd, test
+
+
+def _campaign(cd, **kw):
+    return campaign.run_campaign("splitme", DNN10, SystemParams(M=12, seed=0),
+                                 cd, rounds=3, seeds=(0, 1), **kw)
+
+
+def test_graphed_campaign_equals_eager_campaign(cuda):
+    """One graph per round shape and one for the evaluation; the replays
+    compute the eager rounds' params and losses bit for bit, and the CPU's
+    params and losses at 1e-5 and per-round accuracy within one test
+    sample."""
+    cd, test = _campaign_data()
+    g = _campaign(cd, device=cuda, test_data=test, eval_every=2,
+                  eval_gamma=10.0)
+    e = _campaign(cd, device=cuda, scan=False)
+    assert g.graphs["graphs"] == len(g.graphs["shapes"]) + 1
+    assert sum(len(r) for r in g.graphs["shapes"].values()) == 3
+    np.testing.assert_array_equal(g.losses, e.losses)
+    for i in range(2):
+        for hg, he in zip(g.params_for(i), e.params_for(i)):
+            for pg, pe in zip(hg, he):
+                for k in pg:
+                    assert torch.equal(pg[k], pe[k])
+    acc = g.accuracy_per_round
+    assert np.isnan(acc[0]).all() and np.isfinite(acc[1:]).all()
+    cpu = _campaign(cd, device="cpu", test_data=test, eval_every=2,
+                    eval_gamma=10.0)
+    np.testing.assert_allclose(g.losses, cpu.losses, rtol=0, atol=1e-5)
+    for i in range(2):
+        for hg, hc in zip(g.params_for(i), cpu.params_for(i)):
+            for pg, pc in zip(hg, hc):
+                for k in pg:
+                    torch.testing.assert_close(pg[k].cpu(), pc[k], rtol=0,
+                                               atol=1e-5)
+    np.testing.assert_allclose(acc, cpu.accuracy_per_round, rtol=0,
+                               atol=1.0 / len(test[1]) + 1e-9)
+
+
+def test_strict_transfers_hold_on_the_card(cuda):
+    """The scanned campaign's device phase runs under sync debug mode
+    "error" with one host transfer; a synchronizing call in it raises, and
+    the mode is restored after."""
+    cd, test = _campaign_data()
+    before = campaign.HOST_TRANSFERS
+    res = _campaign(cd, device=cuda, test_data=test, strict_transfers=True)
+    assert campaign.HOST_TRANSFERS == before + 1
+    assert np.isfinite(res.losses).all()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        _campaign(cd, device=cuda, strict_transfers=True,
+                  _round_hook=lambda r: torch.ones(1, device=cuda).item())
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_eval_graph_replays_give_identical_grams_and_accuracy(cuda):
+    """The Step-4 evaluation captured as a graph: two replays give the
+    same Grams (the Gram kernel resets its tile counters itself) and the
+    eager accuracy."""
+    cd, test = _campaign_data()
+    spec = engine.make_spec("splitme", DNN10)
+    x = torch.as_tensor(cd["x"], device=cuda)
+    y = torch.as_tensor(cd["y"], dtype=torch.int64, device=cuda)
+    eval_fn = engine.build_eval_fn(
+        spec, DNN10, torch.as_tensor(test[0], device=cuda),
+        torch.as_tensor(test[1], dtype=torch.int64, device=cuda),
+        client_data={"x": x, "y": y}, gamma=10.0)
+    params = spec.init_fn(torch.Generator().manual_seed(0), cuda)
+    o, z = _normal(0, (384, 257), cuda), _normal(1, (384, 128), cuda)
+    out = [torch.empty(257, 257, device=cuda),
+           torch.empty(257, 128, device=cuda), torch.empty((), device=cuda)]
+
+    def body():
+        a0, a1 = dispatch.gram_pair(o, z)
+        out[0].copy_(a0)
+        out[1].copy_(a1)
+        out[2].copy_(eval_fn(params))
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph, _ = campaign._capture(body, torch.cuda.graph_pool_handle(),
+                                     ())
+        replays = []
+        for _ in range(2):
+            for t in out:
+                t.fill_(float("nan"))
+            graph.replay()
+            replays.append([t.clone() for t in out])
+    torch.cuda.current_stream().wait_stream(stream)
+    for a, b in zip(*replays):
+        assert torch.equal(a, b)
+    a0, a1 = dispatch.gram_pair(o, z)
+    assert torch.equal(replays[0][0], a0) and torch.equal(replays[0][1], a1)
+    assert replays[0][2].item() == eval_fn(params).item()
+
+
+def test_failed_capture_raises_without_falling_back(cuda, monkeypatch):
+    """A round body that waits on the card cannot be captured: the campaign
+    raises, it does not run the rounds eagerly instead."""
+    cd, _ = _campaign_data()
+    real = engine._step_mask
+
+    def syncing(e_max, e_steps, device):
+        int(e_steps)                  # a host read: no capture allows it
+        return real(e_max, e_steps, device)
+
+    monkeypatch.setattr(engine, "_step_mask", syncing)
+    with pytest.raises(RuntimeError):
+        _campaign(cd, device=cuda)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.ones(3, device=cuda).sum().item() == 3.0

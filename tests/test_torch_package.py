@@ -46,7 +46,7 @@ def test_port_files_exist():
                  "kernels/rwkv6_wkv/ref.py", "kernels/mamba2_scan/ops.py",
                  "kernels/mamba2_scan/ref.py", "runtime/steps.py",
                  "serve.py", "kernels/flash_attention/ops.py",
-                 "kernels/flash_attention/ref.py"):
+                 "kernels/flash_attention/ref.py", "launch/campaign.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",

@@ -125,7 +125,10 @@ def test_later_frameworks_and_options_raise():
     spec = engine.make_spec("splitme", CFG)
     x, y = torch.zeros(M, N, 30), torch.zeros(M, N, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="later slice"):
-        engine.build_round_fn(spec, CFG, x, y, e_max=2, gather=True)
+        engine.build_round_fn(spec, CFG, x, y, e_max=2, gather=True,
+                              with_faults=True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        engine.build_round_fn(spec, CFG, x, y, e_max=2, guards=object())
     with pytest.raises(ValueError, match="policy"):
         engine.build_round_fn(spec, CFG, x, y, e_max=2, policy="reference")
 

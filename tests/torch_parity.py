@@ -61,3 +61,23 @@ def assert_params_close(port_layers, jax_layers, atol, rtol=0.0):
         for k in ("w", "b"):
             np.testing.assert_allclose(g[k], np.asarray(r[k]), atol=atol,
                                        rtol=rtol)
+
+
+class CampaignIndexReplay:
+    """``index_source`` for the port's ``run_campaign`` that replays the JAX
+    ``run_campaign``: per seed ``PRNGKey(seed)``, then per round
+    ``key, sub = split(key)`` and the round's full-M split chain from
+    ``sub`` over the round's E bucket.  Call in round order per seed."""
+
+    def __init__(self, seeds, M: int, B: int, n: int, n_phases: int = 2):
+        self.keys = [jax.random.PRNGKey(s) for s in seeds]
+        self.rounds = [0] * len(seeds)
+        self.shape = (n_phases, M)
+        self.B, self.n = B, n
+
+    def __call__(self, i: int, round_idx: int, e_max: int) -> torch.Tensor:
+        assert round_idx == self.rounds[i], "rounds must be replayed in order"
+        self.rounds[i] += 1
+        self.keys[i], sub = jax.random.split(self.keys[i])
+        return torch.from_numpy(replay_round_indices(
+            sub, *self.shape, e_max, self.B, self.n))

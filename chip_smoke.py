@@ -13,7 +13,9 @@ failure ends the run with a non-zero exit code:
    shapes and at ragged ones, with times (CUDA events and the profiler),
    bounds, and the plain version's and (for the Gram) one library call's
    times: ``kl_mutual``'s forward and backward kernels (with the wrappers'
-   host µs a call, and the plain backward's device operations) and
+   host µs a call, and the plain backward's device operations), their
+   mixed-dtype entries (bf16 x or y; a bf16 gradient within one bf16 unit
+   in the last place) and
    ``ridge_gram`` (the SplitMe path: the 16 single
    Grams of one Step-4 evaluation, then its 8 ``gram_pair`` launches timed,
    with the wrapper's host µs a call and the matmul yardstick's events and
@@ -58,6 +60,13 @@ failure ends the run with a non-zero exit code:
    and evaluations included) against eager with its post-hoc evaluation;
    and the same campaign graphed on the card against the CPU: params,
    losses and per-round accuracy (at a well-conditioned gamma);
+3c. precision and wire formats: the campaign of 3b under
+   ``policy="kernel_bf16"`` (bf16 on the card), ``quant="int8"`` and
+   ``quant="bf16"``: each graphed (strict transfers) against eager bit for
+   bit with the error-feedback state, against the CPU over all rounds and
+   seeds, the launch counters of the kernel_bf16 campaign (every mixed KL
+   entry of its path launched), and a steady round's ms, the whole
+   campaign, the idle share and the operations a round;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -192,6 +201,44 @@ def device_ms(torch, fns, names, calls: int = 20, tries: int = 3):
             if total > 0:
                 break
         out.append(total / calls / 1e3 if total > 0 else None)
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled entry name: the
+    length-prefixed identifier that ends in "kernel"."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            cand = mangled[m.end():m.end() + n]
+            if len(cand) == n and cand.endswith("kernel"):
+                return cand
+    return mangled
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel of an ``-Xptxas -v`` log: (instances, registers of each,
+    the largest spill stores in bytes)."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            n, regs, spill = out.get(name, (0, [], 0))
+            out[name] = (n + 1, regs, spill)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            n, regs, spill = out[name]
+            out[name] = (n, regs, max(spill, int(m.group(1))))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][1].append(int(m.group(1)))
     return out
 
 
@@ -335,6 +382,38 @@ def timed(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+# idle seconds kept at both edges of a profiled window of campaign rounds.
+# The profiler drops every device event whose host-clock time (converted
+# from the card's clock) falls outside the window; the conversion is off by
+# a few ms now and then, and with the first replay ~1 ms after the window
+# opened, a window came back without the first ~100 events of its round
+# (1 window in 46 on the H100; none in the same number with these edges).
+PROFILE_QUIET_S = 0.1
+
+
+def open_window(torch):
+    """A started CUDA profiler, the card idle PROFILE_QUIET_S before and
+    after its start; with the host time its window of rounds begins."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_QUIET_S)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_QUIET_S)
+    return prof, time.perf_counter()
+
+
+def close_window(torch, prof, t0: float) -> float:
+    """Stop ``prof`` PROFILE_QUIET_S after the card went idle; the wall ms
+    since ``t0``."""
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    time.sleep(PROFILE_QUIET_S)
+    prof.stop()
+    return wall
+
+
 def campaign_window(torch, evts, rounds: int):
     """Per round of a profiled window: device busy ms, device operations,
     and for each of CAMPAIGN_KERNELS (launches, device µs a launch)."""
@@ -356,7 +435,6 @@ def campaign_phase(torch, port, sp, clients, test):
     """Phase 3b: the paper's campaign through run_campaign, graphed and
     eager; returns the per-kernel numbers of the graphed steady rounds."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     camp = port.campaign
     kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS, test_data=test,
               device="cuda")
@@ -455,20 +533,12 @@ def campaign_phase(torch, port, sp, clients, test):
     def hook(r):
         if r == PROFILE_STEADY[0] - 1 or r in (PROFILE_STEADY[-1],
                                                  PROFILE_EVAL):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
             if "prof" in win:
-                win["prof"].stop()
-                win[win["name"]] = (win["prof"].key_averages(),
-                                    (now - win["t0"]) * 1e3)
+                wall = close_window(torch, win["prof"], win["t0"])
+                win[win["name"]] = (win.pop("prof").key_averages(), wall)
             if r != PROFILE_EVAL:
                 win["name"] = "eval" if r == PROFILE_STEADY[-1] else "steady"
-                win["prof"] = profile(activities=[ProfilerActivity.CUDA])
-                win["prof"].start()
-                torch.cuda.synchronize()
-                win["t0"] = time.perf_counter()
-            else:
-                del win["prof"]
+                win["prof"], win["t0"] = open_window(torch)
     camp.run_campaign("splitme", port.DNN10, sp, clients,
                       eval_every=CAMPAIGN_EVAL_EVERY, _round_hook=hook, **kw)
     n_steady = len(PROFILE_STEADY)
@@ -543,6 +613,215 @@ def campaign_phase(torch, port, sp, clients, test):
     n, us = per_e["ridge_gram"]
     out["ridge_gram"] = {"campaign_launches_per_eval_round": n,
                          "campaign_device_us_per_launch": us}
+    return out, n_ops
+
+
+# precision and wire formats (phase 3c): the paper's campaign of phase 3b
+# under the bf16 policy ("kernel_bf16": bf16 on the card), the int8 wire
+# (stochastic rounding with error feedback) and the bf16 wire.  Each
+# variant: graphed (strict transfers, one transfer) against eager bit for
+# bit (params, losses, error-feedback state); the card against the CPU over
+# all 30 rounds and 4 seeds (the CPU forcing the bf16 precision the preset
+# resolves to on the card), params and losses within the CPU parity bounds
+# of tests/test_torch_{precision,quantcomm}.py (1e-3 bf16 policy, 6e-2
+# int8, 2e-2 bf16 wire) and accuracy per evaluated round at γ = 10 within
+# CMP_ACC_SAMPLES_MIXED of 1200 test samples (1 %: bf16 roundings of
+# activations and of the wire amplify the products' other summation order
+# on the card); one timed turn, and one profiled window of steady rounds.
+PRECISION_VARIANTS = (
+    ("kernel_bf16", dict(policy="kernel_bf16"), 1e-3),
+    ("int8 wire", dict(quant="int8"), 6e-2),
+    ("bf16 wire", dict(quant="bf16"), 2e-2),
+)
+CMP_ACC_SAMPLES_MIXED = 12
+PROFILE_WINDOW = 9
+
+
+def steady_window(shapes, rounds: int, every: int):
+    """Up to PROFILE_WINDOW consecutive rounds of the most frequent round
+    shape, after its first (captured) round and before an evaluating round;
+    the shape and the rounds."""
+    shape = max(shapes, key=lambda s: len(shapes[s]))
+    evals = {r for r in range(rounds) if not (r + 1) % every}
+    best = []
+    for r0 in shapes[shape][1:]:
+        run = []
+        for r in range(r0, rounds):
+            if r not in shapes[shape] or r in evals:
+                break
+            run.append(r)
+            if len(run) == PROFILE_WINDOW:
+                break
+        if len(run) > len(best):
+            best = run
+    return shape, best
+
+
+def profiled_campaign(torch, camp, window, run):
+    """``run(_round_hook=...)`` with torch.profiler (CUDA) open over the
+    rounds of ``window``: per round the wall ms, the device's busy ms, its
+    operations, and the events."""
+    win = {}
+
+    def hook(r):
+        if r == window[0] - 1:
+            win["prof"], win["t0"] = open_window(torch)
+        elif r == window[-1]:
+            win["wall"] = close_window(torch, win["prof"], win["t0"])
+    run(_round_hook=hook)
+    evts = win["prof"].key_averages()
+    n = len(window)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in evts) / 1e3 / n
+    ops = sum(e.count for e in evts if dev_us(e) > 0) / n
+    return win["wall"] / n, busy, ops, evts, dev_us
+
+
+def precision_phase(torch, port, sp, clients, test, f32_ops):
+    """Phase 3c: the paper's campaign under each of PRECISION_VARIANTS;
+    returns the KL pairs' in-graph launches and device µs a launch (bf16
+    policy), the main path's launch counts and each variant's numbers."""
+    import numpy as np
+    camp, kl_ops, rg_ops = port.campaign, port.kl_ops, port.rg_ops
+    S = len(CAMPAIGN_SEEDS)
+    n_test = len(test[1])
+    kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS)
+    forced = port.dispatch.KernelPolicy(precision=port.dispatch.BF16)
+    out = {"variants": {}}
+    for name, opts, tol in PRECISION_VARIANTS:
+        def graphed(**more):
+            return camp.run_campaign(
+                "splitme", port.DNN10, sp, clients, test_data=test,
+                eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
+                device="cuda", **kw, **opts, **more)
+
+        # the main path of the variant: the launch counters set to 0 just
+        # before and read just after (replays do not move them: the eager
+        # warm-up and the capture of each graph do)
+        kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+        kl_ops.launches_by_entry.clear()
+        camp.HOST_TRANSFERS = 0
+        res, wall = timed(torch, lambda: graphed(strict_transfers=True))
+        counts = dict(kl_ops.launches_by_entry, ridge_gram=rg_ops.launches)
+        check(camp.HOST_TRANSFERS == 1,
+              f"{name}: {camp.HOST_TRANSFERS} host transfers")
+        shapes = res.graphs["shapes"]
+        check(res.graphs["graphs"] == len(shapes) + 1,
+              f"{name}: one graph per shape + eval")
+        check(bool(np.isfinite(res.losses).all()), f"{name}: non-finite loss")
+        q = port.quantcomm.tree_leaves(res.qstate)
+        q_ok = all(bool(torch.isfinite(v).all()) for v in q)
+        check(q_ok, f"{name}: non-finite error-feedback state")
+        check(bool(q) == (opts.get("quant") == "int8"),
+              f"{name}: error-feedback state {len(q)} leaves")
+        print(f"{name}: launches in the graphed campaign's warm-ups and "
+              f"captures {counts}; shapes "
+              + ", ".join(f"({kb}, {eb}) rounds {rs[0]}-{rs[-1]}"
+                          for (kb, eb), rs in shapes.items())
+              + f"; {res.graphs['graphs']} graphs, capture "
+              f"{res.graphs['capture_s']:.3f} s, HOST_TRANSFERS "
+              f"{camp.HOST_TRANSFERS} under strict_transfers; error-feedback "
+              f"state {len(q)} leaves, finite {q_ok}")
+        if name == "kernel_bf16":
+            for entry in ("kl_mutual_rows_bf16_f32", "kl_mutual_rows_f32_bf16",
+                          "kl_mutual_grad_bf16_f32",
+                          "kl_mutual_grad_f32_bf16"):
+                check(counts.get(entry, 0) > 0,
+                      f"kernel_bf16 campaign never launched {entry}")
+            check(not counts.keys() & {"kl_mutual_rows_f32",
+                                       "kl_mutual_grad_f32"},
+                  f"kernel_bf16 campaign launched an f32 KL entry {counts}")
+            out["launches"] = counts
+        check(counts["ridge_gram"] > 0, f"{name}: no Gram launch")
+        # graphed against eager, bit for bit
+        eager, e_wall = timed(torch, lambda: camp.run_campaign(
+            "splitme", port.DNN10, sp, clients, scan=False, device="cuda",
+            **kw, **opts))
+        perr, lerr = campaign_max_diff(res, eager)
+        qerr = max([float((a - b).abs().max()) for a, b in zip(
+            q, port.quantcomm.tree_leaves(eager.qstate))], default=0.0)
+        print(f"{name}: graphed vs eager campaign: max param diff {perr:.3e}"
+              f", loss {lerr:.3e}, error-feedback state {qerr:.3e}")
+        check(perr == lerr == qerr == 0.0,
+              f"{name}: graphed and eager campaigns differ")
+        # times: a steady round, the whole campaign, idle share, operations
+        shape, window = steady_window(shapes, CAMPAIGN_ROUNDS,
+                                      CAMPAIGN_EVAL_EVERY)
+        check(len(window) >= 3, f"{name}: steady window {window}")
+        steady = [r for r in shapes[shape][1:]
+                  if (r + 1) % CAMPAIGN_EVAL_EVERY]
+        round_ms = statistics.median(res.round_ms[steady])
+        whole = float(sum(res.round_ms))
+        pwall, busy, ops, evts, dev_us = profiled_campaign(
+            torch, camp, window, graphed)
+        v = out["variants"][name] = {
+            "shape": list(shape), "round_ms": round_ms, "whole_ms": whole,
+            "call_ms": wall, "eager_whole_ms": float(sum(eager.round_ms)),
+            "profiled_round_ms": pwall, "busy_ms": busy,
+            "idle_share": 1 - busy / pwall, "ops_per_round": ops,
+            "ops_vs_f32": ops - f32_ops}
+        print(f"{name}: steady ({shape[0]}, {shape[1]}) round of {S} seeds "
+              f"{round_ms:.3f} ms (median over {len(steady)} rounds); whole "
+              f"{CAMPAIGN_ROUNDS} rounds graphed {whole:.1f} ms (capture and "
+              f"evaluations included; call {wall:.1f} ms), eager "
+              f"{v['eager_whole_ms']:.1f} ms of rounds; profiled rounds "
+              f"{window[0]}-{window[-1]}: wall {pwall:.3f} ms a round, busy "
+              f"{busy:.3f} ms, idle share {v['idle_share']:.4f}, {ops:.1f} "
+              f"device operations a round ({ops - f32_ops:+.1f} against the "
+              f"f32 campaign's {f32_ops:.1f})")
+        if name == "kernel_bf16":
+            kl_keys = sorted({e.key[:90] for e in evts if "kl_" in e.key})
+            print(f"kernel_bf16: KL kernels in the profiled window: {kl_keys}")
+            for tx, ty in KL_PAIRS:
+                for key, base in (("fwd", "kl_rows_"), ("bwd", "kl_grad_")):
+                    hit = [e for e in evts if base in e.key
+                           and kl_pair_kernel(e.key, tx, ty)]
+                    n = sum(e.count for e in hit)
+                    out[(tx, ty, key)] = {
+                        "campaign_launches_per_round": n / len(window),
+                        "campaign_device_us_per_launch":
+                            sum(dev_us(e) for e in hit) / n if n else None}
+            # E steps of each phase: the client's (bf16 x, f32 y), the
+            # server's (f32 x, bf16 y), a forward and a backward each
+            check(all(out[(tx, ty, key)]["campaign_launches_per_round"]
+                      == shape[1] for tx, ty in KL_PAIRS[:2]
+                      for key in ("fwd", "bwd")),
+                  f"kernel_bf16 steady round KL launches "
+                  f"{[out[(tx, ty, k)] for tx, ty in KL_PAIRS[:2] for k in ('fwd', 'bwd')]} "
+                  f"!= E {shape[1]} each")
+        # the card against the CPU over the whole campaign
+        cpu_opts = dict(opts, policy=forced) if "policy" in opts else opts
+        cpu = camp.run_campaign(
+            "splitme", port.DNN10, sp, clients, test_data=test,
+            eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
+            device="cpu", **kw, **cpu_opts)
+        check(cpu.schedule.E.tolist() == res.schedule.E.tolist()
+              and bool((cpu.schedule.a == res.schedule.a).all()),
+              f"{name}: card and CPU schedules differ")
+        perr, lerr = campaign_max_diff(res, cpu)
+        acc_a, acc_b = res.accuracy_per_round, cpu.accuracy_per_round
+        evaluated = np.isfinite(acc_b).all(axis=1)
+        check(bool((np.isfinite(acc_a) == np.isfinite(acc_b)).all()),
+              f"{name}: card and CPU evaluate different rounds")
+        aerr = float(abs(acc_a[evaluated] - acc_b[evaluated]).max()) * n_test
+        v.update(card_cpu_param_diff=perr, card_cpu_loss_diff=lerr,
+                 card_cpu_acc_samples=aerr,
+                 final_accuracy=[float(a) for a in acc_a[-1]])
+        print(f"{name}: card (graphed) vs CPU, {S} seeds, {CAMPAIGN_ROUNDS} "
+              f"rounds: max param diff {perr:.3e}, loss {lerr:.3e} (tol "
+              f"{tol}); accuracy at rounds "
+              f"{np.nonzero(evaluated)[0].tolist()}, gamma {CMP_EVAL_GAMMA}: "
+              f"max diff {aerr:.0f} of {n_test} test samples (tol "
+              f"{CMP_ACC_SAMPLES_MIXED}); final {acc_a[-1].round(4).tolist()}"
+              f" vs {acc_b[-1].round(4).tolist()}")
+        check(perr <= tol and lerr <= tol,
+              f"{name}: campaign on the card and on the CPU disagree")
+        check(aerr <= CMP_ACC_SAMPLES_MIXED + 1e-6,
+              f"{name}: accuracy on the card and on the CPU disagree")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -699,6 +978,132 @@ def kl_phase(torch, port, normal):
           f"us/call (medians of {KL_HOST_BLOCKS} blocks of 50 calls, in "
           f"turns; spread {min(blocks['fwd']):.2f}-{max(blocks['fwd']):.2f} "
           f"and {min(blocks['old']):.2f}-{max(blocks['old']):.2f})")
+    return out
+
+
+# the mixed-dtype kl_mutual entries (the bf16 policy's client phase gives
+# bf16 x against f32 y, its server phase f32 x against bf16 y; bf16 against
+# bf16 has no caller): held against their plain versions at KL_SHAPES, and
+# at a width with d % 8 != 0, with x aligned and one element off (the
+# kernels' single-element loads); a bf16 gradient within one bf16 unit in
+# the last place of the plain version's (which rounds the same f32 value),
+# plus 2^-23 of its largest element for the f32 rounding of the closed form
+# in another order; timed at the bf16 campaign's steady launch, 32 clients
+# x 4 seeds x 32 rows of 256
+KL_PAIRS = (("bfloat16", "float32"), ("float32", "bfloat16"),
+            ("bfloat16", "bfloat16"))
+KL_MIXED_SHAPES = KL_SHAPES + [(100, 37)]
+KL_MIXED_TIME = (4096, 256)
+KL_TYPE = {"float32": ("f32", "float"), "bfloat16": ("bf16", "__nv_bfloat16")}
+
+
+def kl_pair_label(tx, ty):
+    return f"{KL_TYPE[tx][0]} x, {KL_TYPE[ty][0]} y"
+
+
+def kl_pair_kernel(key: str, tx, ty) -> bool:
+    """Whether the profiler's kernel name ``key`` is a KL kernel of the
+    pair (its template arguments end in the two element types)."""
+    return ("kl_rows_" in key or "kl_grad_" in key) and \
+        f"{KL_TYPE[tx][1]}, {KL_TYPE[ty][1]}>" in key
+
+
+def bf16_ulps(torch, got, want) -> float:
+    """The largest |got - want| in bf16 units in the last place at the
+    larger magnitude, after 2^-23 of max|want| (the f32 rounding)."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    slack = 2.0 ** -23 * want.abs().max()
+    return float(((got - want).abs() - slack).clamp(min=0).div(ulp).max())
+
+
+def kl_mixed_phase(torch, port, normal):
+    """Phase 2: the mixed-dtype KL entries against their plain versions;
+    per pair the forward's and the backward's errors, times and bounds."""
+    kl_ops = port.kl_ops
+    out = {}
+    for tx, ty in KL_PAIRS:
+        dx, dy = getattr(torch, tx), getattr(torch, ty)
+        label = kl_pair_label(tx, ty)
+        fwd_err = bwd_err = bwd_ulps = bwd_rel = 0.0
+        for rows, d in KL_MIXED_SHAPES:
+            for off in (0, 1):
+                x = normal(rows, d, scale=3.0).to(dx)
+                if off:
+                    buf = torch.empty(off + x.numel(), dtype=dx,
+                                      device=x.device)
+                    x = buf[off:].view(x.shape).copy_(x)
+                y = normal(rows, d, scale=3.0).to(dy)
+                kl_ops.launches_by_entry.clear()
+                err = (kl_ops.kl_rows(x, y, KL_T)
+                       - port.kl_rows_ref(x, y, KL_T)).abs().max().item()
+                g = torch.full((1,), 1.0 / 32, device=x.device).expand(rows)
+                got = kl_ops.kl_grad(x, y, g, KL_T)
+                want = port.kl_grad_ref(x, y, g, KL_T)
+                check(kl_ops.launches_by_entry == {
+                    kl_ops.entry("rows", x, y): 1,
+                    kl_ops.entry("grad", x, y): 1},
+                    f"kl_mutual ({label}) launched "
+                    f"{kl_ops.launches_by_entry}")
+                check(got.dtype == dx and bool(torch.isfinite(got).all()),
+                      f"kl_mutual backward ({label}) at ({rows}, {d})")
+                check(err <= KL_TOL, f"kl_mutual ({label}) disagrees at "
+                      f"({rows}, {d}), x offset {off}: {err}")
+                abs_err = (got.double() - want.double()).abs().max().item()
+                rel = abs_err / want.abs().max().item()
+                if dx == torch.bfloat16:
+                    u = bf16_ulps(torch, got, want)
+                    check(u <= 1.0, f"kl_mutual backward ({label}) at "
+                          f"({rows}, {d}), x offset {off}: {u:.2f} bf16 ulps")
+                    bwd_ulps = max(bwd_ulps, u)
+                else:
+                    check(rel <= KL_TOL, f"kl_mutual backward ({label}) at "
+                          f"({rows}, {d}), x offset {off}: {rel:.3e}")
+                fwd_err, bwd_err = max(fwd_err, err), max(bwd_err, abs_err)
+                bwd_rel = max(bwd_rel, rel)
+        print(f"kl_mutual ({label}) at {len(KL_MIXED_SHAPES)} shapes x 2 "
+              f"offsets: forward max |kernel - plain| = {fwd_err:.3e} (tol "
+              f"{KL_TOL}); backward max {bwd_err:.3e} ({bwd_rel:.3e} x "
+              f"max|grad|" + (f", {bwd_ulps:.2f} bf16 ulps beyond 2^-23 of "
+                              f"max|grad|, tol 1)" if dx == torch.bfloat16
+                              else f", tol {KL_TOL})"))
+        R, D = KL_MIXED_TIME
+        x = normal(R, D, scale=3.0).to(dx)
+        y = normal(R, D, scale=3.0).to(dy)
+        g = torch.full((1,), 1.0 / 32, device=x.device).expand(R)
+        sx, sy = x.element_size(), y.element_size()
+        for key, call, plain, nbytes, kernels in (
+                ("fwd", lambda: kl_ops.kl_rows(x, y, KL_T),
+                 lambda: port.kl_rows_ref(x, y, KL_T),
+                 R * D * (sx + sy) + 4 * R, ("kl_rows_",)),
+                ("bwd", lambda: kl_ops.kl_grad(x, y, g, KL_T),
+                 lambda: port.kl_grad_ref(x, y, g, KL_T),
+                 R * D * (2 * sx + sy) + 4 * R, ("kl_grad_",))):
+            ms = time_ms(torch, call)
+            dev, = device_ms(torch, [call], kernels)
+            plain_ms = time_ms(torch, plain)
+            plain_dev, plain_ops = profile_ops(torch, plain)
+            bytes_t = nbytes / PEAK_BYTES * 1e3
+            ops_t = 16 * R * D / PEAK_FP32 * 1e3
+            o = out[(tx, ty, key)] = {
+                "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                "plain_device_ms": plain_dev, "plain_device_ops": plain_ops,
+                "bound_ms": max(bytes_t, ops_t),
+                "bound_by": "bytes" if bytes_t >= ops_t else "operations",
+                "library_ms": None, "shape": [R, D],
+                "max_abs_err": fwd_err if key == "fwd" else bwd_err}
+            if key == "bwd":
+                o["max_rel_err"] = bwd_rel
+                if dx == torch.bfloat16:
+                    o["max_bf16_ulps"] = bwd_ulps
+            print(f"kl_mutual {'forward' if key == 'fwd' else 'backward'} "
+                  f"({label}) ({R}, {D}): {ms * 1e3:.2f} us/call (events), "
+                  f"device {dev and round(dev * 1e3, 3)} us, plain "
+                  f"{plain_ms * 1e3:.2f} us (events), device "
+                  f"{plain_dev * 1e3:.3f} us in {plain_ops:.1f} device "
+                  f"operations, bound {o['bound_ms'] * 1e3:.3f} us "
+                  f"({o['bound_by']}, {nbytes} bytes); library: none")
     return out
 
 
@@ -1453,7 +1858,7 @@ def import_port():
     from repro_torch import serve
     from repro_torch.configs.base import get_config
     from repro_torch.configs.splitme_dnn import DNN10
-    from repro_torch.core import dnn
+    from repro_torch.core import dnn, quantcomm
     from repro_torch.core.inversion import invert_inverse_model
     from repro_torch.core.cost import SystemParams
     from repro_torch.core.splitme import SplitMeTrainer
@@ -1507,10 +1912,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
           f"{port.build.last_build_seconds:.2f} s) -> {port.build.build()}")
     for src, log in sorted(port.build.last_build_log.items()):
-        for line in log.splitlines():
-            if ("registers" in line or "spill" in line
-                    or "entry function" in line):
-                print(f"  ptxas {src}: {line.strip()}")
+        for name, (n, regs, spill) in ptxas_summary(log).items():
+            print(f"  ptxas {src}: {name}: {n} instances, registers "
+                  f"{min(regs)}-{max(regs)}, spill stores up to {spill} "
+                  f"bytes")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1520,6 +1925,7 @@ def main() -> int:
     # -- 2. kernels vs plain versions ----------------------------------------
     phase("2. kernels vs plain versions")
     kl = kl_phase(torch, port, normal)
+    kl_mixed = kl_mixed_phase(torch, port, normal)
 
     n = 4800
     shapes = main_path_gram_shapes(port.DNN10, n)
@@ -1715,8 +2121,12 @@ def main() -> int:
 
     # -- 3b. SplitMe campaign ------------------------------------------------
     phase("3b. SplitMe campaign")
-    graphed = campaign_phase(torch, port, sp, clients, test)
+    graphed, f32_ops = campaign_phase(torch, port, sp, clients, test)
     torch.cuda.empty_cache()
+
+    # -- 3c. precision and wire formats --------------------------------------
+    phase("3c. precision and wire formats")
+    prec = precision_phase(torch, port, sp, clients, test, f32_ops)
 
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
@@ -1769,12 +2179,28 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/mamba2_scan.cu",
          "replaces": "src/repro/kernels/mamba2_scan/mamba2_scan.py:70",
          **ssd},
+        # the mixed-dtype entries of csrc/kl_mutual.cu; launches: the
+        # kernel_bf16 campaign's (phase 3c) counters, in-graph launches from
+        # its profiled steady rounds; bf16 x against bf16 y has no caller
+        *({"name": f"kl_mutual ({'backward, ' if key == 'bwd' else ''}"
+                   f"{kl_pair_label(tx, ty)})", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
+           "replaces": ("src/repro/kernels/kl_mutual/ops.py:33" if key == "bwd"
+                        else "src/repro/kernels/kl_mutual/kl_mutual.py:38"),
+           "launches": prec["launches"].get(
+               f"kl_mutual_{'grad' if key == 'bwd' else 'rows'}_"
+               f"{KL_TYPE[tx][0]}_{KL_TYPE[ty][0]}", 0),
+           **kl_mixed[(tx, ty, key)], **prec[(tx, ty, key)]}
+          for tx, ty in KL_PAIRS for key in ("fwd", "bwd")),
         *({"name": f"flash_attention ({route})", "route": "cuda",
            "source": FLASH_KERNELS[route][1],
            "replaces": "src/repro/kernels/flash_attention/flash_attention.py"
                        ":77",
            **flash[route]} for route in FLASH_KERNELS),
     ]
+    print("precision and wire formats (phase 3c): " + json.dumps(
+        prec["variants"]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

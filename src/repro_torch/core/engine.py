@@ -17,7 +17,10 @@ selection/allocation ``Policy``.  The engine owns the round:
 * the loss metric: the mean over all E_max steps, frozen tail included (the
   reference SplitMe metric), or with ``loss_over_mask`` over the executed
   steps only (the campaign's),
-* masked FedAvg over the selected set A_t, with |A_t| clamped to ≥ 1.
+* masked FedAvg over the selected set A_t, with |A_t| clamped to ≥ 1, its
+  payload (the numerators, |A_t| and the loss sums) in the spec's wire
+  format (``quantcomm``): int8 quantizes the numerators with error
+  feedback carried in ``qstate``, bf16 rounds the whole payload.
 
 ``build_round_fn(gather=True)`` trains only a gathered, padded client
 cohort, for one or more seeds at once: the seeds' stacked parameters are replicated onto their cohorts and the (seed, cohort) pairs
@@ -25,11 +28,16 @@ folded into the one client axis, so a kernel launch covers every seed.
 
 Randomness is an input: JAX's threefry streams cannot be reproduced, so the
 round takes the per-phase, per-client, per-step batch indices as an
-``(n_phases, M, E_max, B)`` int64 tensor.  Per-client gradients come from one
+``(n_phases, M, E_max, B)`` int64 tensor, and under int8 the stochastic
+rounding's uniforms as an f32 tensor.  Per-client gradients come from one
 backward of the sum of per-client losses (the clients are independent).
 
-Not ported in this slice (raise): the five baseline frameworks, wire
-quantization, scenarios and fault guards, and the sharded round.
+The spec's kernel policy carries the precision: under bf16 the client
+dataset is cast once, when the round is built, and the forwards run mixed
+(``dnn.mlp_forward``).
+
+Not ported in this slice (raise): the five baseline frameworks, scenarios
+and fault guards, and the sharded round.
 """
 from __future__ import annotations
 
@@ -41,10 +49,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.splitme_dnn import DNNConfig
-from repro_torch.core import dnn
+from repro_torch.core import dnn, quantcomm
 from repro_torch.core.allocation import solve_p2
 from repro_torch.core.cost import SystemParams
 from repro_torch.core.inversion import invert_inverse_model
+from repro_torch.core.quantcomm import CommQuant
 from repro_torch.core.selection import (SelectionState, initial_state,
                                         select_trainers, update_state)
 from repro_torch.kernels import dispatch
@@ -58,11 +67,6 @@ _LATER_FRAMEWORKS = ("fedavg", "sfl", "oranfed", "fedora", "ecofl")
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"later slice: {what} is not ported yet")
-
-
-def _check_quant(quant) -> None:
-    if quant not in (None, "none"):
-        raise _later(f"wire format {quant!r}")
 
 
 @dataclass
@@ -127,7 +131,11 @@ class FrameworkSpec:
     phases: Tuple[PhaseSpec, ...]
     comm_model: Callable[[np.ndarray, int, SystemParams], float]
     batch_size: int
+    # the RESOLVED kernel policy (and precision) the phase losses were
+    # built with
     policy: KernelPolicy = dispatch.KERNEL
+    # the wire format of the masked-FedAvg payload
+    quant: CommQuant = quantcomm.NONE
 
 
 def replicate(params: Params, m: int) -> Params:
@@ -184,8 +192,31 @@ def _step_mask(e_max: int, e_steps, device) -> torch.Tensor:
     return (torch.arange(e_max, device=device) < e_steps).float()
 
 
+def _aggregate(spec: FrameworkSpec, params: ParamsTuple, weighted, msum,
+               loss_sums, qstate, uniforms, lead: int):
+    """The masked-FedAvg payload through the spec's wire format, in the
+    reference's order: int8 quantizes the numerators ``weighted`` ({param
+    index: layers}) with error feedback, bf16 rounds (weighted, |A_t|, the
+    loss sums); then |A_t| is clamped to ≥ 1 and divides.  ``lead``: 1 for
+    seed-stacked payloads (a scale and a residual per seed).  Returns (new
+    params, losses, new qstate)."""
+    quant = spec.quant
+    if quant.stochastic:
+        weighted, qstate = quantcomm.fake_quant_int8(weighted, qstate,
+                                                     uniforms, quant, lead)
+    elif quant.mode == "bf16":
+        weighted, msum, loss_sums = quantcomm.simulate_cast(
+            (weighted, msum, loss_sums), torch.bfloat16)
+    wsum = msum.clamp(min=1.0)
+    new_params = tuple(
+        [{k: v / wsum for k, v in p.items()} for p in weighted[i]]
+        if i in weighted else params[i] for i in range(len(params)))
+    return new_params, tuple(s / wsum for s in loss_sums), qstate
+
+
 def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
-                a_mask: torch.Tensor, e_steps: int, idx: torch.Tensor):
+                a_mask: torch.Tensor, e_steps: int, idx: torch.Tensor,
+                qstate=(), uniforms=None):
     """One masked round over the full client axis."""
     m, e_max = ctx["x"].shape[0], idx.shape[2]
     do = _step_mask(e_max, e_steps, ctx["x"].device)
@@ -199,24 +230,23 @@ def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
         updated[ph.param_idx] = w_new
         phase_losses.append(loss_m)
     # masked FedAvg numerators, |A_t| and the loss sums
-    msum = a_mask.sum()
-    wsum = msum.clamp(min=1.0)
-    new_params = tuple(
-        [{k: torch.tensordot(a_mask, v, dims=1) / wsum for k, v in p.items()}
-         for p in updated[i]] if i in updated else params[i]
-        for i in range(len(params)))
-    losses = tuple((l * a_mask).sum() / wsum for l in phase_losses)
-    return new_params, losses
+    weighted = {i: [{k: torch.tensordot(a_mask, v, dims=1)
+                     for k, v in p.items()} for p in u]
+                for i, u in updated.items()}
+    loss_sums = tuple((l * a_mask).sum() for l in phase_losses)
+    return _aggregate(spec, params, weighted, a_mask.sum(), loss_sums, qstate,
+                      uniforms, 0)
 
 
 def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps,
-                   idx: torch.Tensor):
+                   idx: torch.Tensor, qstate=(), uniforms=None):
     """One masked round over the gathered cohort ``sel_idx`` (kb,) of every
     seed: ``params`` leaves are seed-stacked (S, ...), ``idx`` is the
     full-M draw (S, n_phases, M, e_max, B).  The (seed, slot) pairs form
-    one client axis of S·kb, seed-major; masked FedAvg and the loss sums
-    run per seed."""
+    one client axis of S·kb, seed-major; masked FedAvg, the loss sums and
+    the wire format run per seed (an int8 scale and residual per seed, as
+    the reference's round vmapped over seeds quantizes)."""
     S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
     kb = sel_idx.shape[0]
     folded_sel = sel_idx.repeat(S)                      # client of each slot
@@ -235,14 +265,13 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                                     tgt, do, cohort_idx[pi], e_max)
         updated[ph.param_idx] = w_new
         phase_losses.append(loss_c.reshape(S, kb))
-    wsum = sel_mask.sum().clamp(min=1.0)
-    new_params = tuple(
-        [{k: (sel_mask @ v.reshape(S, kb, -1)).reshape(S, *v.shape[1:])
-          / wsum for k, v in p.items()} for p in updated[i]]
-        if i in updated else params[i]
-        for i in range(len(params)))
-    losses = tuple((l * sel_mask).sum(1) / wsum for l in phase_losses)
-    return new_params, losses
+    weighted = {i: [{k: (sel_mask @ v.reshape(S, kb, -1))
+                     .reshape(S, *v.shape[1:]) for k, v in p.items()}
+                    for p in u]
+                for i, u in updated.items()}
+    loss_sums = tuple((l * sel_mask).sum(1) for l in phase_losses)
+    return _aggregate(spec, params, weighted, sel_mask.sum(), loss_sums,
+                      qstate, uniforms, 1)
 
 
 def _check_on(device, **tensors) -> None:
@@ -257,32 +286,45 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
                    policy: PolicyLike = None,
                    guards=None, with_faults: bool = False):
     """One federated round for `spec` over the fixed client dataset
-    ``x`` (M, n, d) f32 and ``y`` (M, n) int labels, on their device.
+    ``x`` (M, n, d) and ``y`` (M, n) int labels, on their device.
 
-    Returns ``round_fn(params_tuple, a_mask, e_steps, idx) ->
-    (params_tuple, per_phase_losses)``: ``a_mask`` (M,) f32 selection,
-    ``e_steps`` the int count of executed local steps (≤ ``e_max``, the
-    number of steps run), ``idx`` the (n_phases, M, e_max, B) int64 batch
-    indices.  The policy is the one bound into the spec.
+    Returns ``round_fn(params_tuple, a_mask, e_steps, idx, qstate=(),
+    uniforms=None) -> (params_tuple, per_phase_losses, qstate)``: ``a_mask``
+    (M,) f32 selection, ``e_steps`` the int count of executed local steps
+    (≤ ``e_max``, the number of steps run), ``idx`` the (n_phases, M,
+    e_max, B) int64 batch indices.  ``qstate`` is the wire format's
+    error-feedback state (``init_quant_state``; ``()`` when it has none)
+    and ``uniforms`` the int8 rounding's f32 draws in [0, 1)
+    (``quant_uniforms``; None unless the spec's wire format is int8).  The
+    policy, its precision and the wire format are the ones bound into the
+    spec: ``x`` is f32, or already in the compute dtype of a mixed policy,
+    and an f32 ``x`` is cast to it here, once.
 
     ``gather=True`` returns ``round_fn(params, sel_idx, sel_mask, e_steps,
-    idx)`` over S seeds at once: the params' leaves are seed-stacked
-    (S, ...), ``idx`` is the full-M draw (S, n_phases, M, e_max, B), and
-    the losses are (S,).  Only the cohort ``sel_idx`` (kb,) int64, shared
-    by the seeds, is trained (pads index client 0 and carry ``sel_mask``
-    0); ``idx`` is gathered by ``sel_idx``, and ``e_steps`` may be a 0-d
-    tensor on the data's device (a CUDA graph's operand): every one of the
-    e_max steps runs its backward and the masked update.  The gathered
-    round checks no index values (that would wait on the card); its
-    callers check them on the host."""
+    idx, qstate=(), uniforms=None)`` over S seeds at once: the params'
+    leaves are seed-stacked (S, ...), ``idx`` is the full-M draw (S,
+    n_phases, M, e_max, B), the losses are (S,), the qstate leaves and the
+    uniforms have the leading S too (an int8 scale per seed).  Only the
+    cohort ``sel_idx`` (kb,) int64, shared by the seeds, is trained (pads
+    index client 0 and carry ``sel_mask`` 0); ``idx`` is gathered by
+    ``sel_idx``, and ``e_steps`` may be a 0-d tensor on the data's device (a
+    CUDA graph's operand): every one of the e_max steps runs its backward
+    and the masked update.  The gathered round checks no index values
+    (that would wait on the card); its callers check them on the host."""
     if guards is not None or with_faults:
         raise _later("fault guards")
-    if policy is not None and dispatch.get_policy(policy) != spec.policy:
+    if policy is not None and (dispatch.get_policy(policy).resolved(x.device)
+                               != spec.policy):
         raise ValueError("round builders cannot override the spec-bound "
                          f"kernel policy (spec has {spec.policy}); rebuild "
                          "via make_spec(..., policy=...)")
-    if x.dtype != torch.float32:
-        raise TypeError(f"client data must be float32, got {x.dtype}")
+    prec = spec.policy.precision
+    if x.dtype != torch.float32 and not (prec.is_mixed
+                                         and x.dtype == prec.compute_dtype):
+        raise TypeError(f"client data must be float32 (or {prec.compute} "
+                        f"under a mixed policy), got {x.dtype}")
+    if prec.is_mixed:
+        x = x.to(prec.compute_dtype)      # once a campaign, not a batch
     M = x.shape[0]
     y = y.long()
     ctx = {"x": x, "y": y, "y1": F.one_hot(y, cfg.n_classes).float()}
@@ -294,28 +336,81 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
             raise ValueError(f"batch indices must be int64 {lead + idx_shape}"
                              f", got {idx.dtype} {tuple(idx.shape)}")
 
+    def check_quant(params, qstate, uniforms, lead):
+        if spec.quant.stochastic:
+            want = lead + (quantcomm.n_elements(
+                trained_params(spec, params), len(lead)),)
+            if uniforms is None or tuple(uniforms.shape) != want \
+                    or uniforms.dtype != torch.float32:
+                raise ValueError(f"int8 rounds need f32 uniforms {want}")
+            _check_on(x.device, uniforms=uniforms)
+        elif uniforms is not None:
+            raise ValueError(f"uniforms given to a {spec.quant.mode!r} round")
+        if spec.quant.stateful != (qstate != ()):
+            raise ValueError("qstate must come from init_quant_state(spec)")
+
     if gather:
-        def round_fn(params: ParamsTuple, sel_idx, sel_mask, e_steps, idx):
+        def round_fn(params: ParamsTuple, sel_idx, sel_mask, e_steps, idx,
+                     qstate=(), uniforms=None):
             check_idx(idx, tuple(idx.shape[:1]))
             if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 \
                     or tuple(sel_mask.shape) != tuple(sel_idx.shape):
                 raise ValueError("sel_idx must be int64 (kb,) and sel_mask "
                                  "(kb,)")
             _check_on(x.device, idx=idx, sel_idx=sel_idx, sel_mask=sel_mask)
+            check_quant(params, qstate, uniforms, tuple(idx.shape[:1]))
             with torch.no_grad():
                 return _gathered_core(spec, runners, params, ctx, sel_idx,
-                                      sel_mask, e_steps, idx)
+                                      sel_mask, e_steps, idx, qstate,
+                                      uniforms)
 
         return round_fn
 
-    def round_fn(params: ParamsTuple, a_mask, e_steps: int, idx):
+    def round_fn(params: ParamsTuple, a_mask, e_steps: int, idx, qstate=(),
+                 uniforms=None):
         check_idx(idx)
         _check_on(x.device, idx=idx, a_mask=a_mask)
+        check_quant(params, qstate, uniforms, ())
         with torch.no_grad():
             return _round_core(spec, runners, params, ctx, a_mask,
-                               int(e_steps), idx)
+                               int(e_steps), idx, qstate, uniforms)
 
     return round_fn
+
+
+def trained_params(spec: FrameworkSpec, params: ParamsTuple) -> dict:
+    """The trained part of ``params`` ({param index: layers}): the shape of
+    the aggregation payload, its error-feedback state and its uniforms."""
+    return {ph.param_idx: params[ph.param_idx] for ph in spec.phases}
+
+
+def init_quant_state(spec: FrameworkSpec, params: ParamsTuple):
+    """Fresh error-feedback accumulator for ``spec``'s rounds: zeros shaped
+    like each trained param index (seed-stacked params give the per-seed
+    state); ``()`` when the wire format carries no state."""
+    if not spec.quant.stateful:
+        return ()
+    return quantcomm.tree_map(torch.zeros_like, trained_params(spec, params))
+
+
+# offset of the int8 uniforms' generator seed from a run's seed (the
+# reference's quantization salt), so the batch and uniform streams differ
+UNIFORM_SEED_OFFSET = 0x5157 << 32
+
+
+def uniform_generator(seed: int) -> torch.Generator:
+    """The CPU generator of a run's int8 uniforms, seeded from ``seed``
+    apart from the run's batch-index generator."""
+    return torch.Generator().manual_seed(UNIFORM_SEED_OFFSET + int(seed))
+
+
+def quant_uniforms(spec: FrameworkSpec, params: ParamsTuple,
+                   generator: torch.Generator) -> torch.Tensor:
+    """One round's int8 uniforms for one seed's ``params``, drawn from a
+    CPU ``generator``: f32 in [0, 1), flat over the payload's leaves in
+    ``quantcomm.tree_leaves`` order."""
+    n = quantcomm.n_elements(trained_params(spec, params))
+    return torch.rand(n, generator=generator)
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +449,10 @@ def make_policy(name: str, sp: SystemParams, cfg: DNNConfig, *,
     """Copy `sp`, apply the framework's parameter derivation to the copy,
     and build its selection/allocation policy.  SplitMe seeds Alg. 1's
     pessimistic t_max^0 from the caller's generic S_m/omega BEFORE deriving
-    the real sizes, as the reference does."""
-    _check_quant(quant)
+    the real sizes, as the reference does.  ``quant`` scales every wire
+    payload of the copy (S_m, d_model_bits) by ``wire_bits / 32`` before
+    that, so Alg. 1, P2 and the comm / latency / cost models all see the
+    narrower format (and may admit more clients)."""
     if name in _LATER_FRAMEWORKS:
         raise _later(f"framework {name!r}")
     if name != "splitme":
@@ -363,8 +460,13 @@ def make_policy(name: str, sp: SystemParams, cfg: DNNConfig, *,
     if n_samples_per_client is None:
         raise ValueError("splitme needs n_samples_per_client for S_m")
     sp = sp.copy()
+    q = quantcomm.get_quant(quant)
+    if q.mode != "none":
+        sp.S_m = sp.S_m * q.wire_scale
+        sp.d_model_bits = sp.d_model_bits * q.wire_scale
     state = initial_state(sp)
-    _derive_splitme(sp, cfg, n_samples_per_client)
+    _derive_splitme(sp, cfg, n_samples_per_client,
+                    wire_bits=float(q.wire_bits))
     return sp, SplitMeAdaptivePolicy(sp, state, e_initial)
 
 
@@ -381,7 +483,8 @@ def _as_float(x: np.ndarray):
 def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
                   temperature: float = 2.0, batch_size: int = 32,
                   masked_loss_metric: bool = False,
-                  policy: KernelPolicy = dispatch.KERNEL) -> FrameworkSpec:
+                  policy: KernelPolicy = dispatch.KERNEL,
+                  quant: CommQuant = quantcomm.NONE) -> FrameworkSpec:
     """SplitMe spec.  Both mutual-KL phase losses go through
     ``dispatch.kl_loss`` (the CUDA kernel on the card): with temperature 2
     the client phase's "logits" are the post-ReLU smashed activations and
@@ -389,27 +492,32 @@ def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
     ``masked_loss_metric=False`` keeps the seed trainer's loss metric (the
     mean over all E_max steps); ``True`` averages over the executed steps
     only, which lets the campaign run exactly its E bucket's steps.  The
-    trained parameters are the same either way."""
+    trained parameters are the same either way.  The policy's precision
+    casts the forwards (under bf16 the smashed data are bf16, the inverse
+    model's outputs f32, so the KL kernels take mixed operands)."""
     tau, pol = temperature, policy
+    prec = pol.precision
 
     def client_step(w, x_b, t_b):
         # f_C = D_KL(c(X) ‖ sg[s⁻¹(Y)])  (eq. 5, client side)
-        feat = dnn.client_forward(w, x_b, cfg)
+        feat = dnn.client_forward(w, x_b, cfg, precision=prec)
         return dispatch.kl_loss(feat, t_b, temperature=tau, policy=pol)
 
     def server_step(w, y1_b, t_b):
         # f_S = D_KL(s⁻¹(Y) ‖ sg[c(X)])  (eq. 5, server side)
-        inv = dnn.inverse_server_forward(w, y1_b, cfg)
+        inv = dnn.inverse_server_forward(w, y1_b, cfg, precision=prec)
         return dispatch.kl_loss(inv, t_b, temperature=tau, policy=pol)
 
     def client_targets(params, updated, ctx):
         # Step 1: s⁻¹(Y_m) from the GLOBAL inverse model on each client's
         # full one-hot labels — fixed targets for the round
-        return dnn.inverse_server_forward(params[1], ctx["y1"], cfg)
+        return dnn.inverse_server_forward(params[1], ctx["y1"], cfg,
+                                          precision=prec)
 
     def server_targets(params, updated, ctx):
         # Step 3: c(X_m) from each client's UPDATED weights on its full data
-        return dnn.client_forward(updated[0], ctx["x"], cfg).detach()
+        return dnn.client_forward(updated[0], ctx["x"], cfg,
+                                  precision=prec).detach()
 
     def init(generator, device):
         return (dnn.init_client(generator, cfg, device),
@@ -427,7 +535,7 @@ def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
             PhaseSpec("server", 1, lr_s, server_step, "y1", server_targets,
                       loss_over_mask=masked_loss_metric),
         ),
-        comm_model=comm, batch_size=batch_size, policy=pol)
+        comm_model=comm, batch_size=batch_size, policy=pol, quant=quant)
 
 
 def framework_names() -> Tuple[str, ...]:
@@ -435,16 +543,22 @@ def framework_names() -> Tuple[str, ...]:
 
 
 def make_spec(name: str, cfg: DNNConfig, *, policy: PolicyLike = None,
-              quant=None, **hyper) -> FrameworkSpec:
+              quant: quantcomm.QuantLike = None, device=None,
+              **hyper) -> FrameworkSpec:
     """Build a framework spec; ``policy`` (None / preset name /
-    ``KernelPolicy``) selects kernels for the phase losses and is bound into
-    the spec."""
-    _check_quant(quant)
+    ``KernelPolicy``) selects kernels and precision for the phase losses,
+    ``quant`` (None / "none" / "bf16" / "int8" / ``CommQuant``) the wire
+    format of the aggregation payload; both are bound into the spec.  A
+    precision request (``"kernel_bf16"``) is resolved for ``device``, the
+    device the spec's rounds will run on (None: the default device, the
+    card where there is one).  Pass the same ``quant`` to ``make_policy``."""
     if name in _LATER_FRAMEWORKS:
         raise _later(f"framework {name!r}")
     if name != "splitme":
         raise KeyError(f"unknown framework {name!r}; have {framework_names()}")
-    return _make_splitme(cfg, policy=dispatch.get_policy(policy), **hyper)
+    return _make_splitme(cfg,
+                         policy=dispatch.get_policy(policy).resolved(device),
+                         quant=quantcomm.get_quant(quant), **hyper)
 
 
 # ---------------------------------------------------------------------------
@@ -456,13 +570,17 @@ def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
                   gamma: float = 1e-3, policy: PolicyLike = None):
     """Build ``accuracy(params_tuple) -> 0-d tensor`` for the SplitMe spec:
     Step-4 analytic inversion over all client samples (the Gram products
-    through the ridge_gram kernel), then the stitched forward pass."""
+    through the ridge_gram kernel), then the stitched forward pass.  The
+    forwards run in the policy's precision; the Grams, the ridge solve and
+    the accuracy stay f32."""
     if spec.name != "splitme":
         raise _later(f"evaluation of {spec.name!r}")
     if client_data is None:
         raise ValueError("splitme evaluation needs client_data for the "
                          "Step-4 Gram sums")
-    pol = dispatch.get_policy(policy if policy is not None else spec.policy)
+    pol = dispatch.get_policy(policy if policy is not None else spec.policy
+                              ).resolved(client_data["x"].device)
+    prec = pol.precision
     x = client_data["x"]
     flat_y = F.one_hot(client_data["y"].long(), cfg.n_classes).float()
     flat_y = flat_y.reshape(-1, cfg.n_classes)
@@ -471,11 +589,11 @@ def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
     def accuracy(params: ParamsTuple) -> torch.Tensor:
         w_c, w_s_inv = params
         with torch.no_grad():
-            smashed = dnn.client_forward(w_c, x, cfg)
+            smashed = dnn.client_forward(w_c, x, cfg, precision=prec)
             w_s = invert_inverse_model(
                 w_s_inv, smashed.reshape(-1, smashed.shape[-1]), flat_y, cfg,
                 gamma=gamma, policy=pol)
-            logits = dnn.full_forward(w_c, w_s, x_test, cfg)
+            logits = dnn.full_forward(w_c, w_s, x_test, cfg, precision=prec)
             return (logits.argmax(-1) == y_test).float().mean()
 
     return accuracy

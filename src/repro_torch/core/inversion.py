@@ -9,7 +9,9 @@ where O_l is the input of layer l (starting from the smashed data c(X_m)) and
 Z_l is the matching-depth activation of the trained inverse model s⁻¹ fed
 with the labels.  The Gram products go through the kernel dispatch layer
 (the CUDA ridge_gram kernel on the card); the ridge solve is an f32 LU
-solve (``torch.linalg.solve_ex``).
+solve (``torch.linalg.solve_ex``).  Smashed data in bf16 (the mixed
+policy) are widened to f32 where they meet f32: in the Grams and in the
+first layer's ``o @ w + b`` (bf16 × f32 promotes to f32 in the reference).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ def invert_inverse_model(inverse_params: List[dict],
                          policy: PolicyLike = None) -> List[dict]:
     """Recover the server-side model s(·) from the trained s⁻¹(·).
 
-    smashed: c(X) for all client samples, (n, d_split).
+    smashed: c(X) for all client samples, (n, d_split), f32 or bf16.
     labels_onehot: (n, n_classes).
     ``policy`` picks the Gram path, e.g. ``KernelPolicy(ridge_gram=False)``.
     """
@@ -65,7 +67,7 @@ def invert_inverse_model(inverse_params: List[dict],
         w_aug = torch.linalg.solve_ex(a0 + gamma * eye, a1).result
         w, b = w_aug[:-1], w_aug[-1]
         server_params.append({"w": w, "b": b})
-        o = o @ w + b
+        o = o.float() @ w + b
         if l < len(targets) - 1:
             o = act(o)
     return server_params

@@ -14,7 +14,14 @@ The round itself lives in ``repro_torch.core.engine``.  Randomness comes
 from one CPU ``torch.Generator`` seeded with ``seed``: it draws the initial
 weights (unless ``params=`` passes them in) and every round's batch indices
 (unless ``index_source`` supplies them), so one seed gives one run on any
-device.
+device.  The int8 wire format's uniforms come from a second generator of
+their own, seeded from ``seed`` too (unless ``uniform_source`` supplies
+them), so every other wire format draws exactly the same batches.
+
+``kernel_policy`` (a preset name or a ``KernelPolicy``; ``"kernel_bf16"``
+is bf16 on the card, f32 on the CPU) and ``comm_quant`` (``"none"`` /
+``"bf16"`` / ``"int8"``) are bound into the trainer's spec; the int8
+error-feedback state is carried from round to round.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from repro_torch.device import DeviceLike, resolve_device
 __all__ = ["RoundMetrics", "SplitMeTrainer"]
 
 IndexSource = Callable[[int], torch.Tensor]
+UniformSource = Callable[[int], torch.Tensor]
 
 
 def _to_device(params, device: torch.device):
@@ -49,7 +57,8 @@ class SplitMeTrainer:
     ``device`` defaults to the card and raises where there is none.
     ``params`` optionally gives the initial ``(w_c, w_s_inv)``.
     ``index_source(round) -> (2, M, E_max, batch_size)`` int64 optionally
-    gives each round's batch indices."""
+    gives each round's batch indices, ``uniform_source(round) -> (U,)`` f32
+    the int8 uniforms (``engine.quant_uniforms``'s layout)."""
 
     def __init__(self, cfg: DNNConfig, sp: SystemParams,
                  client_data: Dict[str, np.ndarray],
@@ -60,7 +69,8 @@ class SplitMeTrainer:
                  kernel_policy=None, comm_quant=None, scenario=None,
                  *, device: DeviceLike = None,
                  params: Optional[Tuple[List[dict], List[dict]]] = None,
-                 index_source: Optional[IndexSource] = None):
+                 index_source: Optional[IndexSource] = None,
+                 uniform_source: Optional[UniformSource] = None):
         if not lr_c > lr_s:
             raise ValueError("Corollary 3: η_C > η_S (B_1 < B_2)")
         if scenario is not None:
@@ -84,12 +94,17 @@ class SplitMeTrainer:
             n_samples_per_client=int(self.x.shape[1]), quant=comm_quant)
         self._spec = engine.make_spec(
             "splitme", cfg, lr_c=lr_c, lr_s=lr_s, temperature=temperature,
-            batch_size=batch_size, policy=kernel_policy, quant=comm_quant)
+            batch_size=batch_size, policy=kernel_policy, quant=comm_quant,
+            device=dev)
         self.generator = torch.Generator().manual_seed(seed)
         if params is None:
             params = self._spec.init_fn(self.generator, dev)
         self.w_c, self.w_s_inv = (_to_device(p, dev) for p in params)
         self._index_source = index_source or self._draw_indices
+        self._uniform_gen = engine.uniform_generator(seed)
+        self._uniform_source = uniform_source or self._draw_uniforms
+        self._qstate = engine.init_quant_state(self._spec,
+                                               (self.w_c, self.w_s_inv))
         self.E = e_initial
         self.history: List[RoundMetrics] = []
         self._round = 0
@@ -106,6 +121,11 @@ class SplitMeTrainer:
                  self._spec.batch_size)
         return torch.randint(0, n, shape, generator=self.generator)
 
+    def _draw_uniforms(self, round_idx: int) -> torch.Tensor:
+        """This round's int8 uniforms from the trainer's second generator."""
+        return engine.quant_uniforms(self._spec, (self.w_c, self.w_s_inv),
+                                     self._uniform_gen)
+
     # ------------------------------------------------------------------
     def run_round(self, eval_acc: bool = False) -> RoundMetrics:
         sp = self.sp
@@ -117,8 +137,13 @@ class SplitMeTrainer:
             raise ValueError(f"batch indices must lie in [0, {n})")
         idx = idx.to(self.device)
         a_mask = torch.as_tensor(a, dtype=torch.float32, device=self.device)
-        (self.w_c, self.w_s_inv), (closs, sloss) = self._round_fn(
-            (self.w_c, self.w_s_inv), a_mask, self.E, idx)
+        uniforms = None
+        if self._spec.quant.stochastic:
+            uniforms = torch.as_tensor(self._uniform_source(self._round),
+                                       dtype=torch.float32).to(self.device)
+        (self.w_c, self.w_s_inv), (closs, sloss), self._qstate = \
+            self._round_fn((self.w_c, self.w_s_inv), a_mask, self.E, idx,
+                           self._qstate, uniforms)
         m = RoundMetrics(
             round=self._round, n_selected=int(a.sum()), E=self.E,
             comm_bits=self._spec.comm_model(a, self.E, sp),
@@ -140,10 +165,12 @@ class SplitMeTrainer:
     # ------------------------------------------------------------------
     def finalize(self) -> List[dict]:
         """Step 4: analytic inversion using all clients' smashed data; the
-        Gram products follow the trainer's kernel policy."""
+        Gram products and the precision follow the trainer's kernel
+        policy."""
         cfg = self.cfg
         with torch.no_grad():
-            smashed = dnn.client_forward(self.w_c, self.x, cfg)
+            smashed = dnn.client_forward(self.w_c, self.x, cfg,
+                                         precision=self._spec.policy.precision)
             y1 = torch.nn.functional.one_hot(self.y, cfg.n_classes).float()
             return invert_inverse_model(
                 self.w_s_inv, smashed.reshape(-1, smashed.shape[-1]),
@@ -153,8 +180,9 @@ class SplitMeTrainer:
     def evaluate(self, w_server: Optional[List[dict]] = None) -> float:
         if w_server is not None:
             with torch.no_grad():
-                logits = dnn.full_forward(self.w_c, w_server, self.x_test,
-                                          self.cfg)
+                logits = dnn.full_forward(
+                    self.w_c, w_server, self.x_test, self.cfg,
+                    precision=self._spec.policy.precision)
                 return float((logits.argmax(-1) == self.y_test)
                              .float().mean())
         return float(self._eval_fn((self.w_c, self.w_s_inv)))

@@ -17,13 +17,22 @@ The JAX package reaches its WKV and SSD kernels through the mixers'
 ``rwkv6_wkv`` / ``mamba2_scan`` bits.  Both branches compute the same
 function.
 
-Presets: ``"reference"`` (plain ops, f32) and ``"kernel"`` (kernels, f32).
-``"kernel_bf16"`` and the ``BF16`` precision belong to a later slice of the
-port and raise ``NotImplementedError``.  ``None`` resolves to ``"kernel"``.
+The ``Precision`` rides on the policy: ``compute`` is the dtype of the
+forwards' matmul inputs and activations (bf16 under ``BF16``), ``accum``
+the dtype of their products' accumulation, of the bias add and of every
+loss reduction (f32); master parameters stay f32.
+
+Presets: ``"reference"`` (plain ops, f32), ``"kernel"`` (kernels, f32) and
+``"kernel_bf16"`` (kernels, a bf16 REQUEST: applied where the run's device
+is a CUDA card, resolved to f32 on the CPU, where the casts buy nothing;
+twin of the reference's ``mixed_precision_supported``).  The request is
+resolved where the device is known (``resolved(device)``, called by
+``engine.make_spec``); ``KernelPolicy(precision=BF16)`` forces bf16 on any
+device.  ``None`` resolves to ``"kernel"``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Union
 
 import torch
@@ -46,6 +55,14 @@ class Precision:
     accum: str = "float32"
 
     @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute)
+
+    @property
+    def accum_dtype(self) -> torch.dtype:
+        return getattr(torch, self.accum)
+
+    @property
     def is_mixed(self) -> bool:
         return self.compute != self.accum
 
@@ -54,27 +71,45 @@ F32 = Precision()
 BF16 = Precision(compute="bfloat16", accum="float32")
 
 
+def mixed_precision_supported(device=None) -> bool:
+    """Whether a bf16 request applies: on a CUDA device (its tensor cores
+    take bf16 products), not on the CPU.  ``None`` asks about the default
+    device of the port's entry points, the card where there is one."""
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
 @dataclass(frozen=True)
 class KernelPolicy:
-    """Per-op kernel bits + precision (f32 only in this slice)."""
+    """Per-op kernel bits + precision.  ``auto_precision`` marks the
+    precision as a request that ``resolved`` drops to f32 where mixed
+    precision does not apply."""
     kl_mutual: bool = True
     ridge_gram: bool = True
     rwkv6_wkv: bool = True
     mamba2_scan: bool = True
     precision: Precision = F32
+    auto_precision: bool = False
 
-    def __post_init__(self):
-        if self.precision.is_mixed:
-            raise NotImplementedError(
-                "later slice: mixed (bf16) precision is not ported yet")
+    def resolved(self, device=None) -> "KernelPolicy":
+        """The policy with its precision request settled for ``device``."""
+        if not self.auto_precision:
+            return self
+        prec = (self.precision if mixed_precision_supported(device)
+                else F32)
+        return replace(self, precision=prec, auto_precision=False)
 
 
 REFERENCE = KernelPolicy(kl_mutual=False, ridge_gram=False, rwkv6_wkv=False,
                          mamba2_scan=False)
 KERNEL = KernelPolicy()
+# the preset REQUESTS bf16: applied on a card, f32 on the CPU.  Construct
+# KernelPolicy(precision=BF16) to force bf16 anywhere (the parity tests do)
+KERNEL_BF16 = KernelPolicy(precision=BF16, auto_precision=True)
 
-_NAMED = {"reference": REFERENCE, "kernel": KERNEL}
-_LATER = ("kernel_bf16",)
+_NAMED = {"reference": REFERENCE, "kernel": KERNEL,
+          "kernel_bf16": KERNEL_BF16}
 
 PolicyLike = Union[None, str, KernelPolicy]
 
@@ -84,13 +119,11 @@ def policy_names() -> tuple:
 
 
 def get_policy(policy: PolicyLike = None) -> KernelPolicy:
-    """Normalize ``None`` / preset name / ``KernelPolicy``."""
+    """Normalize ``None`` / preset name / ``KernelPolicy`` (a precision
+    request stays unresolved: see ``KernelPolicy.resolved``)."""
     if policy is None:
         return KERNEL
     if isinstance(policy, str):
-        if policy in _LATER:
-            raise NotImplementedError(
-                f"later slice: policy {policy!r} is not ported yet")
         try:
             return _NAMED[policy]
         except KeyError:
@@ -104,8 +137,9 @@ def kl_loss(x_feat: torch.Tensor, y_feat: torch.Tensor, *,
             policy: PolicyLike = None) -> torch.Tensor:
     """Mean over the rows (axis -2) of D_KL(x ‖ y), y = stop-gradient
     target (the paper's eq. 5 order).  ``x_feat``/``y_feat`` are
-    ``(..., rows, d)``; a stacked ``(M, B, d)`` cohort gives the ``(M,)``
-    per-client losses from ONE kernel launch over all M·B rows."""
+    ``(..., rows, d)``, each f32 or bf16 (computed in f32, the gradient in
+    x's dtype); a stacked ``(M, B, d)`` cohort gives the ``(M,)`` per-client
+    losses from ONE kernel launch over all M·B rows."""
     pol = get_policy(policy)
     y = y_feat.detach()
     if pol.kl_mutual:
@@ -120,7 +154,8 @@ def kl_loss(x_feat: torch.Tensor, y_feat: torch.Tensor, *,
 
 def gram(x: torch.Tensor, y: torch.Tensor, *,
          policy: PolicyLike = None) -> torch.Tensor:
-    """G = XᵀY with f32 accumulation (x: (n, d1), y: (n, d2))."""
+    """G = XᵀY with f32 accumulation (x: (n, d1), y: (n, d2); a bf16
+    operand is widened to f32, as the JAX op widens it)."""
     if get_policy(policy).ridge_gram:
         return _rg_ops.gram(x, y)
     return gram_ref(x, y)

@@ -9,7 +9,10 @@ in a fixed order (deterministic, no atomics on the values, one launch).  The
 products run on the tensor cores in 3xTF32, which keeps f32 accuracy; the
 tiles of a symmetric xᵀx below its diagonal are mirrored, not computed.
 ``gram_pair(o, z)`` computes a Step-4 layer's OᵀO and OᵀZ in one launch;
-``gram(x, y)`` is the twin of the JAX op.  Bound on an H100 SXM: the
+``gram(x, y)`` is the twin of the JAX op.  A bf16 operand (the smashed data
+of the mixed policy) is widened to f32 before the launch, where the JAX op
+widens it (``gram_pallas``'s ``astype(float32)``): bf16 values are exact in
+f32, so the f32 kernel serves both.  Bound on an H100 SXM: the
 operations; the 8 pairs of one DNN10 evaluation at n = 4800 need 1.16e9
 operations (n·d1·(d1 + 1) for the symmetric OᵀO, 2·n·d1·d2 for OᵀZ), 7.0
 µs at 495 / 3 TFLOP/s.
@@ -41,6 +44,11 @@ _ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
 # per (device, stream): the kernel's per-tile counters, zeros between
 # launches (each launch's last blocks reset them)
 _counters = {}
+
+
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand widened to f32 (exact); any other dtype as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _check(x: torch.Tensor, y: torch.Tensor) -> None:
@@ -140,8 +148,10 @@ def _placed(x: torch.Tensor) -> bool:
 
 
 def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """G = XᵀY in f32; x: (n, d1), y: (n, d2) f32 -> (d1, d2).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel once."""
+    """G = XᵀY in f32; x: (n, d1), y: (n, d2) f32 or bf16 -> (d1, d2).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    once."""
+    x, y = _widened(x), _widened(y)
     _check(x, y)
     if _placed(x):
         return gram_ref(x, y)
@@ -149,9 +159,10 @@ def gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def gram_pair(o: torch.Tensor, z: torch.Tensor) -> tuple:
-    """(OᵀO, OᵀZ) in f32; o: (n, d1), z: (n, d2) f32 -> (d1, d1), (d1, d2).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    once for both."""
+    """(OᵀO, OᵀZ) in f32; o: (n, d1), z: (n, d2) f32 or bf16 -> (d1, d1),
+    (d1, d2).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel once for both."""
+    o, z = _widened(o), _widened(z)
     _check(o, z)
     if _placed(o):
         return gram_ref(o, o), gram_ref(o, z)

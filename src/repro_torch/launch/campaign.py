@@ -19,29 +19,39 @@ Execution modes:
   eager warm-up on the capture stream whose effect is undone; every round
   of that shape, the first included, is a replay.  A round's operands (its
   number, E, |A_t|, the padded cohort and the full-M batch indices) sit in
-  one int64 row of a table uploaded before the device phase; a round costs
-  the host one device-to-device copy of its row and one replay.  The Step-4
+  one int64 row of a table uploaded before the device phase, and under the
+  int8 wire format its uniforms in one (S, U) f32 slice of a second table;
+  a round costs the host one device-to-device copy of its row (and one of
+  its uniforms) and one replay.  The Step-4
   evaluation is a second graph, replayed after the rounds that evaluate
   (every ``eval_every`` rounds and the last).  Losses and accuracies land
   in device buffers, fetched to the host once per campaign
   (``_host_fetch``).  The graphs share one memory pool: they run one after
-  another, and every tensor that outlives a replay (the parameters and the
-  metric buffers) is allocated outside them.  On the CPU the same round
+  another, and every tensor that outlives a replay (the parameters, the
+  metric buffers and the int8 error-feedback state) is allocated outside
+  them.  On the CPU the same round
   bodies run without capture.  On CUDA a capture that fails raises; there
   is no fallback to the eager loop.
 * ``scan=False`` — the per-round loop of eager gathered rounds, one host
   transfer per round, the baseline the graphs are measured against.
 
+The spec's precision (``policy="kernel_bf16"``: bf16 on the card, f32 on
+the CPU; ``KernelPolicy(precision=BF16)`` anywhere) and wire format
+(``quant``: none / bf16 / int8) run through both modes and the evaluation;
+``quant`` also narrows the payloads the host plan optimizes over.
+
 Randomness is an input, as in the trainer: each seed's CPU
 ``torch.Generator(seed)`` draws its initial parameters (unless ``params=``
 gives them) and then, round by round, its full-M batch indices (unless
-``index_source=`` gives them).  The port does not reproduce JAX's threefry
-streams; the parity tests feed both packages the same parameters and
-batches.
+``index_source=`` gives them); under int8 a second generator per seed
+(``engine.uniform_generator``) draws each round's uniforms (unless
+``uniform_source=`` gives them).  The port does not reproduce JAX's
+threefry streams; the parity tests feed both packages the same
+parameters, batches and uniforms.
 
 Not ported in this slice (raise): the baseline frameworks, ``mesh=``
-(sharded rounds), wire formats other than f32, scenarios, fault guards,
-checkpoints and resume, population mode and config sweeps.
+(sharded rounds), scenarios, fault guards, checkpoints and resume,
+population mode and config sweeps.
 """
 from __future__ import annotations
 
@@ -54,7 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.splitme_dnn import DNNConfig
-from repro_torch.core import engine
+from repro_torch.core import engine, quantcomm
 from repro_torch.core.cost import SystemParams, schedule_metrics
 from repro_torch.core.engine import RoundMetrics, _later
 from repro_torch.device import DeviceLike, resolve_device
@@ -65,6 +75,8 @@ HOST_TRANSFERS = 0
 
 # index_source(seed position, round, E bucket) -> (n_phases, M, E bucket, B)
 IndexSource = Callable[[int, int, int], Any]
+# uniform_source(seed position, round) -> (U,) f32 int8 uniforms
+UniformSource = Callable[[int, int], Any]
 
 
 def _host_fetch(tree):
@@ -112,6 +124,9 @@ class CampaignResult:
     # {"shapes": {(kb, eb): [rounds]}, "graphs": n, "capture_s": t}
     round_ms: Optional[np.ndarray] = None
     graphs: Optional[dict] = None
+    # the final int8 error-feedback state, {param index: layers} with each
+    # leaf stacked over seeds (() for the stateless wire formats)
+    qstate: Any = ()
 
     def params_for(self, i: int):
         """The i-th seed's params tuple (unstacked)."""
@@ -238,11 +253,12 @@ def _cohort(a_r: np.ndarray, kb: int) -> Tuple[np.ndarray, int]:
     return idx, len(sel)
 
 
-def _initial_state(spec, seeds, params, index_source, eb_r, M: int, n: int,
-                   device: torch.device):
-    """Seed-stacked initial params on ``device`` and every round's
-    (S, n_phases, M, E bucket, B) int64 batch indices on the host, checked
-    to lie in [0, n)."""
+def _initial_state(spec, seeds, params, index_source, uniform_source, eb_r,
+                   M: int, n: int, device: torch.device):
+    """Seed-stacked initial params and error-feedback state on ``device``,
+    every round's (S, n_phases, M, E bucket, B) int64 batch indices on the
+    host, checked to lie in [0, n), and (under int8; else None) every
+    round's (S, U) f32 uniforms on the host."""
     gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
     if params is None:
         params = [spec.init_fn(g, torch.device("cpu")) for g in gens]
@@ -275,7 +291,26 @@ def _initial_state(spec, seeds, params, index_source, eb_r, M: int, n: int,
         if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
             raise ValueError(f"round {r}: batch indices must lie in [0, {n})")
         indices.append(idx)
-    return stacked, indices
+    uniforms = None
+    if spec.quant.stochastic:
+        ugens = [engine.uniform_generator(s) for s in seeds]
+        one = _seed_params(stacked, 0)
+
+        def udraw(i, r):
+            if uniform_source is not None:
+                return torch.as_tensor(uniform_source(i, r),
+                                       dtype=torch.float32)
+            return engine.quant_uniforms(spec, one, ugens[i])
+
+        U = quantcomm.n_elements(engine.trained_params(spec, one))
+        uniforms = []
+        for r in range(len(eb_r)):
+            u = torch.stack([udraw(i, r) for i in range(len(seeds))])
+            if tuple(u.shape) != (len(seeds), U):
+                raise ValueError(f"round {r}: uniforms must be ({U},) a "
+                                 f"seed, got {tuple(u.shape[1:])}")
+            uniforms.append(u)
+    return stacked, engine.init_quant_state(spec, stacked), indices, uniforms
 
 
 @contextlib.contextmanager
@@ -306,6 +341,7 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
                  checkpoint_dir=None, resume: bool = False,
                  device: DeviceLike = None, params=None,
                  index_source: Optional[IndexSource] = None,
+                 uniform_source: Optional[UniformSource] = None,
                  _round_hook: Optional[Callable[[int], None]] = None,
                  **hyper) -> CampaignResult:
     """Train ``len(seeds)`` independent SplitMe runs over one shared
@@ -325,16 +361,21 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     ``params``, one initial ``(w_c, w_s_inv)`` per seed as numpy arrays or
     tensors; ``index_source(i, r, e_bucket)``, seed i's full-M batch
     indices of round r, ``(n_phases, M, e_bucket, batch_size)`` int64;
-    ``_round_hook(r)``, called on the host once round r is queued.  Each
-    round's wall time lands in ``CampaignResult.round_ms``.
+    ``uniform_source(i, r)``, seed i's int8 uniforms of round r, ``(U,)``
+    f32 in ``engine.quant_uniforms``'s layout; ``_round_hook(r)``, called
+    on the host once round r is queued.  Each round's wall time lands in
+    ``CampaignResult.round_ms``.
+
+    ``policy`` and ``quant`` are bound into the spec (the precision request
+    of ``"kernel_bf16"`` resolved for ``device``); ``quant`` also scales
+    the host plan's payloads, as in the reference.
 
     Raise as later slices of the port: any framework but ``"splitme"``,
-    ``mesh``, ``quant`` other than None / ``"none"``, ``scenario``,
-    ``guards`` and ``checkpoint_every`` / ``checkpoint_dir`` / ``resume``.
+    ``mesh``, ``scenario``, ``guards`` and ``checkpoint_every`` /
+    ``checkpoint_dir`` / ``resume``.
     """
     if mesh is not None:
         raise _later("the sharded campaign (mesh=)")
-    engine._check_quant(quant)
     if scenario is not None:
         raise _later("scenarios")
     if guards not in (None, False):
@@ -358,25 +399,27 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     # runs exactly its E bucket's steps; the trained params equal the
     # serial trainer's (masked updates are exact no-ops)
     spec = engine.make_spec(framework, cfg, masked_loss_metric=True,
-                            policy=policy, quant=quant, **hyper)
+                            policy=policy, quant=quant, device=dev, **hyper)
     comm, nsel, sim, cost, energy = _schedule_system_metrics(spec, sched, sp)
     if not scan and eval_every:
         raise ValueError("eval_every (per-round eval) requires scan=True; "
                          "the loop only evaluates post-hoc")
     kb_r, eb_r = _round_shapes(sched, sp)
-    params, indices = _initial_state(spec, seeds, params, index_source, eb_r,
-                                     int(sp.M), n_m, dev)
+    params, qstate, indices, uniforms = _initial_state(
+        spec, seeds, params, index_source, uniform_source, eb_r, int(sp.M),
+        n_m, dev)
     fns = {s: engine.build_round_fn(spec, cfg, x, y, e_max=s[1], gather=True)
            for s in dict.fromkeys(zip(kb_r, eb_r))}
 
     if not scan:
-        losses, params, round_ms = _run_rounds_loop(
-            fns, sched, kb_r, eb_r, params, indices)
+        losses, params, qstate, round_ms = _run_rounds_loop(
+            fns, sched, kb_r, eb_r, params, qstate, indices, uniforms)
         result = CampaignResult(
             framework=framework, seeds=tuple(seeds), schedule=sched,
             params=params, losses=losses,
             metrics=_make_metrics(sched, comm, nsel, sim, cost, energy,
-                                  losses, None), round_ms=round_ms)
+                                  losses, None), round_ms=round_ms,
+            qstate=qstate)
         if test_data is not None:
             result.accuracy = evaluate_campaign(
                 result, cfg, test_data, client_data=client_data,
@@ -397,8 +440,8 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
         do_eval[rounds - 1] = True
 
     params, buffers, clock, graphs = _run_rounds_scan(
-        fns, sched, kb_r, eb_r, params, indices, do_eval, eval_fn,
-        strict=strict_transfers, round_hook=_round_hook)
+        fns, sched, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
+        eval_fn, strict=strict_transfers, round_hook=_round_hook)
     host = _host_fetch(buffers)            # THE per-campaign transfer
     round_ms = clock.round_ms()
     losses = np.transpose(host["loss"], (1, 0, 2))        # (S, R, n_ph)
@@ -408,7 +451,8 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
         params=params, losses=losses,
         metrics=_make_metrics(sched, comm, nsel, sim, cost, energy, losses,
                               acc_rounds),
-        accuracy_per_round=acc_rounds, round_ms=round_ms, graphs=graphs)
+        accuracy_per_round=acc_rounds, round_ms=round_ms, graphs=graphs,
+        qstate=qstate)
     if test_data is not None:
         result.accuracy = acc_rounds[rounds - 1]
     return result
@@ -437,7 +481,8 @@ class _RoundClock:
                          in zip(self.marks, self.marks[1:])])
 
 
-def _run_rounds_loop(fns, sched, kb_r, eb_r, params, indices):
+def _run_rounds_loop(fns, sched, kb_r, eb_r, params, qstate, indices,
+                     uniforms):
     """The eager per-round loop: one gathered round call per round, one
     host transfer per round when its loss row is pulled."""
     dev = params[0][0]["w"].device
@@ -449,28 +494,34 @@ def _run_rounds_loop(fns, sched, kb_r, eb_r, params, indices):
         sel, k = _cohort(sched.a[r], kb)
         mask = np.zeros(kb, np.float32)
         mask[:k] = 1.0
-        params, loss_r = fns[kb, eb](
+        params, loss_r, qstate = fns[kb, eb](
             params, torch.from_numpy(sel).to(dev),
             torch.from_numpy(mask).to(dev), int(sched.E[r]),
-            indices[r].to(dev))
+            indices[r].to(dev), qstate,
+            None if uniforms is None else uniforms[r].to(dev))
         loss_rows.append(loss_r)
         clock.mark()
     losses = np.stack(
         [np.stack(_host_fetch(row), axis=-1) for row in loss_rows],
         axis=1)                                   # (S, R, n_phases)
-    return losses, params, clock.round_ms()
+    return losses, params, qstate, clock.round_ms()
 
 
-def _run_rounds_scan(fns, sched, kb_r, eb_r, params, indices, do_eval,
-                     eval_fn, *, strict: bool, round_hook):
+def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
+                     uniforms, do_eval, eval_fn, *, strict: bool,
+                     round_hook):
     """All rounds, one graph replay each on CUDA (the same bodies eagerly on
     the CPU); returns (params, device metric buffers, the rounds'
-    ``_RoundClock``, graph stats)."""
+    ``_RoundClock``, graph stats).  ``params`` and ``qstate`` are updated
+    in place."""
     dev = params[0][0]["w"].device
     R = sched.rounds
     S, n_ph, M, _, B = indices[0].shape
     cuda = dev.type == "cuda"
-    state = [v for ps in params for p in ps for v in p.values()]
+    # every tensor a round writes and the next reads: the params and the
+    # error-feedback state
+    state = ([v for ps in params for p in ps for v in p.values()]
+             + quantcomm.tree_leaves(qstate))
     loss_buf = torch.full((R, S, n_ph), float("nan"), device=dev)
     acc_buf = torch.full((R, S), float("nan"), device=dev)
     r_slot = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -489,6 +540,11 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, indices, do_eval,
         rounds_of[s].append(r)
     tables = {s: torch.stack(v).to(dev) for s, v in rows.items()}
     ops = {s: torch.empty_like(t[0]) for s, t in tables.items()}
+    # the int8 uniforms: one (S, U) slice a round, copied into one operand
+    utable = uop = None
+    if uniforms is not None:
+        utable = torch.stack(uniforms).to(dev)
+        uop = torch.empty_like(utable[0])
 
     def round_body(s):
         kb, eb = s
@@ -497,10 +553,12 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, indices, do_eval,
         def body():
             r = op[0:1]
             mask = (torch.arange(kb, device=dev) < op[2]).float()
-            new, losses = fn(params, op[3:3 + kb], mask, op[1],
-                             op[3 + kb:].view(S, n_ph, M, eb, B))
-            for old, v in zip(state, (v for ps in new for p in ps
-                                      for v in p.values())):
+            new, losses, nq = fn(params, op[3:3 + kb], mask, op[1],
+                                 op[3 + kb:].view(S, n_ph, M, eb, B),
+                                 qstate, uop)
+            for old, v in zip(state, [v for ps in new for p in ps
+                                      for v in p.values()]
+                              + quantcomm.tree_leaves(nq)):
                 old.copy_(v)
             loss_buf.index_copy_(0, r, torch.stack(losses, -1)[None])
             r_slot.copy_(r)
@@ -538,6 +596,8 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, indices, do_eval,
         for r in range(R):
             s = (kb_r[r], eb_r[r])
             ops[s].copy_(tables[s][where[r]])
+            if uop is not None:
+                uop.copy_(utable[r])
             run(s, state)
             if do_eval[r]:
                 run("eval")
@@ -591,10 +651,10 @@ def evaluate_campaign(result: CampaignResult, cfg: DNNConfig, test_data,
     campaign replays the same evaluation after its eval rounds): Step 4
     recovers each seed's server model from the client data's Grams, then
     the stitched forward runs on the test split.  One host transfer."""
-    spec = engine.make_spec(result.framework, cfg, policy=policy)
     if client_data is None:
         raise ValueError("splitme evaluation needs client_data for Step 4")
     dev = result.params[0][0]["w"].device
+    spec = engine.make_spec(result.framework, cfg, policy=policy, device=dev)
     eval_fn = engine.build_eval_fn(
         spec, cfg,
         torch.as_tensor(test_data[0], dtype=torch.float32, device=dev),

@@ -213,10 +213,10 @@ def test_gathered_round_equals_full_masked_round(selected, kb, e_steps,
                         generator=torch.Generator().manual_seed(4))
     a = np.zeros(M, np.float32)
     a[selected] = 1.0
-    want, wl = full(params, _t(a), e_steps, idx)
+    want, wl, _ = full(params, _t(a), e_steps, idx)
     sel, mask = _cohort(selected, kb)
     e = torch.tensor(e_steps) if e_as_tensor else e_steps
-    got, gl = gath(_stack([params]), _t(sel), _t(mask), e, idx[None])
+    got, gl, _ = gath(_stack([params]), _t(sel), _t(mask), e, idx[None])
     for g, w in zip(got, want):
         for gp, wp in zip(g, w):
             for k in gp:
@@ -245,7 +245,7 @@ def test_gathered_round_matches_jax_gathered_round(selected, kb, e_steps):
     gath = engine.build_round_fn(spec, CFG, _t(x), _t(y), e_max=E_MAX,
                                  gather=True)
     idx = _t(replay_round_indices(key, 2, M, E_MAX, B, N))
-    (c, s), (cl, sl) = gath(
+    (c, s), (cl, sl), _ = gath(
         _stack([(jax_to_torch(init[0]), jax_to_torch(init[1]))]),
         _t(sel), _t(mask), e_steps, idx[None])
     assert_params_close([{k: v[0] for k, v in p.items()} for p in c], jc,
@@ -269,9 +269,9 @@ def test_seed_stacked_round_equals_one_round_per_seed():
     idx = torch.randint(0, N, (3, 2, M, E_MAX, B),
                         generator=torch.Generator().manual_seed(5))
     sel, mask = _cohort([1, 4, 6], 4)
-    got, gl = gath(_stack(inits), _t(sel), _t(mask), 3, idx)
+    got, gl, _ = gath(_stack(inits), _t(sel), _t(mask), 3, idx)
     for s in range(3):
-        want, wl = gath(_stack(inits[s:s + 1]), _t(sel), _t(mask), 3,
+        want, wl, _ = gath(_stack(inits[s:s + 1]), _t(sel), _t(mask), 3,
                         idx[s:s + 1])
         for g, w in zip(got, want):
             for gp, wp in zip(g, w):
@@ -433,13 +433,10 @@ def test_default_campaign_is_seeded(campaign_data):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "later slice"),
-    (dict(quant="int8"), "later slice"),
-    (dict(quant="bf16"), "later slice"),
     (dict(scenario="fading"), "later slice"),
     (dict(guards=object()), "later slice"),
     (dict(checkpoint_every=2, checkpoint_dir="ckpt"), "later slice"),
     (dict(resume=True), "later slice"),
-    (dict(policy="kernel_bf16"), "later slice"),
 ])
 def test_unported_campaign_options_raise(campaign_data, kw, match):
     cd, _ = campaign_data

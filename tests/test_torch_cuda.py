@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs.splitme_dnn import DNN10, DNNConfig
-from repro_torch.core import engine
+from repro_torch.core import dnn, engine, quantcomm
 from repro_torch.core.cost import SystemParams
 from repro_torch.core.splitme import SplitMeTrainer
 from repro_torch.data import oran
@@ -113,6 +113,92 @@ def test_kl_kernel_gradient_matches_plain(cuda):
                                rtol=0, atol=1e-6)
     torch.testing.assert_close(grads["kernel"][1], grads["reference"][1],
                                rtol=0, atol=1e-7)
+
+
+# the mixed-dtype KL entries: every (x, y) pair with a bf16 operand, at
+# the shapes above and at a width with d % 8 != 0 (single-element loads),
+# with x aligned or one element off (single-element loads at d % 8 == 0)
+_KL_PAIRS = [(torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16)]
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at |v| (8 significant bits)."""
+    mag = v.double().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("rows,d", _KL_SHAPES + [(100, 37)])
+@pytest.mark.parametrize("tx,ty", _KL_PAIRS)
+@pytest.mark.parametrize("x_offset", [0, 1])
+def test_kl_mixed_kernels_match_plain(cuda, rows, d, tx, ty, x_offset):
+    """Forward within the f32 rows' bounds, the gradient in x's dtype: a
+    bf16 gx within one bf16 ulp (plus the f32 rounding of the closed form,
+    2^-23 of its largest element) of the plain version's, which rounds the
+    same f32 value.  Each call launches its pair's entry, never the f32
+    one."""
+    x = _normal(10, (rows, d), cuda, 3.0).to(tx)
+    if x_offset:
+        buf = torch.empty(x_offset + x.numel(), dtype=tx, device=cuda)
+        x = buf[x_offset:].view(x.shape).copy_(x)
+    y = _normal(11, (rows, d), cuda, 3.0).to(ty)
+    g = torch.full((1,), 0.37, device=cuda).expand(rows)
+    kl_ops.launches_by_entry.clear()
+    got = kl_ops.kl_rows(x, y, 2.0)
+    gx = kl_ops.kl_grad(x, y, g, 2.0)
+    names = {kl_ops.entry("rows", x, y), kl_ops.entry("grad", x, y)}
+    assert kl_ops.launches_by_entry == {n: 1 for n in names}
+    assert not names & {"kl_mutual_rows_f32", "kl_mutual_grad_f32"}
+    torch.testing.assert_close(got, kl_rows_ref(x, y, 2.0), rtol=1e-6,
+                               atol=1e-5)
+    want = kl_grad_ref(x, y, g, 2.0)
+    assert gx.dtype == want.dtype == tx
+    err = (gx.double() - want.double()).abs()
+    slack = 2.0 ** -23 * want.double().abs().max()
+    if tx == torch.bfloat16:
+        ulp = _bf16_ulp(torch.maximum(gx.double().abs(),
+                                      want.double().abs()))
+        assert bool((err <= ulp + slack).all()), float(err.max())
+    else:
+        assert err.max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_kl_mixed_gradient_through_the_phase_losses(cuda):
+    """dispatch.kl_loss with bf16 smashed data against an f32 target (the
+    client phase) and f32 against a bf16 target (the server phase): the
+    kernel policy's gradients within one bf16 ulp of the reference
+    policy's, in x's dtype, one backward launch each."""
+    for tx, ty in _KL_PAIRS[:2]:
+        x = _normal(12, (50, 32, 256), cuda).to(tx)
+        y = _normal(13, (50, 32, 256), cuda).to(ty)
+        grads = {}
+        for pol in ("kernel", "reference"):
+            t = x.clone().requires_grad_(True)
+            before = kl_ops.launches_bwd
+            dispatch.kl_loss(t, y, temperature=2.0,
+                             policy=pol).sum().backward()
+            assert kl_ops.launches_bwd == before + (pol == "kernel")
+            assert t.grad.dtype == tx
+            grads[pol] = t.grad.double()
+        err = (grads["kernel"] - grads["reference"]).abs()
+        ulp = _bf16_ulp(torch.maximum(grads["kernel"].abs(),
+                                      grads["reference"].abs()))
+        slack = 2.0 ** -23 * grads["reference"].abs().max()
+        assert bool((err <= ulp + slack).all()), float(err.max())
+
+
+def test_mixed_matmul_has_an_f32_output_on_the_card(cuda):
+    """The mixed forward's bf16 x bf16 products keep their f32 sums (one
+    GEMM with an f32 output): within f32 summation error of the widened
+    product, far inside a bf16 rounding of the output."""
+    a = _normal(14, (3, 64, 256), cuda).bfloat16()
+    b = _normal(15, (3, 256, 128), cuda).bfloat16()
+    for bb in (b, b[0]):                   # client-stacked, global weights
+        got = dnn._matmul_f32(a, bb)
+        want = a.double() @ bb.double()
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert (got.double() - want).abs().max().item() <= \
+            1e-5 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("n,d1,d2", [(4800, 257, 257), (4800, 257, 128),
@@ -589,3 +675,60 @@ def test_failed_capture_raises_without_falling_back(cuda, monkeypatch):
     monkeypatch.undo()
     torch.cuda.synchronize()
     assert torch.ones(3, device=cuda).sum().item() == 3.0
+
+
+# ---------------------------------------------------------------------------
+# bf16 precision and the wire formats in the graphed campaign
+# ---------------------------------------------------------------------------
+
+def _same_campaigns(a, b):
+    np.testing.assert_array_equal(a.losses, b.losses)
+    for i in range(len(a.seeds)):
+        for ha, hb in zip(a.params_for(i), b.params_for(i)):
+            for pa, pb in zip(ha, hb):
+                assert all(torch.equal(pa[k], pb[k]) for k in pa)
+    qa, qb = (quantcomm.tree_leaves(r.qstate) for r in (a, b))
+    assert len(qa) == len(qb) and all(torch.equal(u, v)
+                                      for u, v in zip(qa, qb))
+
+
+@pytest.mark.parametrize("kw", [dict(quant="int8"), dict(quant="bf16"),
+                                dict(policy="kernel_bf16")],
+                         ids=["int8", "bf16-wire", "kernel_bf16"])
+def test_graphed_precision_campaign_equals_eager(cuda, kw):
+    """The graphed campaign under int8 (EF state among the graphs' state,
+    the uniforms an operand table), the bf16 wire and the bf16 policy: bit
+    for bit the eager one, params, losses and EF state."""
+    cd, test = _campaign_data()
+    g = _campaign(cd, device=cuda, test_data=test, eval_every=2,
+                  strict_transfers=True, **kw)
+    e = _campaign(cd, device=cuda, scan=False, **kw)
+    _same_campaigns(g, e)
+    if kw.get("quant") == "int8":
+        q = quantcomm.tree_leaves(g.qstate)
+        assert len(q) == 20 and all(bool(torch.isfinite(v).all())
+                                    and v.shape[0] == 2 for v in q)
+        assert any(bool((v != 0).any()) for v in q)
+    assert np.isfinite(g.accuracy_per_round[-1]).all()
+
+
+def test_bf16_campaign_on_card_matches_cpu(cuda):
+    """"kernel_bf16" on the card is bf16 (the mixed KL entries launch in
+    the warm-ups), and matches the CPU's forced BF16 campaign at 1e-3."""
+    cd, test = _campaign_data()
+    kl_ops.launches_by_entry.clear()
+    card = _campaign(cd, device=cuda, policy="kernel_bf16", scan=False)
+    for name in ("kl_mutual_rows_bf16_f32", "kl_mutual_rows_f32_bf16",
+                 "kl_mutual_grad_bf16_f32", "kl_mutual_grad_f32_bf16"):
+        assert kl_ops.launches_by_entry.get(name, 0) > 0, name
+    assert "kl_mutual_rows_f32" not in kl_ops.launches_by_entry
+    cpu = _campaign(cd, device="cpu",
+                    policy=dispatch.KernelPolicy(precision=dispatch.BF16),
+                    scan=False)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=0, atol=1e-3)
+    for i in range(2):
+        for hg, hc in zip(card.params_for(i), cpu.params_for(i)):
+            for pg, pc in zip(hg, hc):
+                for k in pg:
+                    torch.testing.assert_close(pg[k].cpu(), pc[k], rtol=0,
+                                               atol=1e-3)

@@ -325,13 +325,25 @@ def test_gram_wrapper_rejects_what_the_kernel_does_not_take(bad):
 # ---------------------------------------------------------------------------
 
 def test_policy_presets_and_later_slices():
+    """The presets, as the reference's: "kernel_bf16" is a bf16 request,
+    bf16 on a CUDA device and f32 on the CPU; an explicit BF16 precision
+    is bf16 on any device."""
     assert dispatch.get_policy(None) == dispatch.KERNEL
     assert dispatch.get_policy("reference") == dispatch.REFERENCE
     assert dispatch.get_policy("kernel").kl_mutual is True
-    with pytest.raises(NotImplementedError, match="later slice"):
-        dispatch.get_policy("kernel_bf16")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        dispatch.KernelPolicy(precision=dispatch.BF16)
+    assert dispatch.policy_names() == ("reference", "kernel", "kernel_bf16")
+    req = dispatch.get_policy("kernel_bf16")
+    assert req.auto_precision and req.kl_mutual and req.ridge_gram
+    assert req.resolved("cpu") == dispatch.KERNEL
+    assert req.resolved("cuda").precision == dispatch.BF16
+    assert not req.resolved("cuda").auto_precision
+    assert (req.resolved().precision.is_mixed
+            is torch.cuda.is_available())
+    forced = dispatch.KernelPolicy(precision=dispatch.BF16)
+    assert forced.resolved("cpu") is forced
+    assert dispatch.BF16.compute_dtype == torch.bfloat16
+    assert dispatch.BF16.accum_dtype == torch.float32
+    assert not dispatch.F32.is_mixed and dispatch.BF16.is_mixed
     with pytest.raises(KeyError):
         dispatch.get_policy("tpu")
 

@@ -46,7 +46,8 @@ def test_port_files_exist():
                  "kernels/rwkv6_wkv/ref.py", "kernels/mamba2_scan/ops.py",
                  "kernels/mamba2_scan/ref.py", "runtime/steps.py",
                  "serve.py", "kernels/flash_attention/ops.py",
-                 "kernels/flash_attention/ref.py", "launch/campaign.py"):
+                 "kernels/flash_attention/ref.py", "launch/campaign.py",
+                 "core/quantcomm.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
@@ -134,8 +135,6 @@ def test_trainer_rejects_unported_options():
     from repro_torch.core.splitme import SplitMeTrainer
     with pytest.raises(NotImplementedError, match="later slice"):
         SplitMeTrainer(*_tiny_trainer_args(), device="cpu", scenario=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        SplitMeTrainer(*_tiny_trainer_args(), device="cpu", comm_quant="bf16")
     with pytest.raises(ValueError, match="Corollary 3"):
         SplitMeTrainer(*_tiny_trainer_args(), device="cpu", lr_c=0.01,
                        lr_s=0.02)

@@ -117,8 +117,6 @@ def test_later_frameworks_and_options_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         engine.make_spec("fedavg", CFG)
     with pytest.raises(NotImplementedError, match="later slice"):
-        engine.make_spec("splitme", CFG, quant="int8")
-    with pytest.raises(NotImplementedError, match="later slice"):
         engine.make_policy("oranfed", SystemParams(M=4), CFG)
     with pytest.raises(KeyError):
         engine.make_spec("nope", CFG)
@@ -213,7 +211,7 @@ def test_one_round_matches_jax_engine(policy, e_steps):
     round_fn = engine.build_round_fn(spec, CFG, _t(x), _t(y), e_max=E_MAX)
     idx = _t(replay_round_indices(key, 2, M, E_MAX, B, N))
     params = (jax_to_torch(init[0]), jax_to_torch(init[1]))
-    (c, s), (cl, sl) = round_fn(params, _t(a), e_steps, idx)
+    (c, s), (cl, sl), _ = round_fn(params, _t(a), e_steps, idx)
     assert_params_close(c, jc, atol=1e-5)
     assert_params_close(s, js, atol=1e-5)
     np.testing.assert_allclose(cl.item(), float(jcl), rtol=0, atol=1e-5)
@@ -240,7 +238,7 @@ def test_unselected_round_leaves_nothing_nan():
     round_fn = engine.build_round_fn(spec, CFG, _t(x), _t(y), e_max=2)
     params = spec.init_fn(torch.Generator().manual_seed(0), "cpu")
     idx = torch.zeros(2, M, 2, B, dtype=torch.int64)
-    (c, s), losses = round_fn(params, torch.zeros(M), 2, idx)
+    (c, s), losses, _ = round_fn(params, torch.zeros(M), 2, idx)
     assert all(float(v.abs().max()) == 0.0 for p in c + s
                for v in p.values())
     assert all(float(l) == 0.0 for l in losses)

@@ -45,6 +45,12 @@ class TrainerIndexReplay:
         return torch.from_numpy(replay_round_indices(sub, *self.shape))
 
 
+def bf16_ulp(v) -> np.ndarray:
+    """One bf16 unit in the last place at |v| (8 significant bits)."""
+    mag = np.maximum(np.abs(np.asarray(v, np.float64)), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
 def jax_to_torch(layers, device="cpu"):
     return params_from_numpy(jax.device_get(layers), device=device)
 
@@ -81,3 +87,59 @@ class CampaignIndexReplay:
         self.keys[i], sub = jax.random.split(self.keys[i])
         return torch.from_numpy(replay_round_indices(
             sub, *self.shape, e_max, self.B, self.n))
+
+
+# the reference's quantization salt (``repro.core.engine._QSALT``)
+QSALT = 0x5157
+
+
+def replay_round_uniforms(key, trained) -> np.ndarray:
+    """The int8 uniforms of one ``repro.core.engine`` round: the round key's
+    quantization stream ``fold_in(fold_in(key, QSALT), 0)``, split once per
+    leaf of the payload in ``jax.tree.flatten`` order (dict keys sorted: a
+    layer's ``"b"`` before its ``"w"``), ``uniform(k, leaf.shape)`` each.
+    ``trained``: ``{param index: layers}`` of the trained params (arrays or
+    shape-carrying numpy).  Returns them flat, f32, in that order (the
+    port's ``quantcomm.tree_leaves`` order)."""
+    leaves = jax.tree.leaves(trained)
+    qkey = jax.random.fold_in(jax.random.fold_in(key, QSALT), 0)
+    keys = jax.random.split(qkey, len(leaves))
+    return np.concatenate([
+        np.asarray(jax.random.uniform(k, np.shape(l), dtype=np.float32))
+        .ravel() for k, l in zip(keys, leaves)])
+
+
+class TrainerUniformReplay:
+    """``uniform_source`` for the port's SplitMeTrainer that replays the
+    JAX SplitMeTrainer's int8 draws: ``PRNGKey(seed)``, per round ``key,
+    sub = split(key)``, then ``replay_round_uniforms(sub, trained)``.  Call
+    once per round, in order."""
+
+    def __init__(self, seed: int, trained):
+        self.key = jax.random.PRNGKey(seed)
+        self.trained = trained
+        self.calls = 0
+
+    def __call__(self, round_idx: int) -> torch.Tensor:
+        assert round_idx == self.calls, "rounds must be replayed in order"
+        self.calls += 1
+        self.key, sub = jax.random.split(self.key)
+        return torch.from_numpy(replay_round_uniforms(sub, self.trained))
+
+
+class CampaignUniformReplay:
+    """``uniform_source`` for the port's ``run_campaign`` that replays the
+    JAX ``run_campaign``'s int8 draws: per seed ``PRNGKey(seed)``, per round
+    ``key, sub = split(key)``, then ``replay_round_uniforms(sub, trained)``
+    (one seed's trained params).  Call in round order per seed."""
+
+    def __init__(self, seeds, trained):
+        self.keys = [jax.random.PRNGKey(s) for s in seeds]
+        self.rounds = [0] * len(seeds)
+        self.trained = trained
+
+    def __call__(self, i: int, round_idx: int) -> torch.Tensor:
+        assert round_idx == self.rounds[i], "rounds must be replayed in order"
+        self.rounds[i] += 1
+        self.keys[i], sub = jax.random.split(self.keys[i])
+        return torch.from_numpy(replay_round_uniforms(sub, self.trained))

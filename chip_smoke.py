@@ -67,6 +67,22 @@ failure ends the run with a non-zero exit code:
    seeds, the launch counters of the kernel_bf16 campaign (every mixed KL
    entry of its path launched), and a steady round's ms, the whole
    campaign, the idle share and the operations a round;
+3d. the paper's framework comparison: the five baselines (FedAvg, SFL,
+   O-RANFed, FedORA, EcoFL) as ``examples/oran_splitfl_campaign.py --seeds 4
+   --baselines`` runs them, 60 rounds of 4 seeds each: graphed (strict
+   transfers, one host transfer) against eager bit for bit, against the CPU
+   over the first rounds (the trajectories part by chaos later: FedAvg's
+   whole-campaign difference is printed beside the card's own under a
+   one-ulp change of the initial weights), the steady round graphed and
+   eager, the whole campaign, the idle share and operations a round, final
+   accuracy, comm, sim time and cost; FedAvg under the bf16 policy and the
+   int8 wire too, and the bf16 policy against the CPU's three-round rule
+   beside what a one-ulp change of the initial weights does; the KL and
+   Gram counters stay 0 through all of it;
+3e. a time-varying RAN: SplitMe under ``straggler:0.4`` (30 rounds) and
+   FedORA under ``fading`` (60 rounds), 4 seeds each, graphed against eager
+   bit for bit and against the CPU, with their round shapes, graphs,
+   capture seconds and whole campaigns;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -84,6 +100,7 @@ result.
 """
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -821,6 +838,508 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
               f"{name}: campaign on the card and on the CPU disagree")
         check(aerr <= CMP_ACC_SAMPLES_MIXED + 1e-6,
               f"{name}: accuracy on the card and on the CPU disagree")
+        torch.cuda.empty_cache()
+    return out
+
+
+# the paper's framework comparison (phase 3d): the five baselines as
+# examples/oran_splitfl_campaign.py --seeds 4 --baselines runs them
+# (:194-200): per-framework K and E, its 60 baseline rounds, 4 seeds,
+# SystemParams(seed=0), DNN10 at full width, the data of phase 3b; the
+# full-model evaluation (no ridge solve) every 10 rounds and after the last.
+# Each: graphed (strict transfers, one transfer) against eager bit for bit,
+# its steady round graphed and eager (medians of CAMPAIGN_TURNS turns), the
+# whole campaign, one profiled window, and the card against the CPU over
+# the first BASELINE_CMP_ROUNDS rounds (CARD_CPU_TOL; accuracy after every
+# round within CMP_ACC_SAMPLES test samples).  The baselines' SGD on the
+# whole DNN10 amplifies a difference in the last bit round after round (on
+# an H100 a 1-ulp change of every initial weight moved FedAvg's own params
+# by 1.0e-1 over the 60 rounds, the card and the CPU parted by 2.8e-2,
+# after agreeing to 3e-7 over 3), so no two summation orders agree at
+# 1e-5 over 60 rounds: for FedAvg the whole campaign's card vs CPU
+# difference is printed beside the card's own under that 1-ulp change.
+# FedAvg also runs one turn under BASELINE_VARIANTS: (name, options, the
+# bound of phase 3c, the rounds it is held over); the bf16 policy's round
+# bound holds over one round, and bf16_rule holds it to the CPU's
+# three-round rule.  The KL and Gram counters must stay at 0 through all
+# of it.
+BASELINES = (("fedavg", {"K": 10, "E": 10}), ("sfl", {"K": 20, "E": 14}),
+             ("oranfed", {"E": 10}), ("fedora", {"E": 10}),
+             ("ecofl", {"K": 10, "E": 10}))
+BASELINE_ROUNDS = 60
+BASELINE_CMP_ROUNDS = 3
+# O-RANFed's cohort changes nearly every round: its most frequent round
+# shape, (16, 10), runs at most 2 rounds in a row, so phase 3d profiles
+# windows of 2 rounds or more (phase 3c's hold 3 or more)
+BASELINE_MIN_WINDOW = 2
+# even within those rounds a hidden unit whose pre-activation lies within
+# rounding of 0 can fall on the other side of its ReLU on the card, and its
+# weights' gradients then differ by O(lr x gradient) in that step (H100
+# runs: EcoFL's 23 weights into one unit 3.0e-5 apart after 3 rounds,
+# SplitMe's under the straggler trace of phase 3e 5 elements in 3 units up
+# to 1.4e-5 after 30).  So the params of phases 3d and 3e hold
+# CARD_CPU_TOL but for the weights of at most FLIP_UNITS hidden units a
+# seed (flipped_units), which hold FLIP_TOL; losses and accuracy keep
+# their bounds
+FLIP_UNITS, FLIP_TOL = 4, 1e-4
+BASELINE_VARIANTS = (("kernel_bf16", dict(policy="kernel_bf16"), 1e-3, 1),
+                     ("int8 wire", dict(quant="int8"), 6e-2,
+                      BASELINE_CMP_ROUNDS))
+# FedAvg under the bf16 policy beyond one round.  The CPU's rule
+# (tests/test_torch_baseline_precision.py, at its configuration: the small
+# data of M 12 clients, 32 samples a client, E 3): the first round within
+# the round bound 1e-3, and each of three rounds under BF16_RULE_SHARE of
+# the distance between the CPU's own bf16 and f32 trainers.  On the card
+# the mixed path is held to it for BF16_RULE_SEEDS with the one step that
+# the CPU computes another way, the tensor cores' bf16 GEMM, replaced by
+# the CPU's widened f32 product (widened_gemm); with the tensor cores the
+# round bound is held, and the three-round distances are printed beside
+# what a one-ulp change of the initial weights does on each device (the
+# bf16 rounding of activations turns a last-bit difference into a 2^-8
+# one, and the SGD amplifies it), at that configuration and at phase 3d's
+BF16_RULE_SEEDS = tuple(range(8))
+BF16_RULE_SHARE = 0.5
+# a time-varying RAN (phase 3e): (framework, scenario, rounds, K / E); the
+# card against the CPU over the whole campaign for SplitMe, over the first
+# BASELINE_CMP_ROUNDS rounds for FedORA (phase 3d's reason)
+SCENARIO_RUNS = (("splitme", "straggler:0.4", CAMPAIGN_ROUNDS, {}),
+                 ("fedora", "fading", BASELINE_ROUNDS, {"E": 10}))
+
+
+def flipped_units(torch, card, cpu, tol: float = CARD_CPU_TOL) -> int:
+    """The hidden units (fewest found greedily, up to FLIP_UNITS + 1) whose
+    weights hold every element of one seed's params (tuples of MLP layer
+    lists) more than ``tol`` apart: w_l[i, j] belongs to unit j of layer l
+    (with b_l[j]) and to unit i of layer l - 1, the two units a flipped
+    ReLU's gradient moves."""
+    import collections
+    far = []
+    for h, (ha, hb) in enumerate(zip(card, cpu)):
+        for l, (p, q) in enumerate(zip(ha, hb)):
+            for k in p:
+                d = (p[k].cpu() - q[k].cpu()).abs() > tol
+                for ij in d.nonzero().tolist():
+                    units = {(h, l, ij[-1])}
+                    if k == "w" and l > 0:
+                        units.add((h, l - 1, ij[0]))
+                    far.append(units)
+    n = 0
+    while far and n <= FLIP_UNITS:
+        unit = collections.Counter(
+            u for units in far for u in units).most_common(1)[0][0]
+        far = [units for units in far if unit not in units]
+        n += 1
+    return n + bool(far)
+
+
+def card_vs_cpu_campaign(torch, res, cpu, n_test: int):
+    """Params and loss max diffs of two campaigns, the largest accuracy
+    difference (in test samples) over the rounds both evaluated, and the
+    most flipped_units of a seed."""
+    import numpy as np
+    check(cpu.schedule.E.tolist() == res.schedule.E.tolist()
+          and bool((cpu.schedule.a == res.schedule.a).all()),
+          f"{res.framework}: card and CPU schedules differ")
+    perr, lerr = campaign_max_diff(res, cpu)
+    acc_a, acc_b = res.accuracy_per_round, cpu.accuracy_per_round
+    check(bool((np.isfinite(acc_a) == np.isfinite(acc_b)).all()),
+          f"{res.framework}: card and CPU evaluate different rounds")
+    evaluated = np.isfinite(acc_b).all(axis=1)
+    aerr = float(abs(acc_a[evaluated] - acc_b[evaluated]).max()) * n_test
+    units = max(flipped_units(torch, res.params_for(i), cpu.params_for(i))
+                for i in range(len(res.seeds)))
+    return perr, lerr, aerr, units
+
+
+def check_card_cpu_flips(label, perr, lerr, aerr, units):
+    """The card-vs-CPU bounds of phases 3d and 3e (see FLIP_UNITS)."""
+    check(lerr <= CARD_CPU_TOL and perr <= FLIP_TOL and units <= FLIP_UNITS,
+          f"{label}: campaign on the card and on the CPU disagree")
+    check(aerr <= CMP_ACC_SAMPLES + 1e-6,
+          f"{label}: accuracy on the card and on the CPU disagree")
+
+
+def short_card_vs_cpu(torch, run, n_test: int,
+                      rounds: int = BASELINE_CMP_ROUNDS, **opts):
+    """``run`` over its first ``rounds`` rounds, evaluated after every
+    round, graphed on the card and on the CPU (under ``cpu_policy`` if
+    given): ``card_vs_cpu_campaign``'s differences."""
+    cpu_policy = opts.pop("cpu_policy", None)
+    card = run(rounds=rounds, eval_every=1, **opts)
+    if cpu_policy is not None:
+        opts["policy"] = cpu_policy
+    cpu = run(device="cpu", rounds=rounds, eval_every=1, **opts)
+    return card_vs_cpu_campaign(torch, card, cpu, n_test)
+
+
+def initial_params(torch, port, name: str, seeds):
+    """Each seed's initial weights, drawn as its run's generator draws
+    them (on the CPU)."""
+    spec = port.engine.make_spec(name, port.DNN10, device="cpu")
+    return [spec.init_fn(torch.Generator().manual_seed(s), "cpu")
+            for s in seeds]
+
+
+def one_ulp_up(torch, params):
+    """A params tuple with every element moved up by one ulp."""
+    return tuple([{k: torch.nextafter(v, torch.full_like(v, float("inf")))
+                   for k, v in layer.items()} for layer in half]
+                 for half in params)
+
+
+def param_dist(a, b) -> float:
+    """max |a - b| over two params tuples (lists of MLP layers)."""
+    return max(float((p[k].cpu() - q[k].cpu()).abs().max())
+               for ha, hb in zip(a, b) for p, q in zip(ha, hb) for k in p)
+
+
+def ulp_spread(torch, port, run, spec_name: str):
+    """The card's own sensitivity: one graphed campaign from each seed's
+    initial weights and one from the same weights moved up by one ulp; the
+    max param difference of the two."""
+    init = initial_params(torch, port, spec_name, CAMPAIGN_SEEDS)
+    a = run(params=init)
+    b = run(params=[one_ulp_up(torch, p) for p in init])
+    return campaign_max_diff(a, b)[0]
+
+
+@contextlib.contextmanager
+def widened_gemm(port):
+    """The mixed forward's bf16 GEMM (tensor cores, f32 sums) replaced by
+    the CPU's: both operands widened to f32 (exactly) and one f32
+    product."""
+    mm = port.dnn._matmul_f32
+    port.dnn._matmul_f32 = lambda a, b: a.float() @ b.float()
+    try:
+        yield
+    finally:
+        port.dnn._matmul_f32 = mm
+
+
+def bf16_rule(torch, port, run):
+    """FedAvg under the bf16 policy and the CPU's three-round rule (see
+    BF16_RULE_SEEDS): at the CPU test's configuration through the trainers
+    (the round bound checked on the tensor cores, the rule with the GEMM
+    widened), and at phase 3d's through ``run`` (its campaign, printed).
+    Per seed, each run's distance after three rounds, over the CPU's bf16
+    vs f32 distance: the card's from the CPU's, and a one-ulp change of the
+    initial weights' on each device."""
+    forced = port.dispatch.KernelPolicy(precision=port.dispatch.BF16)
+    X, y = port.oran.generate(n_per_class=300, seed=0)
+    (Xtr, ytr), test = port.oran.train_test_split(X, y)
+    cd = port.oran.partition_non_iid(Xtr, ytr, 12, samples_per_client=32,
+                                     seed=0)
+    inits = initial_params(torch, port, "fedavg", BF16_RULE_SEEDS)
+    ups = [one_ulp_up(torch, p) for p in inits]
+    pairs = (("tensor cores", "cpu"), ("widened GEMM", "cpu"),
+             ("card one ulp up", "tensor cores"), ("CPU one ulp up", "cpu"))
+    small = {k: [] for k, _ in pairs}
+    first = 0.0
+    for seed, init, up in zip(BF16_RULE_SEEDS, inits, ups):
+        def trainer(device, policy, params=init):
+            return port.baselines.FedAvgTrainer(
+                port.DNN10, port.SystemParams(M=12, seed=0), cd, test, E=3,
+                seed=seed, device=device, kernel_policy=policy,
+                params=params)
+        ts = {"tensor cores": trainer("cuda", "kernel_bf16"),
+              "widened GEMM": trainer("cuda", "kernel_bf16"),
+              "card one ulp up": trainer("cuda", "kernel_bf16", up),
+              "cpu": trainer("cpu", forced),
+              "CPU one ulp up": trainer("cpu", forced, up),
+              "f32": trainer("cpu", None)}
+        for r in range(3):
+            loss = {}
+            for key, t in ts.items():
+                with (widened_gemm(port) if key == "widened GEMM"
+                      else contextlib.nullcontext()):
+                    loss[key] = t.run_round().client_loss
+            gap = param_dist((ts["cpu"].params,), (ts["f32"].params,))
+            d = {k: param_dist((ts[k].params,), (ts[ref].params,))
+                 for k, ref in pairs}
+            if r == 0:
+                first = max(first, d["tensor cores"],
+                            abs(loss["tensor cores"] - loss["cpu"]))
+            check(d["widened GEMM"] <= BF16_RULE_SHARE * gap,
+                  f"fedavg kernel_bf16 with the GEMM widened, seed {seed}, "
+                  f"round {r + 1}: {d['widened GEMM']:.3e} from the CPU, "
+                  f"over {BF16_RULE_SHARE} of the bf16 vs f32 {gap:.3e}")
+        for k in small:
+            small[k].append(d[k] / gap)
+    check(first <= 1e-3, f"fedavg kernel_bf16 first round {first:.3e} from "
+          f"the CPU (trainer)")
+    # phase 3d's configuration: one campaign of BF16_RULE_SEEDS a run
+    kw = dict(rounds=3, seeds=BF16_RULE_SEEDS)
+    card = run(policy="kernel_bf16", params=inits, **kw)
+    with widened_gemm(port):
+        wide = run(policy="kernel_bf16", params=inits, **kw)
+    runs = {"tensor cores": card, "widened GEMM": wide,
+            "card one ulp up": run(policy="kernel_bf16", params=ups, **kw),
+            "cpu": run(device="cpu", policy=forced, params=inits, **kw),
+            "CPU one ulp up": run(device="cpu", policy=forced, params=ups,
+                                  **kw)}
+    f32 = run(device="cpu", params=inits, **kw)
+    card_f32 = run(params=inits, **kw)
+    full = {k: [] for k, _ in pairs}
+    f32_dist = []
+    for i in range(len(BF16_RULE_SEEDS)):
+        gap = param_dist(runs["cpu"].params_for(i), f32.params_for(i))
+        for k, ref in pairs:
+            full[k].append(param_dist(runs[k].params_for(i),
+                                      runs[ref].params_for(i)) / gap)
+        f32_dist.append(param_dist(card_f32.params_for(i), f32.params_for(i)))
+
+    def row(d):
+        return "; ".join(f"{k} [{', '.join(f'{v:.2f}' for v in vs)}]"
+                         for k, vs in d.items())
+    print(f"fedavg kernel_bf16, seeds {list(BF16_RULE_SEEDS)}, three rounds "
+          f"at the CPU test's configuration (M 12, 32 samples a client, E "
+          f"3; trainers): first round {first:.3e} from the CPU (tol 1e-3); "
+          f"after three rounds, over the CPU's bf16 vs f32 distance: "
+          f"{row(small)} (widened GEMM: tol {BF16_RULE_SHARE} each round)")
+    print(f"fedavg kernel_bf16, seeds {list(BF16_RULE_SEEDS)}, three rounds "
+          f"at phase 3d's configuration (not checked): {row(full)}; f32 "
+          f"card vs CPU [{', '.join(f'{v:.1e}' for v in f32_dist)}]")
+    return {"bf16_rule_first_round": first, "bf16_rule_small": small,
+            "bf16_rule_full": full, "f32_card_cpu_3_rounds": f32_dist}
+
+
+def graphed_vs_eager(torch, port, res, eager, label: str):
+    """Check two campaigns equal bit for bit (params, losses, EF state)."""
+    perr, lerr = campaign_max_diff(res, eager)
+    qerr = max([float((a - b).abs().max()) for a, b in zip(
+        port.quantcomm.tree_leaves(res.qstate),
+        port.quantcomm.tree_leaves(eager.qstate))], default=0.0)
+    print(f"{label}: graphed vs eager: max param diff {perr:.3e}, loss "
+          f"{lerr:.3e}, error-feedback state {qerr:.3e}")
+    check(perr == lerr == qerr == 0.0,
+          f"{label}: graphed and eager campaigns differ")
+
+
+def baselines_phase(torch, port, clients, test):
+    """Phase 3d: the paper's framework comparison; returns each
+    framework's numbers."""
+    import numpy as np
+    camp = port.campaign
+    S, n_test = len(CAMPAIGN_SEEDS), len(test[1])
+    port.kl_ops.launches = port.kl_ops.launches_bwd = 0
+    port.rg_ops.launches = 0
+    out = {}
+
+    def campaign(name, kw, device="cuda", rounds=BASELINE_ROUNDS,
+                 seeds=CAMPAIGN_SEEDS, **more):
+        return camp.run_campaign(
+            name, port.DNN10, port.SystemParams(seed=0), clients,
+            rounds=rounds, seeds=seeds, test_data=test, device=device,
+            **kw, **more)
+
+    for name, kw in BASELINES:
+        run = functools.partial(campaign, name, kw)
+        graphed = functools.partial(run, eval_every=CAMPAIGN_EVAL_EVERY)
+        camp.HOST_TRANSFERS = 0
+        res, call_ms = timed(torch, lambda: graphed(strict_transfers=True))
+        check(camp.HOST_TRANSFERS == 1,
+              f"{name}: {camp.HOST_TRANSFERS} host transfers")
+        shapes = res.graphs["shapes"]
+        check(res.graphs["graphs"] == len(shapes) + 1,
+              f"{name}: one graph per shape + eval")
+        check(bool(np.isfinite(res.losses).all()), f"{name}: non-finite loss")
+        print(f"{name} ({kw}): {len(shapes)} round shapes "
+              + ", ".join(f"({kb}, {eb}) x{len(rs)}"
+                          for (kb, eb), rs in shapes.items())
+              + f"; {res.graphs['graphs']} graphs, capture "
+              f"{res.graphs['capture_s']:.3f} s; HOST_TRANSFERS "
+              f"{camp.HOST_TRANSFERS} under strict_transfers")
+        g_ms, e_ms, whole = [], [], []
+        shape, window = steady_window(shapes, BASELINE_ROUNDS,
+                                      CAMPAIGN_EVAL_EVERY)
+        check(len(window) >= BASELINE_MIN_WINDOW,
+              f"{name}: steady window {window}")
+        steady = [r for r in shapes[shape][1:]
+                  if (r + 1) % CAMPAIGN_EVAL_EVERY]
+        for turn in range(CAMPAIGN_TURNS):
+            g = graphed() if turn else res
+            e = run(scan=False)
+            if turn == 0:
+                graphed_vs_eager(torch, port, g, e, name)
+            _, ev_ms = timed(torch, lambda: camp.evaluate_campaign(
+                e, port.DNN10, test))
+            g_ms.append(statistics.median(g.round_ms[steady]))
+            e_ms.append(statistics.median(e.round_ms[steady]))
+            whole.append((float(sum(g.round_ms)),
+                          float(sum(e.round_ms)) + ev_ms))
+        pwall, busy, ops, _, _ = profiled_campaign(torch, camp, window,
+                                                   graphed)
+        perr, lerr, aerr, units = short_card_vs_cpu(torch, run, n_test)
+        acc = res.accuracy
+        v = out[name] = {
+            "K_E": kw, "shapes": len(shapes), "graphs": res.graphs["graphs"],
+            "capture_s": res.graphs["capture_s"], "steady_shape": list(shape),
+            "round_ms": statistics.median(g_ms),
+            "eager_round_ms": statistics.median(e_ms),
+            "whole_ms": statistics.median(w[0] for w in whole),
+            "eager_whole_ms": statistics.median(w[1] for w in whole),
+            "call_ms": call_ms, "profiled_round_ms": pwall, "busy_ms": busy,
+            "idle_share": 1 - busy / pwall, "ops_per_round": ops,
+            "accuracy_mean": float(acc.mean()),
+            "accuracy_std": float(acc.std()),
+            "comm_mb": sum(m.comm_bits for m in res.metrics) / 8e6,
+            "sim_time_s": sum(m.sim_time for m in res.metrics),
+            "cost": sum(m.cost for m in res.metrics),
+            "card_cpu_rounds": BASELINE_CMP_ROUNDS,
+            "card_cpu_param_diff": perr, "card_cpu_loss_diff": lerr,
+            "card_cpu_acc_samples": aerr,
+            "card_cpu_flipped_units": units}
+        if name == "fedavg":
+            whole_cpu = run(device="cpu", eval_every=CAMPAIGN_EVAL_EVERY)
+            wp, wl, wa, _ = card_vs_cpu_campaign(torch, res, whole_cpu,
+                                                 n_test)
+            spread = ulp_spread(torch, port, graphed, name)
+            v.update(whole_card_cpu_param_diff=wp, whole_card_cpu_loss_diff=wl,
+                     whole_card_cpu_acc_samples=wa, card_ulp_spread=spread)
+            print(f"{name}: the whole {BASELINE_ROUNDS} rounds, card vs CPU "
+                  f"(not checked): max param diff {wp:.3e}, loss {wl:.3e}, "
+                  f"accuracy {wa:.0f} of {n_test} samples apart; on the "
+                  f"card, every initial weight one ulp up: max param diff "
+                  f"{spread:.3e}")
+        print(f"{name}: steady ({shape[0]}, {shape[1]}) round of {S} seeds "
+              f"graphed {v['round_ms']:.3f} ms, eager "
+              f"{v['eager_round_ms']:.3f} ms "
+              f"({v['eager_round_ms'] / v['round_ms']:.1f}x; medians of "
+              f"{CAMPAIGN_TURNS}); whole {BASELINE_ROUNDS} rounds graphed "
+              f"{v['whole_ms']:.1f} ms (capture and evaluations included; "
+              f"call {call_ms:.1f} ms), eager {v['eager_whole_ms']:.1f} ms "
+              f"with its post-hoc evaluation; profiled rounds "
+              f"{window[0]}-{window[-1]}: wall {pwall:.3f} ms a round, busy "
+              f"{busy:.3f} ms, idle share {v['idle_share']:.4f}, {ops:.1f} "
+              f"device operations a round")
+        print(f"{name}: card (graphed) vs CPU, {S} seeds, the first "
+              f"{BASELINE_CMP_ROUNDS} rounds: max param diff {perr:.3e} "
+              f"(beyond {CARD_CPU_TOL} in {units} units of a seed at most; "
+              f"tol {FLIP_TOL} in at most {FLIP_UNITS}), loss {lerr:.3e} (tol "
+              f"{CARD_CPU_TOL}); accuracy {aerr:.0f} of {n_test} test "
+              f"samples apart (tol {CMP_ACC_SAMPLES}); final accuracy "
+              f"{v['accuracy_mean']:.3f} +- {v['accuracy_std']:.3f} "
+              f"({[round(float(a), 4) for a in acc]}), comm "
+              f"{v['comm_mb']:.1f} MB, sim time {v['sim_time_s']:.3f} s, "
+              f"cost {v['cost']:.3f}")
+        check_card_cpu_flips(name, perr, lerr, aerr, units)
+        torch.cuda.empty_cache()
+
+    # FedAvg under the bf16 policy and the int8 wire: one turn each
+    forced = port.dispatch.KernelPolicy(precision=port.dispatch.BF16)
+    name, kw = BASELINES[0]
+    run = functools.partial(campaign, name, kw)
+    for label, opts, tol, cmp_rounds in BASELINE_VARIANTS:
+        camp.HOST_TRANSFERS = 0
+        res, wall = timed(torch, lambda: run(
+            eval_every=CAMPAIGN_EVAL_EVERY, strict_transfers=True, **opts))
+        check(camp.HOST_TRANSFERS == 1,
+              f"{name} {label}: {camp.HOST_TRANSFERS} host transfers")
+        check(bool(np.isfinite(res.losses).all()),
+              f"{name} {label}: non-finite loss")
+        eager = run(scan=False, **opts)
+        graphed_vs_eager(torch, port, res, eager, f"{name} {label}")
+        more = dict(opts, cpu_policy=forced) if "policy" in opts else opts
+        perr, lerr, aerr, _ = short_card_vs_cpu(torch, run, n_test,
+                                                rounds=cmp_rounds, **more)
+        shapes = res.graphs["shapes"]
+        shape = max(shapes, key=lambda s: len(shapes[s]))
+        steady = [r for r in shapes[shape][1:]
+                  if (r + 1) % CAMPAIGN_EVAL_EVERY]
+        out[f"{name} {label}"] = {
+            "round_ms": statistics.median(res.round_ms[steady]),
+            "whole_ms": float(sum(res.round_ms)), "call_ms": wall,
+            "eager_whole_ms": float(sum(eager.round_ms)),
+            "card_cpu_rounds": cmp_rounds,
+            "card_cpu_param_diff": perr, "card_cpu_loss_diff": lerr,
+            "card_cpu_acc_samples": aerr}
+        print(f"{name} {label}: steady round "
+              f"{out[f'{name} {label}']['round_ms']:.3f} ms, whole "
+              f"{sum(res.round_ms):.1f} ms; card vs CPU over the first "
+              f"{cmp_rounds} rounds: max param diff "
+              f"{perr:.3e}, loss {lerr:.3e} (tol {tol}), accuracy {aerr:.0f} "
+              f"of {n_test} samples apart (tol {CMP_ACC_SAMPLES_MIXED})")
+        check(perr <= tol and lerr <= tol,
+              f"{name} {label}: card and CPU disagree")
+        check(aerr <= CMP_ACC_SAMPLES_MIXED + 1e-6,
+              f"{name} {label}: accuracy on the card and CPU disagree")
+        if "policy" in opts:
+            out[f"{name} {label}"].update(bf16_rule(torch, port, run))
+    after = {"kl_mutual": port.kl_ops.launches,
+             "kl_mutual (backward)": port.kl_ops.launches_bwd,
+             "ridge_gram": port.rg_ops.launches}
+    print(f"baselines: KL and Gram launch counters through the five "
+          f"campaigns and FedAvg's variants: {after}")
+    check(all(v == 0 for v in after.values()),
+          f"a baseline campaign launched a SplitMe kernel {after}")
+    return out
+
+
+def scenario_phase(torch, port, clients, test):
+    """Phase 3e: SCENARIO_RUNS graphed against eager (bit for bit) and
+    against the CPU; round shapes, graphs, capture seconds and the whole
+    campaign graphed and eager."""
+    import numpy as np
+    camp = port.campaign
+    n_test = len(test[1])
+    out = {}
+    for name, scenario, rounds, kw in SCENARIO_RUNS:
+        def run(device="cuda", rounds=rounds, **more):
+            return camp.run_campaign(
+                name, port.DNN10, port.SystemParams(seed=0), clients,
+                rounds=rounds, seeds=CAMPAIGN_SEEDS, test_data=test,
+                scenario=scenario, eval_gamma=CMP_EVAL_GAMMA, device=device,
+                **kw, **more)
+        label = f"{name} under {scenario!r}"
+        camp.HOST_TRANSFERS = 0
+        res, call_ms = timed(torch, lambda: run(
+            eval_every=CAMPAIGN_EVAL_EVERY, strict_transfers=True))
+        check(camp.HOST_TRANSFERS == 1,
+              f"{label}: {camp.HOST_TRANSFERS} host transfers")
+        check(bool(np.isfinite(res.losses).all()), f"{label}: non-finite loss")
+        shapes = res.graphs["shapes"]
+        check(res.graphs["graphs"] == len(shapes) + 1,
+              f"{label}: one graph per shape + eval")
+        check(res.schedule.trace is not None
+              and not res.schedule.trace.is_static(), f"{label}: no trace")
+        eager, e_call = timed(torch, lambda: run(scan=False))
+        graphed_vs_eager(torch, port, res, eager, label)
+        cmp_rounds = rounds if name == "splitme" else BASELINE_CMP_ROUNDS
+        if cmp_rounds == rounds:
+            cpu = run(device="cpu", eval_every=CAMPAIGN_EVAL_EVERY)
+            perr, lerr, aerr, units = card_vs_cpu_campaign(torch, res, cpu,
+                                                           n_test)
+        else:
+            perr, lerr, aerr, units = short_card_vs_cpu(torch, run, n_test)
+        v = out[label] = {
+            "rounds": rounds, "shapes": len(shapes),
+            "graphs": res.graphs["graphs"],
+            "capture_s": res.graphs["capture_s"],
+            "whole_ms": float(sum(res.round_ms)), "call_ms": call_ms,
+            "eager_whole_ms": float(sum(eager.round_ms)),
+            "eager_call_ms": e_call,
+            "selected": res.schedule.a.sum(1).astype(int).tolist(),
+            "accuracy_mean": float(res.accuracy.mean()),
+            "card_cpu_rounds": cmp_rounds,
+            "card_cpu_param_diff": perr, "card_cpu_loss_diff": lerr,
+            "card_cpu_acc_samples": aerr,
+            "card_cpu_flipped_units": units}
+        print(f"{label}: {rounds} rounds, {len(shapes)} round shapes "
+              + ", ".join(f"({kb}, {eb}) x{len(rs)}"
+                          for (kb, eb), rs in shapes.items())
+              + f"; {v['graphs']} graphs, capture {v['capture_s']:.3f} s; "
+              f"whole campaign graphed {v['whole_ms']:.1f} ms (call "
+              f"{call_ms:.1f} ms), eager {v['eager_whole_ms']:.1f} ms of "
+              f"rounds (call {e_call:.1f} ms): "
+              f"{v['eager_whole_ms'] / v['whole_ms']:.2f}x; selected per "
+              f"round {v['selected']}")
+        print(f"{label}: card (graphed) vs CPU over {cmp_rounds} rounds: "
+              f"max param diff {perr:.3e} (beyond {CARD_CPU_TOL} in {units} "
+              f"units of a seed at most; tol {FLIP_TOL} in at most "
+              f"{FLIP_UNITS}), loss {lerr:.3e} (tol {CARD_CPU_TOL}); accuracy {aerr:.0f} "
+              f"of {n_test} test samples apart (tol {CMP_ACC_SAMPLES}, gamma "
+              f"{CMP_EVAL_GAMMA}); final accuracy {v['accuracy_mean']:.3f}")
+        check_card_cpu_flips(label, perr, lerr, aerr, units)
         torch.cuda.empty_cache()
     return out
 
@@ -1858,7 +2377,7 @@ def import_port():
     from repro_torch import serve
     from repro_torch.configs.base import get_config
     from repro_torch.configs.splitme_dnn import DNN10
-    from repro_torch.core import dnn, quantcomm
+    from repro_torch.core import baselines, dnn, engine, quantcomm
     from repro_torch.core.inversion import invert_inverse_model
     from repro_torch.core.cost import SystemParams
     from repro_torch.core.splitme import SplitMeTrainer
@@ -2128,6 +2647,14 @@ def main() -> int:
     phase("3c. precision and wire formats")
     prec = precision_phase(torch, port, sp, clients, test, f32_ops)
 
+    # -- 3d. the framework comparison ----------------------------------------
+    phase("3d. the paper's framework comparison")
+    compared = baselines_phase(torch, port, clients, test)
+
+    # -- 3e. a time-varying RAN ----------------------------------------------
+    phase("3e. a time-varying RAN")
+    scenarios = scenario_phase(torch, port, clients, test)
+
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
     for arch in ZOO_ARCHS:
@@ -2200,6 +2727,8 @@ def main() -> int:
     ]
     print("precision and wire formats (phase 3c): " + json.dumps(
         prec["variants"]))
+    print("framework comparison (phase 3d): " + json.dumps(compared))
+    print("time-varying RAN (phase 3e): " + json.dumps(scenarios))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

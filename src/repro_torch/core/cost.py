@@ -1,11 +1,12 @@
 """O-RAN SFL resource & latency cost model (paper §IV-A/B, eq. 16-21) —
 numpy copy of the per-round parts of ``repro.core.cost`` and of its
-vectorized ``schedule_metrics`` for a static schedule.
+vectorized ``schedule_metrics`` over a schedule and a scenario trace.
 
 All quantities are per global round; the optimization target is
 K_ε(E) · cost(t) with K_ε from Corollary 4.  ``G_m`` (channel gain on the
 uplink rate ``b_m B``) and ``avail`` (selection-time availability) default to
-all-ones, the static model.
+all-ones, the static model; a scenario (``repro_torch.core.scenario``)
+rewrites them and rescales ``Q_C`` / ``Q_S`` / ``t_round`` round by round.
 """
 from __future__ import annotations
 
@@ -126,16 +127,21 @@ def schedule_metrics(a: np.ndarray, b: np.ndarray, E: np.ndarray,
                      sp: SystemParams, trace=None):
     """Eq. 18 latency, eq. 20 cost and the per-round energy for a whole
     stacked schedule in one vectorized pass: ``a``/``b`` are ``(R, M)``,
-    ``E`` is ``(R,)``.  Every row equals the scalar ``total_time`` /
-    ``round_cost`` / ``round_energy`` of that round.  Returns
-    ``(sim_time, cost, energy)``, each ``(R,)``.  A scenario ``trace`` is a
-    later slice of the port and raises."""
-    if trace is not None:
-        raise NotImplementedError("later slice: scenarios are not ported yet")
+    ``E`` is ``(R,)``.  ``trace`` (a ``scenario.ScenarioTrace`` or None)
+    supplies the per-round channel gains and Q_C / Q_S rescalings, ``sp``
+    the round-invariant base values.  Without a trace every row equals the
+    scalar ``total_time`` / ``round_cost`` / ``round_energy`` of that
+    round.  Returns ``(sim_time, cost, energy)``, each ``(R,)``.  (The
+    reference's population-mode ``rows=`` is a later slice.)"""
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     E = np.asarray(E, np.float64)[:, None]                     # (R, 1)
-    q_c, q_s, gain = sp.Q_C[None], sp.Q_S[None], sp.G_m[None]
+    if trace is None:
+        q_c, q_s, gain = sp.Q_C[None], sp.Q_S[None], sp.G_m[None]
+    else:
+        q_c = sp.Q_C[None] * trace.qc_scale
+        q_s = sp.Q_S[None] * trace.qs_scale
+        gain = sp.G_m[None] * trace.gain
     size = sp.S_m[None] + sp.omega * sp.d_model_bits           # (1, M)
     with np.errstate(divide="ignore"):
         t_co = size / np.maximum(b * sp.B * gain, 1e-12)

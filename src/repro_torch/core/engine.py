@@ -1,4 +1,5 @@
-"""Federated round engine for SplitMe; port of the SplitMe parts of
+"""Federated round engine for the framework registry — SplitMe and the
+five baselines (FedAvg, vanilla SFL, O-RANFed, FedORA, EcoFL); port of
 ``repro.core.engine``.
 
 A framework contributes a ``FrameworkSpec``: one or more ``PhaseSpec``s (a
@@ -36,11 +37,17 @@ The spec's kernel policy carries the precision: under bf16 the client
 dataset is cast once, when the round is built, and the forwards run mixed
 (``dnn.mlp_forward``).
 
-Not ported in this slice (raise): the five baseline frameworks, scenarios
-and fault guards, and the sharded round.
+The baselines train the whole ``cfg.layer_dims`` MLP on cross-entropy in one
+phase (``_mlp_spec``) and differ only in their comm model and host policy;
+they call no kernel of their own (their forward, loss and backward are plain
+PyTorch, as the reference's are plain jnp).
+
+Not ported in this slice (raise): fault guards and fault channels, and the
+sharded round.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -50,8 +57,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.splitme_dnn import DNNConfig
 from repro_torch.core import dnn, quantcomm
-from repro_torch.core.allocation import solve_p2
-from repro_torch.core.cost import SystemParams
+from repro_torch.core.allocation import solve_bandwidth, solve_p2
+from repro_torch.core.cost import SystemParams, uplink_time
 from repro_torch.core.inversion import invert_inverse_model
 from repro_torch.core.quantcomm import CommQuant
 from repro_torch.core.selection import (SelectionState, initial_state,
@@ -61,9 +68,6 @@ from repro_torch.kernels.dispatch import KernelPolicy, PolicyLike
 
 Params = List[dict]                 # [{"w", "b"}] per layer
 ParamsTuple = Tuple[Params, ...]
-
-_LATER_FRAMEWORKS = ("fedavg", "sfl", "oranfed", "fedora", "ecofl")
-
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"later slice: {what} is not ported yet")
@@ -312,7 +316,7 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     and the masked update.  The gathered round checks no index values
     (that would wait on the card); its callers check them on the host."""
     if guards is not None or with_faults:
-        raise _later("fault guards")
+        raise _later("fault channels and guards")
     if policy is not None and (dispatch.get_policy(policy).resolved(x.device)
                                != spec.policy):
         raise ValueError("round builders cannot override the spec-bound "
@@ -414,8 +418,48 @@ def quant_uniforms(spec: FrameworkSpec, params: ParamsTuple,
 
 
 # ---------------------------------------------------------------------------
-# Host-side selection / allocation (Alg. 1 + P2), numpy
+# Host-side selection / allocation policies (Alg. 1, P2, fixed-K), numpy
 # ---------------------------------------------------------------------------
+
+class FixedKPolicy:
+    """FedAvg / vanilla SFL: K uniformly random clients, uniform bandwidth.
+
+    Scenario availability (``sp.avail``) bounds the draw: only available
+    clients are candidates, and the cohort shrinks below K when fewer are
+    up.  The all-available case consumes the same RNG stream as without a
+    scenario."""
+
+    def __init__(self, sp: SystemParams, K: int, E: int, seed: int):
+        self.sp, self.K, self.E = sp, K, E
+        self.rng = np.random.default_rng(seed)
+
+    def step(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        cand = np.flatnonzero(self.sp.avail > 0)
+        a = np.zeros(self.sp.M)
+        if cand.size == self.sp.M:
+            k = min(self.K, self.sp.M)
+            a[self.rng.choice(self.sp.M, k, replace=False)] = 1.0
+        else:
+            if cand.size == 0:            # total blackout: never stall
+                cand = np.arange(self.sp.M)
+            k = min(self.K, cand.size)
+            a[self.rng.choice(cand, k, replace=False)] = 1.0
+        b = np.where(a > 0, 1.0 / k, 0.0)
+        return a, b, self.E
+
+
+class DeadlineFixedEPolicy:
+    """O-RANFed: deadline-aware selection + min-max bandwidth, fixed E."""
+
+    def __init__(self, sp: SystemParams, state: SelectionState, E: int):
+        self.sp, self.state, self.E = sp, state, E
+
+    def step(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        a = select_trainers(self.E, self.sp, self.state)
+        b = solve_bandwidth(a, self.E, self.sp)
+        self.state = update_state(self.state, a, b, self.sp)
+        return a, b, self.E
+
 
 class SplitMeAdaptivePolicy:
     """SplitMe: Alg. 1 selection + P2 bandwidth/adaptive-E (never increases)."""
@@ -430,6 +474,69 @@ class SplitMeAdaptivePolicy:
         return a, b, self.E
 
 
+class FedORAPolicy:
+    """FedORA (arXiv 2505.19211): the RIC admits clients fastest-first
+    while the exact min-max bandwidth allocation keeps every admitted
+    client's round time inside its slice deadline; only clients it can
+    reach this round (``sp.avail``) are candidates.  Fixed E,
+    deterministic."""
+
+    def __init__(self, sp: SystemParams, E: int):
+        self.sp, self.E = sp, E
+
+    def step(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        sp, E = self.sp, self.E
+        order = np.argsort(E * (sp.Q_C + sp.Q_S), kind="stable")
+        order = order[sp.avail[order] > 0]
+        if order.size == 0:
+            order = np.argsort(E * (sp.Q_C + sp.Q_S), kind="stable")
+        a = np.zeros(sp.M)
+        b = np.zeros(sp.M)
+        for m in order:
+            a[m] = 1.0
+            b_try = solve_bandwidth(a, E, sp)
+            t = E * (sp.Q_C + sp.Q_S) + uplink_time(a, b_try, sp)
+            if np.all((a == 0) | (t <= sp.t_round)):
+                b = b_try
+            else:
+                # admitted sets are nested along the fastest-first order
+                a[m] = 0.0
+                break
+        if a.sum() == 0:                       # never stall
+            a[order[0]] = 1.0
+            b = solve_bandwidth(a, E, sp)
+        return a, b, self.E
+
+
+class EcoFLPolicy:
+    """EcoFL (arXiv 2507.21698): the K clients of lowest estimated round
+    energy (transmit power × uplink time at a uniform K-share + compute
+    power × E local updates), then min-max bandwidth over them.
+    Unavailable clients rank last; a total blackout falls back to the
+    plain ranking.  Fixed E, deterministic."""
+
+    def __init__(self, sp: SystemParams, K: int, E: int):
+        self.sp, self.K, self.E = sp, K, E
+
+    def step(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        sp = self.sp
+        t_up_est = (sp.S_m + sp.omega * sp.d_model_bits) \
+            / ((sp.B / self.K) * sp.G_m)
+        energy = (sp.p_tx_w * t_up_est
+                  + sp.p_cpu_w * self.E * (sp.Q_C + sp.Q_S))
+        if np.any(sp.avail > 0):
+            energy = np.where(sp.avail > 0, energy, np.inf)
+        k = max(1, min(self.K, int(np.sum(np.isfinite(energy)))))
+        a = np.zeros(sp.M)
+        a[np.argsort(energy, kind="stable")[:k]] = 1.0
+        b = solve_bandwidth(a, self.E, sp)
+        return a, b, self.E
+
+
+# ---------------------------------------------------------------------------
+# Per-framework SystemParams derivation (on a private copy)
+# ---------------------------------------------------------------------------
+
 def _derive_splitme(sp: SystemParams, cfg: DNNConfig, n_m: int,
                     wire_bits: float = 32.0) -> None:
     """Smashed-data size, split-model bits and omega from the actual DNN."""
@@ -441,37 +548,62 @@ def _derive_splitme(sp: SystemParams, cfg: DNNConfig, n_m: int,
     sp.omega = pc_c / (pc_c + pc_i)
 
 
+def _derive_full_model(sp: SystemParams) -> None:
+    """Full-model FL upload: whole model, no smashed data."""
+    sp.omega = 1.0
+    sp.S_m = np.zeros(sp.M)
+
+
+def _derive_no_offload(sp: SystemParams) -> None:
+    """O-RANFed: the client computes BOTH halves locally."""
+    _derive_full_model(sp)
+    sp.Q_C = sp.Q_C + sp.Q_S
+    sp.Q_S = np.zeros(sp.M)
+
+
 def make_policy(name: str, sp: SystemParams, cfg: DNNConfig, *,
                 seed: int = 0, K: int = 10, E: int = 10,
                 e_initial: int = 20,
                 n_samples_per_client: Optional[int] = None,
                 quant=None) -> Tuple[SystemParams, Any]:
     """Copy `sp`, apply the framework's parameter derivation to the copy,
-    and build its selection/allocation policy.  SplitMe seeds Alg. 1's
-    pessimistic t_max^0 from the caller's generic S_m/omega BEFORE deriving
-    the real sizes, as the reference does.  ``quant`` scales every wire
-    payload of the copy (S_m, d_model_bits) by ``wire_bits / 32`` before
-    that, so Alg. 1, P2 and the comm / latency / cost models all see the
-    narrower format (and may admit more clients)."""
-    if name in _LATER_FRAMEWORKS:
-        raise _later(f"framework {name!r}")
-    if name != "splitme":
+    and build its selection/allocation policy, in the reference's order:
+    SplitMe seeds Alg. 1's pessimistic t_max^0 from the caller's generic
+    S_m/omega BEFORE deriving the real sizes, O-RANFed derives first.
+    ``quant`` scales the copy's generic wire payloads (S_m, d_model_bits)
+    by ``wire_bits / 32`` before the framework's branch (``sfl`` keeps
+    those scaled generic sizes), so Alg. 1, P2, the FedORA / EcoFL rules
+    and the comm / latency / cost models all see the narrower format.
+    ``seed`` drives FedAvg's and SFL's random cohorts."""
+    if name not in _REGISTRY:
         raise KeyError(f"unknown framework {name!r}; have {framework_names()}")
-    if n_samples_per_client is None:
-        raise ValueError("splitme needs n_samples_per_client for S_m")
     sp = sp.copy()
     q = quantcomm.get_quant(quant)
     if q.mode != "none":
         sp.S_m = sp.S_m * q.wire_scale
         sp.d_model_bits = sp.d_model_bits * q.wire_scale
-    state = initial_state(sp)
-    _derive_splitme(sp, cfg, n_samples_per_client,
-                    wire_bits=float(q.wire_bits))
-    return sp, SplitMeAdaptivePolicy(sp, state, e_initial)
+    if name == "splitme":
+        if n_samples_per_client is None:
+            raise ValueError("splitme needs n_samples_per_client for S_m")
+        state = initial_state(sp)
+        _derive_splitme(sp, cfg, n_samples_per_client,
+                        wire_bits=float(q.wire_bits))
+        return sp, SplitMeAdaptivePolicy(sp, state, e_initial)
+    if name == "sfl":
+        return sp, FixedKPolicy(sp, K, E, seed)
+    if name == "oranfed":
+        _derive_no_offload(sp)
+        return sp, DeadlineFixedEPolicy(sp, initial_state(sp), E)
+    _derive_full_model(sp)
+    if name == "fedavg":
+        return sp, FixedKPolicy(sp, K, E, seed)
+    if name == "fedora":
+        return sp, FedORAPolicy(sp, E)
+    return sp, EcoFLPolicy(sp, K, E)
 
 
 # ---------------------------------------------------------------------------
-# Spec factory
+# Spec factories (the registry)
 # ---------------------------------------------------------------------------
 
 def _as_float(x: np.ndarray):
@@ -480,11 +612,80 @@ def _as_float(x: np.ndarray):
     return float(x) if x.ndim == 0 else x
 
 
+def _ce_step(cfg: DNNConfig, pol: KernelPolicy):
+    """Per-client cross-entropy of the whole MLP: the forward in the
+    policy's precision, f32 logits, f32 ``log_softmax`` and the NLL
+    averaged over the batch; stacked (C, ...) weights and (C, B, ·)
+    batches give the (C,) losses."""
+    prec = pol.precision
+
+    def loss(w, x_b, y_b):
+        logits = dnn.mlp_forward(w, x_b, cfg.activation, precision=prec)
+        logp = torch.log_softmax(logits, -1)
+        return -torch.take_along_dim(logp, y_b[..., None], -1)[..., 0] \
+            .mean(-1)
+    return loss
+
+
+def _mlp_spec(name: str, cfg: DNNConfig, comm_model, *, lr: float,
+              batch_size: int, pol: KernelPolicy,
+              quant: CommQuant) -> FrameworkSpec:
+    """A full-model framework: one phase ``"local"`` training param index
+    0, the whole ``cfg.layer_dims`` MLP, on the client data ``"x"`` against
+    the labels ``ctx["y"]``.  Its initial weights are the first draws of
+    the run's generator; the reference's ``init_key_offset`` (which kept
+    its init and round threefry streams apart) has no counterpart, since
+    the port's one generator per run draws the weights and then the
+    batches."""
+    phase = PhaseSpec(
+        name="local", param_idx=0, lr=lr, loss_fn=_ce_step(cfg, pol),
+        data_key="x", target_fn=lambda params, updated, ctx: ctx["y"])
+    return FrameworkSpec(
+        name=name,
+        init_fn=lambda generator, device: (
+            dnn.init_mlp(generator, cfg.layer_dims, device),),
+        phases=(phase,), comm_model=comm_model, batch_size=batch_size,
+        policy=pol, quant=quant)
+
+
+def _full_model_comm(a, E, sp):
+    """Whole-model upload per selected client (fedavg / oranfed / fedora /
+    ecofl); ``sp.d_model_bits`` already carries the wire scale."""
+    return _as_float(np.sum(a, axis=-1) * sp.d_model_bits)
+
+
+def _make_full_model(name: str, cfg: DNNConfig, *, lr: float = 0.05,
+                     batch_size: int = 32,
+                     policy: KernelPolicy = dispatch.KERNEL,
+                     quant: CommQuant = quantcomm.NONE,
+                     **_) -> FrameworkSpec:
+    """FedAvg, O-RANFed, FedORA and EcoFL: the same local training and
+    whole-model payload; they differ only in their host policies."""
+    return _mlp_spec(name, cfg, _full_model_comm, lr=lr,
+                     batch_size=batch_size, pol=policy, quant=quant)
+
+
+def _make_sfl(cfg: DNNConfig, *, lr: float = 0.05, batch_size: int = 32,
+              policy: KernelPolicy = dispatch.KERNEL,
+              quant: CommQuant = quantcomm.NONE, **_) -> FrameworkSpec:
+    """Vanilla SplitFed: per local step the smashed batch goes up and the
+    boundary gradients come down, in the wire format too."""
+    boundary_bits = (2 * batch_size * dnn.client_dims(cfg)[-1]
+                     * float(quant.wire_bits))
+
+    def comm(a, E, sp):
+        return _as_float(np.sum(a, axis=-1)
+                         * (np.asarray(E, np.float64) * boundary_bits
+                            + sp.omega * sp.d_model_bits))
+    return _mlp_spec("sfl", cfg, comm, lr=lr, batch_size=batch_size,
+                     pol=policy, quant=quant)
+
+
 def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
                   temperature: float = 2.0, batch_size: int = 32,
                   masked_loss_metric: bool = False,
                   policy: KernelPolicy = dispatch.KERNEL,
-                  quant: CommQuant = quantcomm.NONE) -> FrameworkSpec:
+                  quant: CommQuant = quantcomm.NONE, **_) -> FrameworkSpec:
     """SplitMe spec.  Both mutual-KL phase losses go through
     ``dispatch.kl_loss`` (the CUDA kernel on the card): with temperature 2
     the client phase's "logits" are the post-ReLU smashed activations and
@@ -538,8 +739,18 @@ def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
         comm_model=comm, batch_size=batch_size, policy=pol, quant=quant)
 
 
+_REGISTRY: Dict[str, Callable[..., FrameworkSpec]] = {
+    "splitme": _make_splitme,
+    "fedavg": functools.partial(_make_full_model, "fedavg"),
+    "sfl": _make_sfl,
+    "oranfed": functools.partial(_make_full_model, "oranfed"),
+    "fedora": functools.partial(_make_full_model, "fedora"),
+    "ecofl": functools.partial(_make_full_model, "ecofl"),
+}
+
+
 def framework_names() -> Tuple[str, ...]:
-    return ("splitme",)
+    return tuple(_REGISTRY)
 
 
 def make_spec(name: str, cfg: DNNConfig, *, policy: PolicyLike = None,
@@ -551,14 +762,17 @@ def make_spec(name: str, cfg: DNNConfig, *, policy: PolicyLike = None,
     format of the aggregation payload; both are bound into the spec.  A
     precision request (``"kernel_bf16"``) is resolved for ``device``, the
     device the spec's rounds will run on (None: the default device, the
-    card where there is one).  Pass the same ``quant`` to ``make_policy``."""
-    if name in _LATER_FRAMEWORKS:
-        raise _later(f"framework {name!r}")
-    if name != "splitme":
-        raise KeyError(f"unknown framework {name!r}; have {framework_names()}")
-    return _make_splitme(cfg,
-                         policy=dispatch.get_policy(policy).resolved(device),
-                         quant=quantcomm.get_quant(quant), **hyper)
+    card where there is one).  Pass the same ``quant`` to ``make_policy``.
+    ``hyper`` goes to the factory, which ignores what it does not take
+    (``masked_loss_metric`` means nothing to a one-phase framework, whose
+    loss metric is always over its executed steps)."""
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown framework {name!r}; have {framework_names()}") from None
+    return factory(cfg, policy=dispatch.get_policy(policy).resolved(device),
+                   quant=quantcomm.get_quant(quant), **hyper)
 
 
 # ---------------------------------------------------------------------------
@@ -568,13 +782,27 @@ def make_spec(name: str, cfg: DNNConfig, *, policy: PolicyLike = None,
 def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
                   client_data: Optional[Dict[str, torch.Tensor]] = None,
                   gamma: float = 1e-3, policy: PolicyLike = None):
-    """Build ``accuracy(params_tuple) -> 0-d tensor`` for the SplitMe spec:
-    Step-4 analytic inversion over all client samples (the Gram products
-    through the ridge_gram kernel), then the stitched forward pass.  The
+    """Build ``accuracy(params_tuple) -> 0-d tensor`` for `spec`.
+
+    The full-model frameworks evaluate their aggregated MLP on the test
+    split.  SplitMe first recovers the server model by the Step-4 analytic
+    inversion over all client samples (``client_data``; the Gram products
+    through the ridge_gram kernel), then runs the stitched forward.  The
     forwards run in the policy's precision; the Grams, the ridge solve and
     the accuracy stay f32."""
+    y_test = y_test.long()
     if spec.name != "splitme":
-        raise _later(f"evaluation of {spec.name!r}")
+        pol = dispatch.get_policy(policy if policy is not None
+                                  else spec.policy).resolved(x_test.device)
+
+        def accuracy_full(params: ParamsTuple) -> torch.Tensor:
+            (w,) = params
+            with torch.no_grad():
+                logits = dnn.mlp_forward(w, x_test, cfg.activation,
+                                         precision=pol.precision)
+                return (logits.argmax(-1) == y_test).float().mean()
+
+        return accuracy_full
     if client_data is None:
         raise ValueError("splitme evaluation needs client_data for the "
                          "Step-4 Gram sums")
@@ -584,7 +812,6 @@ def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
     x = client_data["x"]
     flat_y = F.one_hot(client_data["y"].long(), cfg.n_classes).float()
     flat_y = flat_y.reshape(-1, cfg.n_classes)
-    y_test = y_test.long()
 
     def accuracy(params: ParamsTuple) -> torch.Tensor:
         w_c, w_s_inv = params

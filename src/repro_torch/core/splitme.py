@@ -21,7 +21,15 @@ them), so every other wire format draws exactly the same batches.
 ``kernel_policy`` (a preset name or a ``KernelPolicy``; ``"kernel_bf16"``
 is bf16 on the card, f32 on the CPU) and ``comm_quant`` (``"none"`` /
 ``"bf16"`` / ``"int8"``) are bound into the trainer's spec; the int8
-error-feedback state is carried from round to round.
+error-feedback state is carried from round to round.  ``scenario`` (a
+``repro_torch.core.scenario.ScenarioTrace``; a serial trainer has no round
+horizon to build one from a name) rewrites the derived SystemParams to each
+round's RAN state before the policy steps, and the realized mask drops the
+clients that fail mid-round.
+
+``_SerialTrainer`` holds what the SplitMe trainer and the baselines'
+(``repro_torch.core.baselines``) share: the device and data, the run's
+generators, the per-round operands and the scenario.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.splitme_dnn import DNNConfig
-from repro_torch.core import dnn, engine
+from repro_torch.core import dnn, engine, scenario as scen
 from repro_torch.core.cost import (SystemParams, round_cost, round_energy,
                                    total_time)
 from repro_torch.core.engine import RoundMetrics, fetch_history
@@ -51,7 +59,116 @@ def _to_device(params, device: torch.device):
              for k, v in p.items()} for p in params]
 
 
-class SplitMeTrainer:
+class _SerialTrainer:
+    """The parts of a serial trainer that do not depend on its framework.
+
+    ``_setup`` takes the data onto ``device`` (the card unless ``"cpu"``),
+    builds the policy and the spec, seeds the run's generator (which draws
+    the initial weights, unless ``params`` gives them, and then each
+    round's batch indices) and the int8 uniforms' own generator, and checks
+    the scenario.  ``_plan`` steps the policy against the round's RAN
+    state; ``_operands`` draws, checks and uploads a round's inputs."""
+
+    def _setup(self, name, cfg, sp, client_data, test_data, *, seed, device,
+               params, index_source, uniform_source, scenario, policy_kw,
+               spec_kw):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        dev = self.device
+        self.x = torch.as_tensor(client_data["x"], dtype=torch.float32,
+                                 device=dev)                 # (M, n, d)
+        self.y = torch.as_tensor(client_data["y"], dtype=torch.int64,
+                                 device=dev)                 # (M, n)
+        self.x_test = torch.as_tensor(test_data[0], dtype=torch.float32,
+                                      device=dev)
+        self.y_test = torch.as_tensor(test_data[1], dtype=torch.int64,
+                                      device=dev)
+        # private SystemParams copy + the framework's policy (never mutates
+        # `sp`); the policy reads this same copy, so a scenario's rewrites
+        # reach its selection
+        self.sp, self.policy = engine.make_policy(name, sp, cfg, **policy_kw)
+        if isinstance(scenario, str):
+            raise TypeError(
+                "serial trainers need a concrete ScenarioTrace (the round "
+                "horizon is open-ended): build one with scenario.make_trace("
+                f"{scenario!r}, rounds, M) or run a campaign")
+        scen.reject_faults(scenario)
+        self._trace = scenario
+        self._trace_base = (scen.capture_base(self.sp)
+                            if scenario is not None else None)
+        self._spec = engine.make_spec(name, cfg, device=dev, **spec_kw)
+        self.generator = torch.Generator().manual_seed(seed)
+        if params is None:
+            params = self._spec.init_fn(self.generator, dev)
+        self._index_source = index_source or self._draw_indices
+        self._uniform_gen = engine.uniform_generator(seed)
+        self._uniform_source = uniform_source or self._draw_uniforms
+        self.history: List[RoundMetrics] = []
+        self._round = 0
+        return tuple(_to_device(p, dev) for p in params)
+
+    def _params(self) -> tuple:
+        raise NotImplementedError
+
+    def _e_max(self) -> int:
+        raise NotImplementedError
+
+    def _draw_indices(self, round_idx: int) -> torch.Tensor:
+        """This round's batch indices from the trainer's CPU generator."""
+        M, n = self.x.shape[0], self.x.shape[1]
+        shape = (len(self._spec.phases), M, self._e_max(),
+                 self._spec.batch_size)
+        return torch.randint(0, n, shape, generator=self.generator)
+
+    def _draw_uniforms(self, round_idx: int) -> torch.Tensor:
+        """This round's int8 uniforms from the trainer's second generator."""
+        return engine.quant_uniforms(self._spec, self._params(),
+                                     self._uniform_gen)
+
+    def _plan(self):
+        """The policy's (a, b, E) against round t's RAN state; ``a`` is the
+        realized mask under a scenario."""
+        if self._trace is not None:
+            scen.apply_round(self.sp, self._trace_base, self._trace,
+                             self._round)
+        a, b, e = self.policy.step()
+        if self._trace is not None:
+            a = scen.realized_mask(a, self._trace, self._round)
+        return a, b, e
+
+    def _operands(self, a):
+        """(a_mask, batch indices, int8 uniforms or None) on the device."""
+        idx = self._index_source(self._round)
+        n = self.x.shape[1]
+        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+            raise ValueError(f"batch indices must lie in [0, {n})")
+        idx = idx.to(self.device)
+        a_mask = torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        uniforms = None
+        if self._spec.quant.stochastic:
+            uniforms = torch.as_tensor(self._uniform_source(self._round),
+                                       dtype=torch.float32).to(self.device)
+        return a_mask, idx, uniforms
+
+    def _metrics(self, a, b, **values) -> RoundMetrics:
+        sp, e = self.sp, self.E
+        m = RoundMetrics(
+            round=self._round, n_selected=int(a.sum()), E=e,
+            comm_bits=self._spec.comm_model(a, e, sp),
+            sim_time=total_time(a, b, e, sp),
+            cost=round_cost(a, b, e, sp),
+            energy=round_energy(a, b, e, sp), **values)
+        self._round += 1
+        self.history.append(m)
+        return m
+
+    def fetch_history(self) -> List[RoundMetrics]:
+        """Resolve buffered device-tensor metrics to floats in ONE
+        device→host transfer (call once at campaign end)."""
+        return fetch_history(self.history)
+
+
+class SplitMeTrainer(_SerialTrainer):
     """Runs the full Algorithm 2 over the partitioned O-RAN dataset.
 
     ``device`` defaults to the card and raises where there is none.
@@ -73,94 +190,44 @@ class SplitMeTrainer:
                  uniform_source: Optional[UniformSource] = None):
         if not lr_c > lr_s:
             raise ValueError("Corollary 3: η_C > η_S (B_1 < B_2)")
-        if scenario is not None:
-            raise NotImplementedError("later slice: scenarios are not "
-                                      "ported yet")
-        self.device = resolve_device(device)
-        self.cfg = cfg
-        dev = self.device
-        self.x = torch.as_tensor(client_data["x"], dtype=torch.float32,
-                                 device=dev)                 # (M, n, d)
-        self.y = torch.as_tensor(client_data["y"], dtype=torch.int64,
-                                 device=dev)                 # (M, n)
-        self.x_test = torch.as_tensor(test_data[0], dtype=torch.float32,
-                                      device=dev)
-        self.y_test = torch.as_tensor(test_data[1], dtype=torch.int64,
-                                      device=dev)
+        n_m = int(np.shape(client_data["x"])[1])
+        self.w_c, self.w_s_inv = self._setup(
+            "splitme", cfg, sp, client_data, test_data, seed=seed,
+            device=device, params=params, index_source=index_source,
+            uniform_source=uniform_source, scenario=scenario,
+            policy_kw=dict(e_initial=e_initial, n_samples_per_client=n_m,
+                           quant=comm_quant),
+            spec_kw=dict(lr_c=lr_c, lr_s=lr_s, temperature=temperature,
+                         batch_size=batch_size, policy=kernel_policy,
+                         quant=comm_quant))
         self.gamma = gamma
-        # private SystemParams copy + Alg. 1/P2 policy (never mutates `sp`)
-        self.sp, self.policy = engine.make_policy(
-            "splitme", sp, cfg, e_initial=e_initial,
-            n_samples_per_client=int(self.x.shape[1]), quant=comm_quant)
-        self._spec = engine.make_spec(
-            "splitme", cfg, lr_c=lr_c, lr_s=lr_s, temperature=temperature,
-            batch_size=batch_size, policy=kernel_policy, quant=comm_quant,
-            device=dev)
-        self.generator = torch.Generator().manual_seed(seed)
-        if params is None:
-            params = self._spec.init_fn(self.generator, dev)
-        self.w_c, self.w_s_inv = (_to_device(p, dev) for p in params)
-        self._index_source = index_source or self._draw_indices
-        self._uniform_gen = engine.uniform_generator(seed)
-        self._uniform_source = uniform_source or self._draw_uniforms
         self._qstate = engine.init_quant_state(self._spec,
                                                (self.w_c, self.w_s_inv))
         self.E = e_initial
-        self.history: List[RoundMetrics] = []
-        self._round = 0
         self._round_fn = engine.build_round_fn(
             self._spec, cfg, self.x, self.y, e_max=self.sp.E_max)
         self._eval_fn = engine.build_eval_fn(
             self._spec, cfg, self.x_test, self.y_test,
             client_data={"x": self.x, "y": self.y}, gamma=gamma)
 
-    def _draw_indices(self, round_idx: int) -> torch.Tensor:
-        """This round's batch indices from the trainer's CPU generator."""
-        M, n = self.x.shape[0], self.x.shape[1]
-        shape = (len(self._spec.phases), M, self.sp.E_max,
-                 self._spec.batch_size)
-        return torch.randint(0, n, shape, generator=self.generator)
+    def _params(self) -> tuple:
+        return (self.w_c, self.w_s_inv)
 
-    def _draw_uniforms(self, round_idx: int) -> torch.Tensor:
-        """This round's int8 uniforms from the trainer's second generator."""
-        return engine.quant_uniforms(self._spec, (self.w_c, self.w_s_inv),
-                                     self._uniform_gen)
+    def _e_max(self) -> int:
+        return self.sp.E_max
 
     # ------------------------------------------------------------------
     def run_round(self, eval_acc: bool = False) -> RoundMetrics:
-        sp = self.sp
         # P1 + P2: deadline-aware selection, bandwidth, adaptive E
-        a, b, self.E = self.policy.step()
-        idx = self._index_source(self._round)
-        n = self.x.shape[1]
-        if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
-            raise ValueError(f"batch indices must lie in [0, {n})")
-        idx = idx.to(self.device)
-        a_mask = torch.as_tensor(a, dtype=torch.float32, device=self.device)
-        uniforms = None
-        if self._spec.quant.stochastic:
-            uniforms = torch.as_tensor(self._uniform_source(self._round),
-                                       dtype=torch.float32).to(self.device)
+        a, b, self.E = self._plan()
+        a_mask, idx, uniforms = self._operands(a)
         (self.w_c, self.w_s_inv), (closs, sloss), self._qstate = \
             self._round_fn((self.w_c, self.w_s_inv), a_mask, self.E, idx,
                            self._qstate, uniforms)
-        m = RoundMetrics(
-            round=self._round, n_selected=int(a.sum()), E=self.E,
-            comm_bits=self._spec.comm_model(a, self.E, sp),
-            sim_time=total_time(a, b, self.E, sp),
-            cost=round_cost(a, b, self.E, sp),
-            energy=round_energy(a, b, self.E, sp),
-            client_loss=closs, server_loss=sloss)
-        if eval_acc:
-            m.accuracy = self._eval_fn((self.w_c, self.w_s_inv))
-        self._round += 1
-        self.history.append(m)
-        return m
-
-    def fetch_history(self) -> List[RoundMetrics]:
-        """Resolve buffered device-tensor metrics to floats in ONE
-        device→host transfer (call once at campaign end)."""
-        return fetch_history(self.history)
+        acc = (self._eval_fn((self.w_c, self.w_s_inv)) if eval_acc
+               else float("nan"))
+        return self._metrics(a, b, client_loss=closs, server_loss=sloss,
+                             accuracy=acc)
 
     # ------------------------------------------------------------------
     def finalize(self) -> List[dict]:

@@ -1,7 +1,8 @@
 """Synthetic COMMAG-style O-RAN slice-traffic dataset — numpy copy of
 ``repro.data.oran`` (``generate``, ``partition_non_iid``,
-``draw_client_shard``, ``train_test_split``), kept call for call so the same
-seed gives the same arrays (pinned by tests/test_torch_splitme.py).
+``draw_client_shard``, ``partition_dirichlet``, ``train_test_split``), kept
+call for call so the same seed gives the same arrays (pinned by
+tests/test_torch_splitme.py and tests/test_torch_scenario.py).
 
 Each sample is a 30-KPI vector with class-conditional structure (eMBB =
 throughput / buffers, mMTC = small sporadic packets, URLLC = latency) and
@@ -107,6 +108,29 @@ def draw_client_shard(rng: np.random.Generator, by_class, samples_per_client:
         rng.choice(by_class[c], counts[c], replace=True)
         for c in range(n_classes) if counts[c] > 0])
     return take[rng.permutation(samples_per_client)]
+
+
+def partition_dirichlet(X: np.ndarray, y: np.ndarray, n_clients: int,
+                        samples_per_client: int, alpha: float,
+                        seed: int = 0) -> Dict[str, np.ndarray]:
+    """Dirichlet(α) non-IID partition generalizing ``partition_non_iid``:
+    client m draws class shares p_m ~ Dir(α·1), the largest swapped onto
+    its anchor class m % C, and samples its points from the class pools
+    accordingly.  α ≤ 1e-6 is the paper's one-class-per-client split
+    exactly.  Returns stacked arrays:  Xc (M, n, d), yc (M, n)."""
+    if alpha < 0:
+        raise ValueError(f"alpha must be >= 0, got {alpha}")
+    if alpha <= _ALPHA_SEED_EXACT:
+        return partition_non_iid(X, y, n_clients, samples_per_client, seed)
+    rng = np.random.default_rng(seed)
+    by_class = [np.where(y == c)[0] for c in range(N_CLASSES)]
+    Xc = np.zeros((n_clients, samples_per_client, X.shape[1]), np.float32)
+    yc = np.zeros((n_clients, samples_per_client), np.int32)
+    for m in range(n_clients):
+        take = draw_client_shard(rng, by_class, samples_per_client, alpha,
+                                 m % N_CLASSES)
+        Xc[m], yc[m] = X[take], y[take]
+    return {"x": Xc, "y": yc}
 
 
 def train_test_split(X, y, test_frac: float = 0.2, seed: int = 0):

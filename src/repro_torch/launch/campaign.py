@@ -1,9 +1,9 @@
-"""Multi-seed SplitMe campaign on one device; port of the SplitMe parts of
-``repro.launch.campaign`` (``run_campaign``, its host plan and
-``evaluate_campaign``).
+"""Multi-seed campaign of any framework of the registry (SplitMe and the
+five baselines) on one device; port of ``repro.launch.campaign``
+(``run_campaign``, its host plan and ``evaluate_campaign``).
 
-The system-side trajectory (A_t, b_t, E_t) of SplitMe does not depend on
-the learned parameters, so it is planned on the host once
+The system-side trajectory (A_t, b_t, E_t) of every framework does not
+depend on the learned parameters, so it is planned on the host once
 (``plan_schedule``) and shared by every seed; the schedule-derived metrics
 (comm_bits, selected count, latency, cost, energy) are vectorized over it
 up front.  Every round trains only its selected cohort (the engine's
@@ -22,11 +22,11 @@ Execution modes:
   one int64 row of a table uploaded before the device phase, and under the
   int8 wire format its uniforms in one (S, U) f32 slice of a second table;
   a round costs the host one device-to-device copy of its row (and one of
-  its uniforms) and one replay.  The Step-4
-  evaluation is a second graph, replayed after the rounds that evaluate
-  (every ``eval_every`` rounds and the last).  Losses and accuracies land
-  in device buffers, fetched to the host once per campaign
-  (``_host_fetch``).  The graphs share one memory pool: they run one after
+  its uniforms) and one replay.  The evaluation (SplitMe's Step 4, or the
+  baselines' full-model accuracy) is a second graph, replayed after the
+  rounds that evaluate (every ``eval_every`` rounds and the last).  Losses
+  and accuracies land in device buffers, fetched to the host once per
+  campaign (``_host_fetch``).  The graphs share one memory pool: they run one after
   another, and every tensor that outlives a replay (the parameters, the
   metric buffers and the int8 error-feedback state) is allocated outside
   them.  On the CPU the same round
@@ -40,6 +40,15 @@ the CPU; ``KernelPolicy(precision=BF16)`` anywhere) and wire format
 (``quant``: none / bf16 / int8) run through both modes and the evaluation;
 ``quant`` also narrows the payloads the host plan optimizes over.
 
+A ``scenario`` (a ``repro_torch.core.scenario`` name such as ``"fading"``
+or ``"straggler:0.4"``, or a ``ScenarioTrace``) makes the plan
+time-varying: each round the policy re-selects against the round-t RAN
+state and the recorded mask is the realized one; latency, cost and energy
+vectorize over trace × schedule.  As in the reference, the trace acts on
+the host plan and the metrics only, so both modes run the same device
+rounds, each a graph of its (cohort, E) shape; a schedule with many shapes
+captures many graphs.
+
 Randomness is an input, as in the trainer: each seed's CPU
 ``torch.Generator(seed)`` draws its initial parameters (unless ``params=``
 gives them) and then, round by round, its full-M batch indices (unless
@@ -49,9 +58,9 @@ gives them) and then, round by round, its full-M batch indices (unless
 threefry streams; the parity tests feed both packages the same
 parameters, batches and uniforms.
 
-Not ported in this slice (raise): the baseline frameworks, ``mesh=``
-(sharded rounds), scenarios, fault guards, checkpoints and resume,
-population mode and config sweeps.
+Not ported in this slice (raise): ``mesh=`` (sharded rounds), fault
+channels and guards, checkpoints and resume, population mode and config
+sweeps.
 """
 from __future__ import annotations
 
@@ -64,7 +73,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.splitme_dnn import DNNConfig
-from repro_torch.core import engine, quantcomm
+from repro_torch.core import engine, quantcomm, scenario as scen
 from repro_torch.core.cost import SystemParams, schedule_metrics
 from repro_torch.core.engine import RoundMetrics, _later
 from repro_torch.device import DeviceLike, resolve_device
@@ -97,11 +106,14 @@ def _to_numpy(tree):
 
 @dataclass
 class RoundSchedule:
-    """Precomputed system-side trajectory, shared by every seed."""
-    a: np.ndarray      # (R, M) binary selection masks
+    """Precomputed system-side trajectory, shared by every seed.  With a
+    scenario, ``a`` is the realized mask (the policy's selection against
+    the round-t trace times the mid-round survival) and ``trace`` the
+    trace the metrics vectorize over."""
+    a: np.ndarray      # (R, M) binary selection masks (trace-realized)
     b: np.ndarray      # (R, M) bandwidth fractions
     E: np.ndarray      # (R,)   local-update counts
-    trace: Any = None  # scenario traces are a later slice: always None
+    trace: Optional[scen.ScenarioTrace] = None
 
     @property
     def rounds(self) -> int:
@@ -142,23 +154,36 @@ def plan_schedule(framework: str, sp: SystemParams, cfg: DNNConfig,
                   rounds: int, *, policy_seed: int = 0, K: int = 10,
                   E: int = 10, e_initial: int = 20,
                   n_samples_per_client: Optional[int] = None,
-                  quant=None, scenario=None, scenario_seed: int = 0
+                  quant=None, scenario: scen.ScenarioLike = None,
+                  scenario_seed: int = 0
                   ) -> Tuple[SystemParams, RoundSchedule]:
     """Run the framework's host-side policy for `rounds` rounds.
 
-    Returns the framework's derived SystemParams copy and the schedule.
-    A ``scenario`` is a later slice of the port and raises."""
-    if scenario is not None:
-        raise _later("scenarios")
+    Returns the framework's derived SystemParams copy (its round-invariant
+    base values) and the schedule.  ``scenario`` (None, a registry name or
+    a ``ScenarioTrace``; names draw from ``scenario_seed``) writes each
+    round's trace into the copy before the policy steps, and records the
+    realized mask."""
     sp, policy = engine.make_policy(
         framework, sp, cfg, seed=policy_seed, K=K, E=E, e_initial=e_initial,
         n_samples_per_client=n_samples_per_client, quant=quant)
+    trace = scen.get_trace(scenario, rounds, sp.M, seed=scenario_seed)
+    # an all-ones trace ("static", or the data-side "noniid") needs no
+    # per-round rewrites
+    dynamic = trace is not None and not trace.is_static()
+    base = scen.capture_base(sp) if dynamic else None
     a_l, b_l, e_l = [], [], []
-    for _ in range(rounds):
+    for t in range(rounds):
+        if dynamic:
+            scen.apply_round(sp, base, trace, t)
         a, b, e = policy.step()
+        if dynamic:
+            a = scen.realized_mask(a, trace, t)
         a_l.append(a), b_l.append(b), e_l.append(e)
+    if dynamic:
+        scen.restore_base(sp, base)
     return sp, RoundSchedule(a=np.stack(a_l), b=np.stack(b_l),
-                             E=np.asarray(e_l, np.int32))
+                             E=np.asarray(e_l, np.int32), trace=trace)
 
 
 def _bucket_cohorts(values, cap: int, max_exact: int = 8) -> Dict[int, int]:
@@ -236,11 +261,13 @@ def _make_metrics(sched, comm, nsel, sim, cost, energy, losses, acc_rounds
 
 
 def _round_shapes(sched: RoundSchedule, sp: SystemParams):
-    """Each round's (cohort bucket, E bucket)."""
+    """Each round's (cohort bucket, E bucket).  A round that selects no
+    client gets a cohort of one padded slot (mask 0): it trains nothing
+    and aggregates zeros, as the reference's empty cohort does."""
     counts = sched.a.sum(axis=1).astype(int)
     size_of = _bucket_cohorts(counts, sp.M)
     e_of = _bucket_cohorts(sched.E, int(sp.E_max))
-    return ([size_of[int(c)] for c in counts],
+    return ([max(1, size_of[int(c)]) for c in counts],
             [max(1, e_of[int(e)]) for e in sched.E])
 
 
@@ -344,42 +371,49 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
                  uniform_source: Optional[UniformSource] = None,
                  _round_hook: Optional[Callable[[int], None]] = None,
                  **hyper) -> CampaignResult:
-    """Train ``len(seeds)`` independent SplitMe runs over one shared
-    schedule (drawn from ``policy_seed``, default ``min(seeds)``), all
-    seeds in one program (see the module docstring).  ``hyper`` forwards to
-    the spec factory (lr_c / lr_s / temperature / batch_size).
+    """Train ``len(seeds)`` independent runs of ``framework`` over one
+    shared schedule (FedAvg's and SFL's random cohorts drawn from
+    ``policy_seed``, default ``min(seeds)``), all seeds in one program (see
+    the module docstring).  ``K`` and ``E`` are the baselines' cohort size
+    and local steps, ``e_initial`` SplitMe's first E.  ``hyper`` forwards
+    to the spec factory (lr / lr_c / lr_s / temperature / batch_size).
 
     ``scan=True`` graphs the rounds on CUDA and fetches the metrics once;
-    the Step-4 evaluation runs after every ``eval_every``-th round and the
-    last (with ``test_data``).  ``scan=False`` is the eager per-round loop,
+    the evaluation runs after every ``eval_every``-th round and the last
+    (with ``test_data``).  ``scan=False`` is the eager per-round loop,
     with a post-hoc evaluation.  ``strict_transfers=True`` runs the scanned
     device phase under ``torch.cuda.set_sync_debug_mode("error")``, so any
     synchronizing call (a stray metric pull, ``.item()``, a pageable copy)
     raises; on the CPU it has no effect.
 
     The port's own keywords: ``device`` (the card unless ``"cpu"``);
-    ``params``, one initial ``(w_c, w_s_inv)`` per seed as numpy arrays or
-    tensors; ``index_source(i, r, e_bucket)``, seed i's full-M batch
+    ``params``, one initial params tuple per seed (``(w_c, w_s_inv)`` for
+    SplitMe, ``(w,)`` for the baselines) as numpy arrays or tensors; ``index_source(i, r, e_bucket)``, seed i's full-M batch
     indices of round r, ``(n_phases, M, e_bucket, batch_size)`` int64;
     ``uniform_source(i, r)``, seed i's int8 uniforms of round r, ``(U,)``
     f32 in ``engine.quant_uniforms``'s layout; ``_round_hook(r)``, called
     on the host once round r is queued.  Each round's wall time lands in
-    ``CampaignResult.round_ms``.
+    ``CampaignResult.round_ms``.  By default each seed's generator draws
+    its initial weights and then its rounds' batches, the rule of the
+    serial trainers: a baseline campaign's seed s equals its trainer with
+    ``seed=s`` and the same K and E (FedAvg's and SFL's when ``policy_seed``
+    is s too; SplitMe's trainer draws E_max steps a round where the
+    campaign draws its E bucket's).
+
+    ``scenario`` and ``scenario_seed`` make the plan time-varying (module
+    docstring); a trace with fault channels raises.
 
     ``policy`` and ``quant`` are bound into the spec (the precision request
     of ``"kernel_bf16"`` resolved for ``device``); ``quant`` also scales
     the host plan's payloads, as in the reference.
 
-    Raise as later slices of the port: any framework but ``"splitme"``,
-    ``mesh``, ``scenario``, ``guards`` and ``checkpoint_every`` /
-    ``checkpoint_dir`` / ``resume``.
+    Raise as later slices of the port: ``mesh``, fault channels and
+    ``guards``, and ``checkpoint_every`` / ``checkpoint_dir`` / ``resume``.
     """
     if mesh is not None:
         raise _later("the sharded campaign (mesh=)")
-    if scenario is not None:
-        raise _later("scenarios")
     if guards not in (None, False):
-        raise _later("fault guards")
+        raise _later("fault channels and guards")
     if checkpoint_every or checkpoint_dir is not None or resume:
         raise _later("checkpoints and resume")
     dev = resolve_device(device)
@@ -395,6 +429,7 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
                               e_initial=e_initial, policy_seed=policy_seed,
                               n_samples_per_client=n_m, quant=quant,
                               scenario=scenario, scenario_seed=scenario_seed)
+    scen.reject_faults(sched.trace)
     # the loss metric averages over the executed steps only, so a round
     # runs exactly its E bucket's steps; the trained params equal the
     # serial trainer's (masked updates are exact no-ops)
@@ -432,9 +467,9 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
         x_test = torch.as_tensor(test_data[0], dtype=torch.float32,
                                  device=dev)
         y_test = torch.as_tensor(test_data[1], dtype=torch.int64, device=dev)
-        eval_fn = engine.build_eval_fn(spec, cfg, x_test, y_test,
-                                       client_data={"x": x, "y": y},
-                                       gamma=eval_gamma)
+        eval_fn = engine.build_eval_fn(
+            spec, cfg, x_test, y_test, gamma=eval_gamma,
+            client_data={"x": x, "y": y} if framework == "splitme" else None)
         if eval_every:
             do_eval[eval_every - 1::eval_every] = True
         do_eval[rounds - 1] = True
@@ -648,10 +683,13 @@ def evaluate_campaign(result: CampaignResult, cfg: DNNConfig, test_data,
                       client_data=None, gamma: float = 1e-3,
                       policy=None) -> np.ndarray:
     """Per-seed test accuracy of a finished campaign (post-hoc; the scanned
-    campaign replays the same evaluation after its eval rounds): Step 4
-    recovers each seed's server model from the client data's Grams, then
-    the stitched forward runs on the test split.  One host transfer."""
-    if client_data is None:
+    campaign replays the same evaluation after its eval rounds).  The
+    baselines evaluate their aggregated MLP; SplitMe's Step 4 recovers each
+    seed's server model from the client data's Grams (``client_data``),
+    then the stitched forward runs on the test split.  One host
+    transfer."""
+    splitme = result.framework == "splitme"
+    if splitme and client_data is None:
         raise ValueError("splitme evaluation needs client_data for Step 4")
     dev = result.params[0][0]["w"].device
     spec = engine.make_spec(result.framework, cfg, policy=policy, device=dev)
@@ -661,7 +699,7 @@ def evaluate_campaign(result: CampaignResult, cfg: DNNConfig, test_data,
         torch.as_tensor(test_data[1], dtype=torch.int64, device=dev),
         client_data={k: torch.as_tensor(
             client_data[k], dtype=torch.float32 if k == "x" else torch.int64,
-            device=dev) for k in ("x", "y")},
+            device=dev) for k in ("x", "y")} if splitme else None,
         gamma=gamma)
     acc = torch.stack([eval_fn(result.params_for(i))
                        for i in range(len(result.seeds))])

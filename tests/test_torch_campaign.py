@@ -167,10 +167,20 @@ def test_schedule_metrics_and_system_metrics_match_reference(M_, t_lo,
 
 
 def test_schedule_metrics_scenario_trace_raises():
-    sp = SystemParams(M=4)
+    """Traces are ported (tests/test_torch_scenario.py pins their metrics);
+    one that does not fit the schedule, or that is no trace, raises in the
+    port as in the reference."""
+    from repro.core import scenario as jscenario
+    from repro_torch.core import scenario
     z = np.zeros((2, 4))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cost.schedule_metrics(z, z, np.ones(2), sp, trace=object())
+    for scen_mod, cost_mod, sp in ((scenario, cost, SystemParams(M=4)),
+                                   (jscenario, jcost, JSystemParams(M=4))):
+        with pytest.raises(ValueError):
+            cost_mod.schedule_metrics(z, z, np.ones(2), sp,
+                                      trace=scen_mod.make_trace("fading", 2,
+                                                                5))
+        with pytest.raises(AttributeError):
+            cost_mod.schedule_metrics(z, z, np.ones(2), sp, trace=object())
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +443,7 @@ def test_default_campaign_is_seeded(campaign_data):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=object()), "later slice"),
-    (dict(scenario="fading"), "later slice"),
+    (dict(scenario="faults:0.2"), "later slice"),
     (dict(guards=object()), "later slice"),
     (dict(checkpoint_every=2, checkpoint_dir="ckpt"), "later slice"),
     (dict(resume=True), "later slice"),
@@ -445,14 +455,17 @@ def test_unported_campaign_options_raise(campaign_data, kw, match):
                               cd, rounds=1, seeds=(0,), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("framework,err", [
-    ("fedavg", NotImplementedError), ("oranfed", NotImplementedError),
-    ("nope", KeyError)])
-def test_other_frameworks_raise(campaign_data, framework, err):
+@pytest.mark.parametrize("framework,kw,err", [
+    ("fedavg", dict(scenario="faults:0.2"), NotImplementedError),
+    ("oranfed", dict(guards=object()), NotImplementedError),
+    ("nope", {}, KeyError)])
+def test_other_frameworks_raise(campaign_data, framework, kw, err):
+    """An unknown framework, and the baselines with what is still
+    unported (fault channels, guards)."""
     cd, _ = campaign_data
     with pytest.raises(err):
         campaign.run_campaign(framework, DNN10, SystemParams(M=M_C, seed=0),
-                              cd, rounds=1, seeds=(0,), device="cpu")
+                              cd, rounds=1, seeds=(0,), device="cpu", **kw)
 
 
 def test_loop_rejects_eval_every_and_bad_indices(campaign_data):

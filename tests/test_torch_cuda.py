@@ -6,6 +6,8 @@ file imports no jax, so it runs on a machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -732,3 +734,169 @@ def test_bf16_campaign_on_card_matches_cpu(cuda):
                 for k in pg:
                     torch.testing.assert_close(pg[k].cpu(), pc[k], rtol=0,
                                                atol=1e-3)
+
+
+def test_fedavg_bf16_trainer_on_card_holds_the_cpu_bounds(cuda,
+                                                          monkeypatch):
+    """FedAvg's trainer under "kernel_bf16" on the card (bf16 there)
+    against the CPU's trainer under forced bf16, the same weights and
+    batches, by tests/test_torch_baseline_precision.py's rule: the first
+    round within 1e-3 (params and loss); and each of three rounds under
+    half the distance between the CPU's own bf16 and f32 trainers, with the
+    mixed GEMM widened to the CPU's f32 product.  The tensor cores' GEMM
+    sums its exact bf16 products in another way, and over three rounds the
+    bf16 roundings and the SGD amplify that past the rule now and then, as
+    they do a one-ulp change of the initial weights on the CPU itself
+    (chip_smoke.py's bf16_rule)."""
+    from repro_torch.core import baselines
+    cd, test = _campaign_data()
+
+    def trainer(device, policy):
+        return baselines.FedAvgTrainer(DNN10, SystemParams(M=12, seed=0), cd,
+                                       test, E=3, device=device,
+                                       kernel_policy=policy)
+    card, wide = trainer(cuda, "kernel_bf16"), trainer(cuda, "kernel_bf16")
+    assert card._spec.policy.precision.is_mixed
+    cpu = trainer("cpu", dispatch.KernelPolicy(precision=dispatch.BF16))
+    f32 = trainer("cpu", None)
+
+    def gap(a, b):
+        return max(float((p[k].cpu() - q[k].cpu()).abs().max())
+                   for p, q in zip(a, b) for k in p)
+    for r in range(3):
+        mg, mc, _ = card.run_round(), cpu.run_round(), f32.run_round()
+        with monkeypatch.context() as m:
+            m.setattr(dnn, "_matmul_f32", lambda a, b: a.float() @ b.float())
+            wide.run_round()
+        bf16_gap = gap(cpu.params, f32.params)
+        if r == 0:
+            assert gap(card.params, cpu.params) <= 1e-3
+            assert abs(mg.client_loss - mc.client_loss) <= 1e-3
+        assert gap(wide.params, cpu.params) <= 0.5 * bf16_gap, r
+
+
+# ---------------------------------------------------------------------------
+# the baseline frameworks and the time-varying RAN on the card
+# ---------------------------------------------------------------------------
+
+def _flipped_units(card, cpu, tol=1e-5, most=4):
+    """chip_smoke.py's flipped_units: the hidden units (fewest found
+    greedily, up to most + 1) whose weights hold every element of two
+    params tuples more than ``tol`` apart; w_l[i, j] belongs to unit j of
+    layer l (with b_l[j]) and to unit i of layer l - 1."""
+    far = []
+    for h, (ha, hb) in enumerate(zip(card, cpu)):
+        for l, (p, q) in enumerate(zip(ha, hb)):
+            for k in p:
+                d = (p[k].cpu() - q[k].cpu()).abs() > tol
+                for ij in d.nonzero().tolist():
+                    far.append({(h, l, ij[-1])} | (
+                        {(h, l - 1, ij[0])} if k == "w" and l > 0 else set()))
+    n = 0
+    while far and n <= most:
+        unit = collections.Counter(
+            u for units in far for u in units).most_common(1)[0][0]
+        far = [units for units in far if unit not in units]
+        n += 1
+    return n + bool(far)
+
+
+_BASELINES = {"fedavg": ("FedAvgTrainer", {"K": 10, "E": 3}),
+              "sfl": ("SFLTrainer", {"K": 20, "E": 3}),
+              "oranfed": ("ORANFedTrainer", {"E": 3}),
+              "fedora": ("FedORATrainer", {"E": 3}),
+              "ecofl": ("EcoFLTrainer", {"K": 10, "E": 3})}
+
+
+def _framework_campaign(name, cd, rounds=3, **kw):
+    return campaign.run_campaign(name, DNN10, SystemParams(M=12, seed=0),
+                                 cd, rounds=rounds, seeds=(0, 1), **kw)
+
+
+@pytest.mark.parametrize("name", list(_BASELINES))
+def test_graphed_baseline_campaign_equals_eager_and_cpu(cuda, name):
+    """Each baseline's graphed campaign (strict transfers, one graph per
+    round shape and one for the evaluation) equals its eager campaign bit
+    for bit; no SplitMe kernel launches.  The card against the CPU over
+    two rounds: losses at 1e-5, accuracy within one test sample, params at
+    1e-5 but for the weights of at most 4 hidden units a seed, within 1e-4
+    (a unit whose pre-activation lies within rounding of 0 can take the
+    other side of its ReLU on the card: on an H100, 28 weights of one SFL
+    unit 2.3e-5 apart after 2 rounds; chip_smoke.py's FLIP_UNITS).  Over
+    more rounds the
+    baselines' SGD amplifies a last-bit difference, as it does a one-ulp
+    change of the initial weights on one device (chip_smoke.py phase
+    3d)."""
+    cd, test = _campaign_data()
+    kw = _BASELINES[name][1]
+    kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+    g = _framework_campaign(name, cd, device=cuda, test_data=test,
+                            eval_every=1, strict_transfers=True, **kw)
+    e = _framework_campaign(name, cd, device=cuda, scan=False, **kw)
+    assert (kl_ops.launches, kl_ops.launches_bwd, rg_ops.launches) == \
+        (0, 0, 0)
+    assert g.graphs["graphs"] == len(g.graphs["shapes"]) + 1
+    _same_campaigns(g, e)
+    g = _framework_campaign(name, cd, device=cuda, test_data=test,
+                            eval_every=1, rounds=2, **kw)
+    cpu = _framework_campaign(name, cd, device="cpu", test_data=test,
+                              eval_every=1, rounds=2, **kw)
+    np.testing.assert_allclose(g.losses, cpu.losses, rtol=0, atol=1e-5)
+    for i in range(2):
+        assert _flipped_units(g.params_for(i), cpu.params_for(i)) <= 4
+        for pg, pc in zip(g.params_for(i)[0], cpu.params_for(i)[0]):
+            for k in pg:
+                torch.testing.assert_close(pg[k].cpu(), pc[k], rtol=0,
+                                           atol=1e-4)
+    np.testing.assert_allclose(g.accuracy_per_round, cpu.accuracy_per_round,
+                               rtol=0, atol=1.0 / len(test[1]) + 1e-9)
+
+
+@pytest.mark.parametrize("name", list(_BASELINES))
+def test_baseline_trainer_equals_seed_0_of_its_campaign(cuda, name):
+    """The trainer with seed 0 on the card is seed 0 of its graphed
+    campaign (the policy seed) at 1e-5: the same weights and batches."""
+    from repro_torch.core import baselines
+    cd, test = _campaign_data()
+    cls, kw = _BASELINES[name]
+    res = _framework_campaign(name, cd, device=cuda, **kw)
+    tr = getattr(baselines, cls)(DNN10, SystemParams(M=12, seed=0), cd, test,
+                                 seed=0, device=cuda, **kw)
+    for _ in range(3):
+        tr.run_round()
+    hist = tr.fetch_history()
+    np.testing.assert_allclose(res.losses[0, :, 0],
+                               [m.client_loss for m in hist], rtol=0,
+                               atol=1e-5)
+    for pg, pt in zip(res.params_for(0)[0], tr.params):
+        for k in pg:
+            torch.testing.assert_close(pg[k], pt[k], rtol=0, atol=1e-5)
+    assert [m.n_selected for m in res.metrics] == \
+        [m.n_selected for m in hist]
+
+
+@pytest.mark.parametrize("name,scenario", [("splitme", "straggler:0.4"),
+                                           ("fedora", "fading"),
+                                           ("fedavg", "churn:0.5")])
+def test_scenario_campaign_graphed_equals_eager_and_cpu(cuda, name,
+                                                        scenario):
+    """A campaign under a time-varying RAN: the realized schedule is the
+    CPU's, graphed equals eager bit for bit, and the card the CPU at
+    1e-5."""
+    cd, test = _campaign_data()
+    kw = dict(_BASELINES.get(name, (None, {}))[1], scenario=scenario)
+    g = _framework_campaign(name, cd, device=cuda, test_data=test,
+                            eval_every=1, eval_gamma=10.0,
+                            strict_transfers=True, **kw)
+    e = _framework_campaign(name, cd, device=cuda, scan=False, **kw)
+    _same_campaigns(g, e)
+    cpu = _framework_campaign(name, cd, device="cpu", **kw)
+    np.testing.assert_array_equal(g.schedule.a, cpu.schedule.a)
+    assert g.schedule.trace is not None
+    np.testing.assert_allclose(g.losses, cpu.losses, rtol=0, atol=1e-5)
+
+
+def test_fault_trace_raises_on_the_card(cuda):
+    cd, _ = _campaign_data()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        _framework_campaign("fedavg", cd, device=cuda, scenario="faults:0.2")

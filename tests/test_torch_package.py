@@ -47,7 +47,8 @@ def test_port_files_exist():
                  "kernels/mamba2_scan/ref.py", "runtime/steps.py",
                  "serve.py", "kernels/flash_attention/ops.py",
                  "kernels/flash_attention/ref.py", "launch/campaign.py",
-                 "core/quantcomm.py"):
+                 "core/quantcomm.py", "core/baselines.py",
+                 "core/scenario.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
@@ -133,8 +134,9 @@ def test_serve_without_device_needs_a_card():
 
 def test_trainer_rejects_unported_options():
     from repro_torch.core.splitme import SplitMeTrainer
-    with pytest.raises(NotImplementedError, match="later slice"):
-        SplitMeTrainer(*_tiny_trainer_args(), device="cpu", scenario=object())
+    # a serial trainer needs a built trace, not a name (as the reference)
+    with pytest.raises(TypeError, match="ScenarioTrace"):
+        SplitMeTrainer(*_tiny_trainer_args(), device="cpu", scenario="fading")
     with pytest.raises(ValueError, match="Corollary 3"):
         SplitMeTrainer(*_tiny_trainer_args(), device="cpu", lr_c=0.01,
                        lr_s=0.02)

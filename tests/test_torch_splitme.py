@@ -114,19 +114,36 @@ def test_splitme_schedule_matches_reference_exactly(M_, t_lo):
 
 
 def test_later_frameworks_and_options_raise():
+    """What is still unported: a trace with fault channels (in a trainer
+    of either kind), fault injection and guards in the round builders."""
+    from repro_torch.core import scenario
+    from repro_torch.core.baselines import FedAvgTrainer
+    rng = np.random.default_rng(0)
+    clients = {"x": rng.normal(size=(M, N, 30)).astype(np.float32),
+               "y": rng.integers(0, 3, (M, N)).astype(np.int32)}
+    test = (clients["x"][0], clients["y"][0])
+    faults = scenario.make_trace("faults:0.2", 4, M)
+    assert faults.has_faults()
     with pytest.raises(NotImplementedError, match="later slice"):
-        engine.make_spec("fedavg", CFG)
+        SplitMeTrainer(CFG, SystemParams(M=M, E_max=2), clients, test,
+                       batch_size=B, e_initial=2, device="cpu",
+                       scenario=faults)
     with pytest.raises(NotImplementedError, match="later slice"):
-        engine.make_policy("oranfed", SystemParams(M=4), CFG)
+        FedAvgTrainer(CFG, SystemParams(M=M), clients, test, K=4, E=2,
+                      batch_size=B, device="cpu", scenario=faults)
     with pytest.raises(KeyError):
         engine.make_spec("nope", CFG)
+    with pytest.raises(KeyError):
+        engine.make_policy("nope", SystemParams(M=4), CFG)
+    for name in ("splitme", "fedavg"):
+        spec = engine.make_spec(name, CFG)
+        x, y = torch.zeros(M, N, 30), torch.zeros(M, N, dtype=torch.long)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            engine.build_round_fn(spec, CFG, x, y, e_max=2, gather=True,
+                                  with_faults=True)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            engine.build_round_fn(spec, CFG, x, y, e_max=2, guards=object())
     spec = engine.make_spec("splitme", CFG)
-    x, y = torch.zeros(M, N, 30), torch.zeros(M, N, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.build_round_fn(spec, CFG, x, y, e_max=2, gather=True,
-                              with_faults=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.build_round_fn(spec, CFG, x, y, e_max=2, guards=object())
     with pytest.raises(ValueError, match="policy"):
         engine.build_round_fn(spec, CFG, x, y, e_max=2, policy="reference")
 

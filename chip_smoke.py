@@ -83,6 +83,21 @@ failure ends the run with a non-zero exit code:
    FedORA under ``fading`` (60 rounds), 4 seeds each, graphed against eager
    bit for bit and against the CPU, with their round shapes, graphs,
    capture seconds and whole campaigns;
+3f. fault channels and guards: the campaign of 3b under ``faults:0.3``
+   (guards armed by the faults, strict transfers, one host transfer),
+   its graphs against the same round bodies run uncaptured bit for bit
+   (params, NaN crash rows, guard flags), rollbacks, crash rows and finite
+   params checked, its flags against the CPU's exactly and params and
+   losses by 3e's gates before the first wire flip, its steady round's
+   ms, operations, idle share and in-graph KL and Gram launches beside
+   3b's; then its int8 wire (graphed against uncaptured with the EF
+   state), the guards-off control (params go non-finite), FedAvg's norm
+   clip against a wire flip and its quorum hold;
+3g. checkpoints: 3f's campaign saved every 10 rounds, aborted by its
+   checkpoint hook at round 20 and resumed, bit for bit against 3f's run,
+   with the ms of each save and of the restore; then
+   ``scripts/crash_resume_check_torch.py --device cuda`` (SIGKILL and
+   resume) as a subprocess;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -382,12 +397,20 @@ CAMPAIGN_KERNELS = {"kl_mutual": ("kl_rows_kernel", "kl_rows_online_kernel"),
 
 
 def campaign_max_diff(a, b):
-    """Largest |difference| of two campaigns' params and losses."""
+    """Largest |difference| of two campaigns' params and finite losses
+    (their non-finite losses, a crash round's NaN row or a diverged
+    round's, must be the same: else inf)."""
+    import numpy as np
     perr = max((p[k].cpu() - q[k].cpu()).abs().max().item()
                for i in range(len(a.seeds))
                for ha, hb in zip(a.params_for(i), b.params_for(i))
                for p, q in zip(ha, hb) for k in p)
-    return perr, float(abs(a.losses - b.losses).max())
+    bad = ~np.isfinite(a.losses)
+    if not ((bad == ~np.isfinite(b.losses)).all()
+            and np.array_equal(a.losses[bad], b.losses[bad], equal_nan=True)):
+        return perr, float("inf")
+    return perr, float(abs(a.losses[~bad] - b.losses[~bad]).max(
+        initial=0.0))
 
 
 def timed(torch, fn):
@@ -446,6 +469,25 @@ def campaign_window(torch, evts, rounds: int):
         per[name] = (n / rounds, sum(dev_us(e) for e in hit) / n if n
                      else None)
     return busy_ms / rounds, n_ops / rounds, per
+
+
+def steady_and_eval_windows(torch, run):
+    """``run(_round_hook=...)`` with one profiler window over the rounds
+    PROFILE_STEADY and one over the evaluating round PROFILE_EVAL: {"steady":
+    (events, wall ms), "eval": (events, wall ms)}."""
+    win = {}
+
+    def hook(r):
+        if r == PROFILE_STEADY[0] - 1 or r in (PROFILE_STEADY[-1],
+                                                 PROFILE_EVAL):
+            if "prof" in win:
+                wall = close_window(torch, win["prof"], win["t0"])
+                win[win["name"]] = (win.pop("prof").key_averages(), wall)
+            if r != PROFILE_EVAL:
+                win["name"] = "eval" if r == PROFILE_STEADY[-1] else "steady"
+                win["prof"], win["t0"] = open_window(torch)
+    run(_round_hook=hook)
+    return win
 
 
 def campaign_phase(torch, port, sp, clients, test):
@@ -545,19 +587,9 @@ def campaign_phase(torch, port, sp, clients, test):
           f"evaluation {we:.1f} ms: {we / wg:.2f}x")
 
     # the steady rounds and one evaluating round under the profiler
-    win = {}
-
-    def hook(r):
-        if r == PROFILE_STEADY[0] - 1 or r in (PROFILE_STEADY[-1],
-                                                 PROFILE_EVAL):
-            if "prof" in win:
-                wall = close_window(torch, win["prof"], win["t0"])
-                win[win["name"]] = (win.pop("prof").key_averages(), wall)
-            if r != PROFILE_EVAL:
-                win["name"] = "eval" if r == PROFILE_STEADY[-1] else "steady"
-                win["prof"], win["t0"] = open_window(torch)
-    camp.run_campaign("splitme", port.DNN10, sp, clients,
-                      eval_every=CAMPAIGN_EVAL_EVERY, _round_hook=hook, **kw)
+    win = steady_and_eval_windows(torch, lambda **more: camp.run_campaign(
+        "splitme", port.DNN10, sp, clients, eval_every=CAMPAIGN_EVAL_EVERY,
+        **kw, **more))
     n_steady = len(PROFILE_STEADY)
     evts, wall = win["steady"]
     busy, n_ops, per = campaign_window(torch, evts, n_steady)
@@ -630,7 +662,13 @@ def campaign_phase(torch, port, sp, clients, test):
     n, us = per_e["ridge_gram"]
     out["ridge_gram"] = {"campaign_launches_per_eval_round": n,
                          "campaign_device_us_per_launch": us}
-    return out, n_ops
+    summary = {"round_ms": gm, "ops_per_round": n_ops,
+               "idle_share": 1 - busy / wall, "graphs": res.graphs["graphs"],
+               "capture_s": res.graphs["capture_s"],
+               "launches_per_round": {k: v[0] for k, v in per.items()},
+               "launches_per_eval_round": {k: v[0]
+                                           for k, v in per_e.items()}}
+    return out, n_ops, summary
 
 
 # precision and wire formats (phase 3c): the paper's campaign of phase 3b
@@ -1103,16 +1141,32 @@ def bf16_rule(torch, port, run):
             "bf16_rule_full": full, "f32_card_cpu_3_rounds": f32_dist}
 
 
-def graphed_vs_eager(torch, port, res, eager, label: str):
-    """Check two campaigns equal bit for bit (params, losses, EF state)."""
-    perr, lerr = campaign_max_diff(res, eager)
-    qerr = max([float((a - b).abs().max()) for a, b in zip(
-        port.quantcomm.tree_leaves(res.qstate),
-        port.quantcomm.tree_leaves(eager.qstate))], default=0.0)
-    print(f"{label}: graphed vs eager: max param diff {perr:.3e}, loss "
-          f"{lerr:.3e}, error-feedback state {qerr:.3e}")
-    check(perr == lerr == qerr == 0.0,
-          f"{label}: graphed and eager campaigns differ")
+GUARD_FLAGS = ("skipped_per_round", "quorum_per_round", "crashed_per_round")
+
+
+def campaign_diffs(port, a, b):
+    """Two campaigns' max param, loss and error-feedback state differences,
+    and whether their guard flags (None without guards) are equal."""
+    import numpy as np
+    perr, lerr = campaign_max_diff(a, b)
+    qerr = max([float((u - v).abs().max()) for u, v in zip(
+        port.quantcomm.tree_leaves(a.qstate),
+        port.quantcomm.tree_leaves(b.qstate))], default=0.0)
+    flags = all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in GUARD_FLAGS)
+    return perr, lerr, qerr, flags
+
+
+def graphed_vs_eager(torch, port, res, eager, label: str,
+                     other: str = "eager"):
+    """Check two campaigns equal bit for bit (params, losses, EF state,
+    guard flags)."""
+    perr, lerr, qerr, flags = campaign_diffs(port, res, eager)
+    print(f"{label}: graphed vs {other}: max param diff {perr:.3e}, loss "
+          f"{lerr:.3e}, error-feedback state {qerr:.3e}, flags equal "
+          f"{flags}")
+    check(perr == lerr == qerr == 0.0 and flags,
+          f"{label}: graphed and {other} campaigns differ")
 
 
 def baselines_phase(torch, port, clients, test):
@@ -1342,6 +1396,348 @@ def scenario_phase(torch, port, clients, test):
         check_card_cpu_flips(label, perr, lerr, aerr, units)
         torch.cuda.empty_cache()
     return out
+
+
+# fault channels and guards (phase 3f): the campaign of phase 3b (DNN10 at
+# full width, SystemParams(), M 50, 96 samples a client, 30 rounds, seeds
+# 0-3, Step 4 every 10 rounds, here at CMP_EVAL_GAMMA throughout, as its
+# card-vs-CPU run) under FAULT_SCENARIO from scenario seed FAULT_SEED, the
+# guards armed by the faults: strict transfers and one host transfer; its
+# graphs against the same round bodies run without capture, bit for bit
+# (params, NaN crash rows, guard flags); rollbacks counted, NaN loss rows on
+# exactly the trace's crash rounds, finite params; against the CPU, the
+# flags and crash rows of all rounds exactly and params, losses and
+# accuracy by phase 3e's gates over the rounds before the first wire flip
+# lands (no default guard bounds a x2^12 update, and the trajectory turns
+# chaotic; the whole campaign's difference is printed beside the card's own
+# one-ulp spread), and by the same gates over all its rounds, rollbacks and
+# crash holds included, under the per-client norm clip FAULT_CLIP, which
+# keeps the trajectory bounded (it lies above every clean update's norm:
+# up to the first flip, the clipped run's losses are the unclipped run's);
+# the steady round's ms (medians of CAMPAIGN_TURNS turns), operations and
+# idle share, and the KL and Gram launches inside its graphs, beside phase
+# 3b's.  Then one run each: the same campaign on the int8 wire (graphed
+# against uncaptured, the error-feedback state included), the guards-off
+# control under FAULT_OFF (its params go non-finite), FedAvg (phase 3d's K
+# and E) under a wire flip of every client in round WIRE_FLIP_ROUND (the
+# norm clip keeps it closer to the clean run than no clip, with no
+# rollback) and FedAvg with a quorum above M (its params never move).
+FAULT_SCENARIO, FAULT_SEED = "faults:0.3", 0
+FAULT_OFF = "faults:0.9"
+FAULT_CLIP = 1.0
+WIRE_FLIP_ROUND, WIRE_ROUNDS, QUORUM_ROUNDS = 2, 8, 4
+# checkpoints (phase 3g): 3f's campaign saved every CKPT_EVERY rounds and
+# aborted by its checkpoint hook at cursor CKPT_ABORT, then resumed
+CKPT_EVERY, CKPT_ABORT = 10, 20
+
+
+def fault_phase(torch, port, sp, clients, test, base):
+    """Phase 3f; ``base`` is phase 3b's summary.  Returns its numbers and
+    the run a resumed campaign must equal, with its keywords."""
+    import numpy as np
+    camp, kl_ops, rg_ops = port.campaign, port.kl_ops, port.rg_ops
+    S, n_test = len(CAMPAIGN_SEEDS), len(test[1])
+    kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS, test_data=test,
+              eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
+              scenario=FAULT_SCENARIO, scenario_seed=FAULT_SEED)
+
+    def run(device="cuda", **more):
+        return camp.run_campaign("splitme", port.DNN10, sp, clients,
+                                 device=device, **dict(kw, **more))
+
+    label = f"splitme under {FAULT_SCENARIO!r}"
+    kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+    camp.HOST_TRANSFERS = 0
+    res, call_ms = timed(torch, lambda: run(strict_transfers=True))
+    counters = {"kl_mutual": kl_ops.launches,
+                "kl_mutual (backward)": kl_ops.launches_bwd,
+                "ridge_gram": rg_ops.launches}
+    check(camp.HOST_TRANSFERS == 1,
+          f"{label}: {camp.HOST_TRANSFERS} host transfers")
+    shapes = res.graphs["shapes"]
+    check(res.graphs["graphs"] == len(shapes) + 1,
+          f"{label}: one graph per shape + eval")
+    crashed = np.asarray(res.schedule.trace.crash) > 0
+    nan_rows = np.isnan(res.losses).all(axis=(0, 2))
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in port.quantcomm.tree_leaves(res.params))
+    big = max(float(v.abs().max())
+              for v in port.quantcomm.tree_leaves(res.params))
+    print(f"{label}: {len(shapes)} round shapes, {res.graphs['graphs']} "
+          f"graphs, capture {res.graphs['capture_s']:.3f} s, call "
+          f"{call_ms:.1f} ms, HOST_TRANSFERS {camp.HOST_TRANSFERS} under "
+          f"strict_transfers; launch counters (warm-ups and captures) "
+          f"{counters}; skipped_rounds {res.skipped_rounds} (per round "
+          f"{res.skipped_per_round.sum(1).astype(int).tolist()}), "
+          f"quorum_rounds {res.quorum_rounds}, crashed_rounds "
+          f"{res.crashed_rounds} at {np.flatnonzero(crashed).tolist()}, "
+          f"NaN loss rows at {np.flatnonzero(nan_rows).tolist()}, "
+          f"non-finite losses elsewhere "
+          f"{int((~np.isfinite(res.losses[:, ~crashed])).sum())}; params "
+          f"finite {finite}, largest |param| {big:.4e}")
+    check(all(v > 0 for v in counters.values()),
+          f"{label}: a kernel of the path never launched {counters}")
+    check(res.skipped_rounds > 0, f"{label}: no round rolled back")
+    check(res.crashed_rounds == int(crashed.sum())
+          and nan_rows.tolist() == crashed.tolist(),
+          f"{label}: crash rounds and NaN loss rows differ")
+    check(finite, f"{label}: non-finite params")
+    graphed_vs_eager(torch, port, res, run(_graphs=False), label,
+                     "uncaptured")
+
+    # the steady round (medians of CAMPAIGN_TURNS turns) and the launches
+    # inside the graphs, by name in the profiler
+    steady_shape = max(shapes, key=lambda s: len(shapes[s]))
+    steady = [r for r in shapes[steady_shape][1:]
+              if (r + 1) % CAMPAIGN_EVAL_EVERY]
+    g_ms = [statistics.median(res.round_ms[steady])]
+    for _ in range(CAMPAIGN_TURNS - 1):
+        g_ms.append(statistics.median(run().round_ms[steady]))
+    win = steady_and_eval_windows(torch, run)
+    evts, wall = win["steady"]
+    busy, n_ops, per = campaign_window(torch, evts, len(PROFILE_STEADY))
+    wall /= len(PROFILE_STEADY)
+    _, _, per_e = campaign_window(torch, win["eval"][0], 1)
+    launches = {k: v[0] for k, v in per.items()}
+    launches_e = {k: v[0] for k, v in per_e.items()}
+    out = {"round_ms": statistics.median(g_ms), "ops_per_round": n_ops,
+           "idle_share": 1 - busy / wall, "graphs": res.graphs["graphs"],
+           "capture_s": res.graphs["capture_s"], "call_ms": call_ms,
+           "whole_ms": float(sum(res.round_ms)),
+           "launches_per_round": launches,
+           "launches_per_eval_round": launches_e,
+           "skipped_rounds": res.skipped_rounds,
+           "crashed_rounds": res.crashed_rounds}
+    for name, v in (("phase 3b", base), ("phase 3f", out)):
+        print(f"{name}: steady ({steady_shape[0]}, {steady_shape[1]}) round "
+              f"of {S} seeds graphed {v['round_ms']:.3f} ms (medians of "
+              f"{CAMPAIGN_TURNS}), {v['ops_per_round']:.1f} device "
+              f"operations a round, idle share {v['idle_share']:.4f}; "
+              f"launches a steady round {v['launches_per_round']}, an "
+              f"evaluating round {v['launches_per_eval_round']}; "
+              f"{v['graphs']} graphs, capture {v['capture_s']:.3f} s")
+    check(launches == base["launches_per_round"]
+          and launches_e == base["launches_per_eval_round"]
+          and launches["kl_mutual"] > 0 and launches_e["ridge_gram"] > 0,
+          f"{label}: in-graph launches {launches} / {launches_e} differ "
+          f"from phase 3b's")
+
+    # the card against the CPU: the flags and crash rows of the whole
+    # campaign exactly; params, losses and accuracy by phase 3e's gates over
+    # the rounds before the first wire flip lands (no default guard clips
+    # it: a x2^12 update makes the trajectory chaotic, and the whole
+    # campaign's difference is printed beside the card's own under a one-ulp
+    # change of the initial weights, as phase 3d does for FedAvg)
+    cpu = run(device="cpu")
+    flags = all(np.array_equal(getattr(res, f), getattr(cpu, f))
+                for f in GUARD_FLAGS)
+    nan_same = bool((np.isnan(res.losses) == np.isnan(cpu.losses)).all())
+    trace, a = res.schedule.trace, res.schedule.a
+    flipped = (((trace.wire_gain != 1.0) & (a > 0)).any(axis=1)
+               & (trace.crash <= 0))
+    first = int(np.argmax(flipped)) if flipped.any() else CAMPAIGN_ROUNDS
+    wp, wl = campaign_max_diff(res, cpu)
+    spread = ulp_spread(torch, port, run, "splitme")
+    print(f"{label}: card vs CPU over the whole {CAMPAIGN_ROUNDS} rounds: "
+          f"flags equal {flags}, NaN loss entries equal {nan_same}; max "
+          f"param diff {wp:.3e}, loss {wl:.3e} (not checked: the first "
+          f"wire flip lands in round {first}); on the card, every initial "
+          f"weight one ulp up: max param diff {spread:.3e}")
+    check(flags and nan_same, f"{label}: card and CPU guard flags differ")
+    check(first > 0, f"{label}: a wire flip lands in round 0")
+    perr, lerr, aerr, units = short_card_vs_cpu(
+        torch, functools.partial(run, scenario=trace), n_test, rounds=first)
+    out.update(card_cpu_rounds=first, card_cpu_param_diff=perr,
+               card_cpu_loss_diff=lerr, card_cpu_acc_samples=aerr,
+               card_cpu_flipped_units=units, whole_card_cpu_param_diff=wp,
+               whole_card_cpu_loss_diff=wl, card_ulp_spread=spread)
+    print(f"{label}: card (graphed) vs CPU over the first {first} rounds: "
+          f"max param diff {perr:.3e} (beyond {CARD_CPU_TOL} in {units} "
+          f"units of a seed at most; tol {FLIP_TOL} in at most "
+          f"{FLIP_UNITS}), loss {lerr:.3e} (tol {CARD_CPU_TOL}); accuracy "
+          f"{aerr:.0f} of {n_test} test samples apart (tol "
+          f"{CMP_ACC_SAMPLES}, gamma {CMP_EVAL_GAMMA})")
+    check_card_cpu_flips(label, perr, lerr, aerr, units)
+
+    # the clipped campaign, card against CPU over all its rounds
+    clipped = functools.partial(
+        run, scenario=trace, eval_every=1,
+        guards=port.RoundGuards(clip_norm=FAULT_CLIP))
+    card_c, cpu_c = clipped(), clipped(device="cpu")
+    flags_c = all(np.array_equal(getattr(card_c, f), getattr(cpu_c, f))
+                  for f in GUARD_FLAGS)
+    perr, lerr, aerr, units = card_vs_cpu_campaign(torch, card_c, cpu_c,
+                                                   n_test)
+    label_c = f"{label}, clip_norm {FAULT_CLIP}"
+    pre_a, pre_b = res.losses[:, :first + 1], card_c.losses[:, :first + 1]
+    pre_nan = bool((np.isnan(pre_a) == np.isnan(pre_b)).all())
+    pre = float(np.abs(pre_a - pre_b)[~np.isnan(pre_a)].max(initial=0.0))
+    print(f"{label_c}: losses of rounds 0-{first} against the unclipped "
+          f"run's: max diff {pre:.3e}, NaN rows equal {pre_nan}")
+    check(pre_nan and pre <= CARD_CPU_TOL,
+          f"{label_c}: the clip changed an update before the first flip")
+    print(f"{label_c}: card (graphed) vs CPU over the whole "
+          f"{CAMPAIGN_ROUNDS} rounds: flags equal {flags_c}; skipped_rounds "
+          f"{card_c.skipped_rounds}, crashed_rounds {card_c.crashed_rounds}; "
+          f"max param diff {perr:.3e} (beyond {CARD_CPU_TOL} in {units} "
+          f"units of a seed at most; tol {FLIP_TOL} in at most "
+          f"{FLIP_UNITS}), loss {lerr:.3e} (tol {CARD_CPU_TOL}); accuracy "
+          f"{aerr:.0f} of {n_test} test samples apart (tol "
+          f"{CMP_ACC_SAMPLES}, gamma {CMP_EVAL_GAMMA})")
+    check(flags_c, f"{label_c}: card and CPU guard flags differ")
+    check(card_c.skipped_rounds > 0
+          and card_c.crashed_rounds == int(crashed.sum()),
+          f"{label_c}: no rollback, or the crash rounds differ")
+    check_card_cpu_flips(label_c, perr, lerr, aerr, units)
+    out.update(clip_card_cpu_param_diff=perr, clip_card_cpu_loss_diff=lerr,
+               clip_card_cpu_acc_samples=aerr,
+               clip_card_cpu_flipped_units=units,
+               clip_skipped_rounds=card_c.skipped_rounds)
+
+    # the int8 wire: graphed against uncaptured, the EF state included
+    r8 = run(quant="int8", strict_transfers=True)
+    check(len(port.quantcomm.tree_leaves(r8.qstate)) > 0,
+          "int8 wire: no error-feedback state")
+    graphed_vs_eager(torch, port, r8, run(quant="int8", _graphs=False),
+                     f"{label}, int8 wire", "uncaptured")
+    out["int8_skipped_rounds"] = r8.skipped_rounds
+
+    # the control: the guards off under FAULT_OFF
+    off = run(scenario=FAULT_OFF, guards=False)
+    off_finite = all(bool(torch.isfinite(v).all())
+                     for v in port.quantcomm.tree_leaves(off.params))
+    print(f"splitme under {FAULT_OFF!r} with guards=False: params finite "
+          f"{off_finite}, flags {off.skipped_per_round}")
+    check(not off_finite and off.skipped_per_round is None,
+          "the guards-off control kept finite params")
+
+    # FedAvg: a wire flip of every client in one round, and a quorum of M+1
+    M = sp.M
+    ones = np.ones((WIRE_ROUNDS, M))
+    wire = ones.copy()
+    wire[WIRE_FLIP_ROUND] = port.scenario.WIRE_FLIP_GAIN
+    flip = port.scenario.ScenarioTrace(
+        name="wireflip", seed=0, gain=ones, qc_scale=ones, qs_scale=ones,
+        avail=ones, drop=ones, deadline_scale=ones, wire_gain=wire)
+    K, E = dict(BASELINES)["fedavg"]["K"], dict(BASELINES)["fedavg"]["E"]
+
+    def fedavg(rounds=WIRE_ROUNDS, **more):
+        return camp.run_campaign("fedavg", port.DNN10,
+                                 port.SystemParams(seed=0), clients,
+                                 rounds=rounds, seeds=CAMPAIGN_SEEDS, K=K,
+                                 E=E, device="cuda", **more)
+    clean = fedavg()
+    clipped = fedavg(scenario=flip, guards=port.RoundGuards(clip_norm=1.0))
+    raw = fedavg(scenario=flip, guards=port.RoundGuards())
+
+    def dist(a, b):
+        return sum(float((u - v).abs().sum()) for u, v in zip(
+            port.quantcomm.tree_leaves(a.params),
+            port.quantcomm.tree_leaves(b.params)))
+    d_clip, d_raw = dist(clipped, clean), dist(raw, clean)
+    print(f"fedavg, every client's upload x{port.scenario.WIRE_FLIP_GAIN:g} "
+          f"in round {WIRE_FLIP_ROUND}: L1 distance to the clean run with "
+          f"the norm clip 1.0 {d_clip:.4e}, without {d_raw:.4e}; rollbacks "
+          f"{clipped.skipped_rounds} / {raw.skipped_rounds}")
+    check(clipped.skipped_rounds == 0 and 0 < d_clip < d_raw,
+          "the norm clip does not bound the wire flip")
+    held = fedavg(rounds=QUORUM_ROUNDS,
+                  guards=port.RoundGuards(min_clients=M + 1))
+    init = initial_params(torch, port, "fedavg", CAMPAIGN_SEEDS)
+    same = all(torch.equal(p[k].cpu(), q[k])
+               for i in range(len(CAMPAIGN_SEEDS))
+               for hp, hq in zip(held.params_for(i), init[i])
+               for p, q in zip(hp, hq) for k in p)
+    print(f"fedavg with min_clients {M + 1}: quorum_rounds "
+          f"{held.quorum_rounds} of {QUORUM_ROUNDS} x {S}, params at their "
+          f"initial values {same}")
+    check(same and held.quorum_rounds == QUORUM_ROUNDS * S
+          and held.skipped_rounds == 0, "the quorum hold moved the params")
+    out.update(wire_flip_d_clip=d_clip, wire_flip_d_raw=d_raw)
+    torch.cuda.empty_cache()
+    return out, res, dict(kw, device="cuda")
+
+
+def checkpoint_phase(torch, port, sp, clients, ref, kw):
+    """Phase 3g: 3f's campaign (``run_campaign`` keywords ``kw``)
+    checkpointed every CKPT_EVERY rounds and aborted at CKPT_ABORT, resumed
+    with ``resume_campaign``, against ``ref`` (3f's uninterrupted run) bit
+    for bit; then the SIGKILL check on the card."""
+    import tempfile
+    camp, res_mod, io = port.campaign, port.resilience, port.ckpt_io
+    saves, restores = [], []
+
+    def timed_call(fn, into):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()        # the queued rounds first
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def abort(cursor):
+        if cursor >= CKPT_ABORT:
+            raise res_mod.CampaignAborted(f"abort at round {cursor}")
+
+    save, restore = res_mod.save_checkpoint, io.restore
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        res_mod.save_checkpoint = timed_call(save, saves)
+        io.restore = timed_call(restore, restores)
+        try:
+            try:
+                camp.run_campaign("splitme", port.DNN10, sp, clients,
+                                  checkpoint_every=CKPT_EVERY,
+                                  checkpoint_dir=d, _checkpoint_hook=abort,
+                                  **kw)
+                aborted = False
+            except res_mod.CampaignAborted:
+                aborted = True
+            latest = res_mod.latest_checkpoint(d)
+            n_saved = len(saves)
+            resumed = res_mod.resume_campaign(
+                "splitme", port.DNN10, sp, clients, checkpoint_dir=d,
+                checkpoint_every=CKPT_EVERY, **kw)
+        finally:
+            res_mod.save_checkpoint, io.restore = save, restore
+        size = sum(f.stat().st_size for f in Path(d).iterdir())
+    check(n_saved == CKPT_ABORT // CKPT_EVERY
+          and len(saves) == CAMPAIGN_ROUNDS // CKPT_EVERY
+          and len(restores) == 1,
+          f"checkpoints: {len(saves)} saves ({n_saved} before the abort) "
+          f"and {len(restores)} restores timed")
+    check(aborted and latest is not None
+          and latest.name == res_mod.checkpoint_tag(CKPT_ABORT),
+          f"checkpoint abort at {CKPT_ABORT}: aborted {aborted}, latest "
+          f"{latest}")
+    perr, lerr, qerr, flags = campaign_diffs(port, resumed, ref)
+    metrics = [repr(m) for m in resumed.metrics] == [repr(m)
+                                                     for m in ref.metrics]
+    print(f"checkpoints every {CKPT_EVERY} rounds: saves "
+          f"{[round(v, 3) for v in saves]} ms ({n_saved} before the abort at "
+          f"{CKPT_ABORT}, then the resumed run's), {size / 1e6:.3f} MB on "
+          f"disk; latest {latest.name}; restore "
+          f"{[round(v, 3) for v in restores]} ms; the resumed run captured "
+          f"{resumed.graphs['graphs']} graphs in "
+          f"{resumed.graphs['capture_s']:.3f} s; resumed vs uninterrupted: "
+          f"max param diff {perr:.3e}, loss {lerr:.3e}, error-feedback state "
+          f"{qerr:.3e}, flags equal {flags}, metrics equal {metrics}")
+    check(perr == lerr == qerr == 0.0 and flags and metrics,
+          "the resumed campaign differs from the uninterrupted one")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "crash_resume_check_torch.py"),
+         "--device", "cuda"], capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    print(f"scripts/crash_resume_check_torch.py --device cuda: exit "
+          f"{proc.returncode} in {secs:.1f} s: "
+          + " | ".join(proc.stdout.strip().splitlines()[-3:]))
+    check(proc.returncode == 0,
+          f"crash_resume_check_torch.py failed: {proc.stderr[-2000:]}")
+    return {"save_ms": saves, "restore_ms": restores,
+            "resumed_graphs": resumed.graphs["graphs"],
+            "resumed_capture_s": resumed.graphs["capture_s"],
+            "carry_mb_on_disk": size / 1e6, "crash_resume_check_s": secs}
 
 
 # the kl_mutual kernels: (rows, d) of the main path (50 clients x 32 rows of
@@ -2377,7 +2773,9 @@ def import_port():
     from repro_torch import serve
     from repro_torch.configs.base import get_config
     from repro_torch.configs.splitme_dnn import DNN10
-    from repro_torch.core import baselines, dnn, engine, quantcomm
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import baselines, dnn, engine, quantcomm, scenario
+    from repro_torch.core.engine import RoundGuards
     from repro_torch.core.inversion import invert_inverse_model
     from repro_torch.core.cost import SystemParams
     from repro_torch.core.splitme import SplitMeTrainer
@@ -2395,7 +2793,7 @@ def import_port():
     from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
-    from repro_torch.launch import campaign
+    from repro_torch.launch import campaign, resilience
     from repro_torch.models.transformer import build_model
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     return types.SimpleNamespace(**locals())
@@ -2640,7 +3038,7 @@ def main() -> int:
 
     # -- 3b. SplitMe campaign ------------------------------------------------
     phase("3b. SplitMe campaign")
-    graphed, f32_ops = campaign_phase(torch, port, sp, clients, test)
+    graphed, f32_ops, base = campaign_phase(torch, port, sp, clients, test)
     torch.cuda.empty_cache()
 
     # -- 3c. precision and wire formats --------------------------------------
@@ -2654,6 +3052,16 @@ def main() -> int:
     # -- 3e. a time-varying RAN ----------------------------------------------
     phase("3e. a time-varying RAN")
     scenarios = scenario_phase(torch, port, clients, test)
+
+    # -- 3f. fault channels and guards ---------------------------------------
+    phase("3f. fault channels and guards")
+    faults, fault_ref, fault_kw = fault_phase(torch, port, sp, clients,
+                                               test, base)
+
+    # -- 3g. checkpoints -----------------------------------------------------
+    phase("3g. checkpoints")
+    faults["checkpoints"] = checkpoint_phase(torch, port, sp, clients,
+                                             fault_ref, fault_kw)
 
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
@@ -2729,6 +3137,8 @@ def main() -> int:
         prec["variants"]))
     print("framework comparison (phase 3d): " + json.dumps(compared))
     print("time-varying RAN (phase 3e): " + json.dumps(scenarios))
+    print("fault channels, guards and checkpoints (phases 3f, 3g): "
+          + json.dumps(faults))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -42,8 +42,12 @@ phase (``_mlp_spec``) and differ only in their comm model and host policy;
 they call no kernel of their own (their forward, loss and backward are plain
 PyTorch, as the reference's are plain jnp).
 
-Not ported in this slice (raise): fault guards and fault channels, and the
-sharded round.
+Fault injection and the in-round guards (``RoundGuards``) act on the
+uploaded per-client deltas and on the aggregate, inside the round: the
+wire-gain and NaN-poison channels of a ``faults:p`` trace, a per-client norm
+clip, the non-finite rollback and the quorum hold (``_round_core``).
+
+Not ported in this slice: the sharded round.
 """
 from __future__ import annotations
 
@@ -73,6 +77,28 @@ def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"later slice: {what} is not ported yet")
 
 
+@dataclass(frozen=True)
+class RoundGuards:
+    """In-round fault guards (``repro_torch.launch.resilience``).
+
+    ``nonfinite``   — a non-finite aggregate rolls the round back: the
+                      previous params and error-feedback state are held
+                      (counted in ``skipped_rounds``),
+    ``min_clients`` — quorum: a realized cohort |A_t| below it holds the
+                      round instead of averaging over a near-empty set
+                      (counted in ``quorum_rounds``; 1 arms no hold),
+    ``clip_norm``   — optional: each client's update clipped to this global
+                      L2 norm where it is quantized for the wire (bounds a
+                      finite corruption; a NaN update stays NaN and meets
+                      the rollback).
+
+    All three are tensor operations inside the round: a guarded campaign
+    stays one CUDA graph a round shape with one host transfer."""
+    nonfinite: bool = True
+    min_clients: int = 1
+    clip_norm: Optional[float] = None
+
+
 @dataclass
 class RoundMetrics:
     round: int
@@ -87,6 +113,12 @@ class RoundMetrics:
     accuracy: float = float("nan")
     client_loss: float = float("nan")
     server_loss: float = float("nan")
+    # a guarded campaign's accounting (0 without guards): the share of
+    # seeds whose round was rolled back / held for quorum, and whether the
+    # round was a server crash
+    skipped: float = 0.0
+    quorum_held: float = 0.0
+    crashed: float = 0.0
 
 
 def fetch_history(history) -> list:
@@ -203,7 +235,7 @@ def _aggregate(spec: FrameworkSpec, params: ParamsTuple, weighted, msum,
     index: layers}) with error feedback, bf16 rounds (weighted, |A_t|, the
     loss sums); then |A_t| is clamped to ≥ 1 and divides.  ``lead``: 1 for
     seed-stacked payloads (a scale and a residual per seed).  Returns (new
-    params, losses, new qstate)."""
+    params, losses, new qstate, |A_t| as it crossed the wire)."""
     quant = spec.quant
     if quant.stochastic:
         weighted, qstate = quantcomm.fake_quant_int8(weighted, qstate,
@@ -215,13 +247,82 @@ def _aggregate(spec: FrameworkSpec, params: ParamsTuple, weighted, msum,
     new_params = tuple(
         [{k: v / wsum for k, v in p.items()} for p in weighted[i]]
         if i in weighted else params[i] for i in range(len(params)))
-    return new_params, tuple(s / wsum for s in loss_sums), qstate
+    return new_params, tuple(s / wsum for s in loss_sums), qstate, msum
+
+
+def _inject(updated: Dict[int, Params], old: Dict[int, Params], a_mask,
+            faults, clip: Optional[float]) -> Dict[int, Params]:
+    """The fault block on each client's uploaded delta ``new − old`` (``old``
+    broadcasts over the client axis): the wire gain, then the NaN poison of
+    the SELECTED clients only (a mask-0 NaN would leak through 0 × NaN in
+    the masked sum), then the norm clip; returns ``old + delta``."""
+    poison = faults.get("poison") if faults is not None else None
+    wire = faults.get("wire_gain") if faults is not None else None
+    out = {}
+    for i, u in updated.items():
+        delta = quantcomm.tree_map(lambda wn, wo: wn - wo, u, old[i])
+        if wire is not None:
+            delta = quantcomm.apply_client_gain(delta, wire)
+        if poison is not None:
+            bad = (poison > 0) & (a_mask > 0)
+            delta = quantcomm.apply_client_gain(
+                delta, torch.where(bad, float("nan"), 1.0))
+        if clip is not None:
+            delta = quantcomm.clip_client_norm(delta, clip)
+        out[i] = quantcomm.tree_map(lambda d, wo: wo + d, delta, old[i])
+    return out
+
+
+def _guard(guards: RoundGuards, trained, params: ParamsTuple, new_params,
+           qstate, new_qstate, msum, lead: int):
+    """The guard block on the aggregate: a non-finite trained param rolls
+    the round back and a cohort below ``min_clients`` holds it; params and
+    error-feedback state keep their old values with ``torch.where``, per
+    seed for seed-stacked trees (``lead`` 1).  Returns (params, qstate,
+    flags ``{"skipped", "quorum"}``: f32, one per seed)."""
+    dev = msum.device
+    finite = torch.ones(params[0][0]["w"].shape[:lead], dtype=torch.bool,
+                        device=dev)
+    if guards.nonfinite:
+        for i in trained:
+            for leaf in quantcomm.tree_leaves(new_params[i]):
+                finite = finite & (torch.isfinite(leaf.flatten(lead))
+                                   .all(dim=lead))
+    quorum_ok = (msum >= guards.min_clients if guards.min_clients > 1
+                 else torch.ones((), dtype=torch.bool, device=dev))
+    apply = finite & quorum_ok
+
+    def hold(n, o):
+        return torch.where(apply.reshape(apply.shape
+                                         + (1,) * (n.dim() - lead)), n, o)
+    new_params = quantcomm.tree_map(hold, new_params, params)
+    qstate = quantcomm.tree_map(hold, new_qstate, qstate)
+    ok = finite.float()
+    return new_params, qstate, {"skipped": 1.0 - ok,
+                                "quorum": ok * (1.0 - quorum_ok.float())}
+
+
+def _finish(spec, params, updated, weighted, msum, loss_sums, qstate,
+            uniforms, guards, lead):
+    """Aggregate, then the guards if armed: the 3-tuple, or with guards the
+    4-tuple ending in the flags."""
+    new_params, losses, new_q, msum = _aggregate(
+        spec, params, weighted, msum, loss_sums, qstate, uniforms, lead)
+    if guards is None:
+        return new_params, losses, new_q
+    new_params, new_q, flags = _guard(guards, updated, params, new_params,
+                                      qstate, new_q, msum, lead)
+    return new_params, losses, new_q, flags
 
 
 def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                 a_mask: torch.Tensor, e_steps: int, idx: torch.Tensor,
-                qstate=(), uniforms=None):
-    """One masked round over the full client axis."""
+                qstate=(), uniforms=None, faults=None,
+                guards: Optional[RoundGuards] = None):
+    """One masked round over the full client axis.  ``faults`` ({"poison",
+    "wire_gain"}: (M,) each) corrupts the uploaded updates; ``guards`` arms
+    the clip, the rollback and the quorum hold and adds the flags to the
+    return."""
     m, e_max = ctx["x"].shape[0], idx.shape[2]
     do = _step_mask(e_max, e_steps, ctx["x"].device)
     updated: Dict[int, Params] = {}
@@ -233,24 +334,31 @@ def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                                     idx[pi], e_steps)
         updated[ph.param_idx] = w_new
         phase_losses.append(loss_m)
+    clip = guards.clip_norm if guards is not None else None
+    if faults is not None or clip is not None:
+        updated = _inject(updated, {i: replicate(params[i], m)
+                                    for i in updated}, a_mask, faults, clip)
     # masked FedAvg numerators, |A_t| and the loss sums
     weighted = {i: [{k: torch.tensordot(a_mask, v, dims=1)
                      for k, v in p.items()} for p in u]
                 for i, u in updated.items()}
     loss_sums = tuple((l * a_mask).sum() for l in phase_losses)
-    return _aggregate(spec, params, weighted, a_mask.sum(), loss_sums, qstate,
-                      uniforms, 0)
+    return _finish(spec, params, updated, weighted, a_mask.sum(), loss_sums,
+                   qstate, uniforms, guards, 0)
 
 
 def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps,
-                   idx: torch.Tensor, qstate=(), uniforms=None):
+                   idx: torch.Tensor, qstate=(), uniforms=None, faults=None,
+                   guards: Optional[RoundGuards] = None):
     """One masked round over the gathered cohort ``sel_idx`` (kb,) of every
     seed: ``params`` leaves are seed-stacked (S, ...), ``idx`` is the
     full-M draw (S, n_phases, M, e_max, B).  The (seed, slot) pairs form
     one client axis of S·kb, seed-major; masked FedAvg, the loss sums and
     the wire format run per seed (an int8 scale and residual per seed, as
-    the reference's round vmapped over seeds quantizes)."""
+    the reference's round vmapped over seeds quantizes), and so do the
+    guards' decisions.  ``faults`` are the cohort's slices, (kb,) each,
+    shared by the seeds."""
     S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
     kb = sel_idx.shape[0]
     folded_sel = sel_idx.repeat(S)                      # client of each slot
@@ -269,13 +377,18 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                                     tgt, do, cohort_idx[pi], e_max)
         updated[ph.param_idx] = w_new
         phase_losses.append(loss_c.reshape(S, kb))
+    clip = guards.clip_norm if guards is not None else None
+    if faults is not None or clip is not None:
+        updated = _inject(
+            updated, {i: folded[i] for i in updated}, sel_mask.repeat(S),
+            faults and {k: v.repeat(S) for k, v in faults.items()}, clip)
     weighted = {i: [{k: (sel_mask @ v.reshape(S, kb, -1))
                      .reshape(S, *v.shape[1:]) for k, v in p.items()}
                     for p in u]
                 for i, u in updated.items()}
     loss_sums = tuple((l * sel_mask).sum(1) for l in phase_losses)
-    return _aggregate(spec, params, weighted, sel_mask.sum(), loss_sums,
-                      qstate, uniforms, 1)
+    return _finish(spec, params, updated, weighted, sel_mask.sum(), loss_sums,
+                   qstate, uniforms, guards, 1)
 
 
 def _check_on(device, **tensors) -> None:
@@ -288,7 +401,8 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
                    x: torch.Tensor, y: torch.Tensor, *, e_max: int,
                    gather: bool = False,
                    policy: PolicyLike = None,
-                   guards=None, with_faults: bool = False):
+                   guards: Optional[RoundGuards] = None,
+                   with_faults: bool = False):
     """One federated round for `spec` over the fixed client dataset
     ``x`` (M, n, d) and ``y`` (M, n) int labels, on their device.
 
@@ -314,14 +428,24 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     ``sel_idx``, and ``e_steps`` may be a 0-d tensor on the data's device (a
     CUDA graph's operand): every one of the e_max steps runs its backward
     and the masked update.  The gathered round checks no index values
-    (that would wait on the card); its callers check them on the host."""
-    if guards is not None or with_faults:
-        raise _later("fault channels and guards")
+    (that would wait on the card); its callers check them on the host.
+
+    ``guards`` (a ``RoundGuards``) arms the in-round guards: the round then
+    returns ``(params, losses, qstate, flags)`` with ``flags = {"skipped",
+    "quorum"}`` f32 (0-d, or (S,) for the gathered round).
+    ``with_faults=True`` adds a trailing ``faults`` argument, ``{"poison",
+    "wire_gain"}`` f32 per client: (M,) each for the full round, the
+    cohort's (kb,) slices (shared by the seeds; pads poison 0 and gain 1)
+    for the gathered one.  Both default off, leaving the round as it
+    was."""
     if policy is not None and (dispatch.get_policy(policy).resolved(x.device)
                                != spec.policy):
         raise ValueError("round builders cannot override the spec-bound "
                          f"kernel policy (spec has {spec.policy}); rebuild "
                          "via make_spec(..., policy=...)")
+    if guards is not None and not isinstance(guards, RoundGuards):
+        raise TypeError(f"guards must be a RoundGuards, got "
+                        f"{type(guards).__name__}")
     prec = spec.policy.precision
     if x.dtype != torch.float32 and not (prec.is_mixed
                                          and x.dtype == prec.compute_dtype):
@@ -353,9 +477,24 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
         if spec.quant.stateful != (qstate != ()):
             raise ValueError("qstate must come from init_quant_state(spec)")
 
+    def check_faults(faults, m):
+        if not with_faults:
+            if faults is not None:
+                raise ValueError("faults given to a round built without "
+                                 "with_faults=True")
+            return None
+        if faults is None or set(faults) != {"poison", "wire_gain"}:
+            raise ValueError("faults must be {'poison', 'wire_gain'}")
+        for k, v in faults.items():
+            if tuple(v.shape) != (m,) or v.dtype != torch.float32:
+                raise ValueError(f"faults[{k!r}] must be f32 ({m},), got "
+                                 f"{v.dtype} {tuple(v.shape)}")
+            _check_on(x.device, **{k: v})
+        return faults
+
     if gather:
         def round_fn(params: ParamsTuple, sel_idx, sel_mask, e_steps, idx,
-                     qstate=(), uniforms=None):
+                     qstate=(), uniforms=None, faults=None):
             check_idx(idx, tuple(idx.shape[:1]))
             if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 \
                     or tuple(sel_mask.shape) != tuple(sel_idx.shape):
@@ -363,21 +502,24 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
                                  "(kb,)")
             _check_on(x.device, idx=idx, sel_idx=sel_idx, sel_mask=sel_mask)
             check_quant(params, qstate, uniforms, tuple(idx.shape[:1]))
+            faults = check_faults(faults, sel_idx.shape[0])
             with torch.no_grad():
                 return _gathered_core(spec, runners, params, ctx, sel_idx,
                                       sel_mask, e_steps, idx, qstate,
-                                      uniforms)
+                                      uniforms, faults, guards)
 
         return round_fn
 
     def round_fn(params: ParamsTuple, a_mask, e_steps: int, idx, qstate=(),
-                 uniforms=None):
+                 uniforms=None, faults=None):
         check_idx(idx)
         _check_on(x.device, idx=idx, a_mask=a_mask)
         check_quant(params, qstate, uniforms, ())
+        faults = check_faults(faults, M)
         with torch.no_grad():
             return _round_core(spec, runners, params, ctx, a_mask,
-                               int(e_steps), idx, qstate, uniforms)
+                               int(e_steps), idx, qstate, uniforms, faults,
+                               guards)
 
     return round_fn
 

@@ -16,12 +16,13 @@ A ``ScenarioTrace`` holds, for R rounds × M clients:
 * ``deadline_scale`` — jitter on the slice deadlines ``t_round``,
 * ``data_alpha`` — Dirichlet α of the client partition (``partition_for``),
 
-and, for the ``faults`` family, the fault channels ``poison``, ``crash``
-and ``wire_gain`` that the reference injects inside its scanned rounds.
-The port's campaign and trainers run the non-fault channels: they act on
-the host plan and the metrics only (``apply_round``, ``realized_mask``,
-``cost.schedule_metrics(trace=)``), so the device rounds are unchanged.
-A trace with armed fault channels is a later slice (its callers raise).
+and, for the ``faults`` family, the fault channels ``poison`` (R, M),
+``crash`` (R,) and ``wire_gain`` (R, M).  The planning channels act on the
+host plan and the metrics only (``apply_round``, ``realized_mask``,
+``cost.schedule_metrics(trace=)``).  The planner never reads the fault
+channels: the scanned campaign injects them inside its rounds and guards
+against them there (``engine.RoundGuards``, ``launch/resilience.py``), and
+the serial trainers ignore them, as the reference's do.
 
 Registry: ``static`` | ``fading`` | ``straggler`` | ``noniid`` |
 ``faults`` | ``churn``, each with an optional level suffix
@@ -347,10 +348,3 @@ def partition_for(trace: Optional[ScenarioTrace], X: np.ndarray,
     return oran.partition_non_iid(X, y, n_clients, samples_per_client,
                                   seed=seed)
 
-
-def reject_faults(trace: Optional[ScenarioTrace]) -> None:
-    """Raise for a trace with armed fault channels: the in-round fault
-    injection and its guards are a later slice of the port."""
-    if isinstance(trace, ScenarioTrace) and trace.has_faults():
-        raise NotImplementedError("later slice: fault channels and guards "
-                                  "are not ported yet")

@@ -25,7 +25,8 @@ error-feedback state is carried from round to round.  ``scenario`` (a
 ``repro_torch.core.scenario.ScenarioTrace``; a serial trainer has no round
 horizon to build one from a name) rewrites the derived SystemParams to each
 round's RAN state before the policy steps, and the realized mask drops the
-clients that fail mid-round.
+clients that fail mid-round; a trace's fault channels are ignored, as the
+reference's trainers ignore them (the scanned campaign injects them).
 
 ``_SerialTrainer`` holds what the SplitMe trainer and the baselines'
 (``repro_torch.core.baselines``) share: the device and data, the run's
@@ -92,7 +93,6 @@ class _SerialTrainer:
                 "serial trainers need a concrete ScenarioTrace (the round "
                 "horizon is open-ended): build one with scenario.make_trace("
                 f"{scenario!r}, rounds, M) or run a campaign")
-        scen.reject_faults(scenario)
         self._trace = scenario
         self._trace_base = (scen.capture_base(self.sp)
                             if scenario is not None else None)

@@ -44,10 +44,25 @@ A ``scenario`` (a ``repro_torch.core.scenario`` name such as ``"fading"``
 or ``"straggler:0.4"``, or a ``ScenarioTrace``) makes the plan
 time-varying: each round the policy re-selects against the round-t RAN
 state and the recorded mask is the realized one; latency, cost and energy
-vectorize over trace × schedule.  As in the reference, the trace acts on
-the host plan and the metrics only, so both modes run the same device
-rounds, each a graph of its (cohort, E) shape; a schedule with many shapes
-captures many graphs.
+vectorize over trace × schedule.  As in the reference, the planning
+channels act on the host plan and the metrics only, so both modes run the
+same device rounds, each a graph of its (cohort, E) shape; a schedule with
+many shapes captures many graphs.
+
+Fault tolerance (``repro_torch.launch.resilience`` has the failure model):
+a ``faults:p`` trace's poison and wire-gain channels, gathered by each
+round's cohort, and its crash channel make one more f32 operand row a round
+(``[crash, poison (kb), wire gain (kb)]``), copied in before the replay;
+the round injects the faults into the uploaded updates, a crash round holds
+params and error-feedback state (``torch.where`` into the state tensors)
+and records a NaN loss row, and ``engine.RoundGuards`` (armed by default on
+a trace with faults) roll back a seed's non-finite aggregate and hold a
+round below quorum.  Their per-seed flags land in device buffers fetched
+with the losses, in the one transfer.  ``checkpoint_every`` /
+``checkpoint_dir`` save the carry (params, error-feedback state and the
+metric buffers of the rounds done) after every ``checkpoint_every``-th
+round and the last, and ``resume=True`` copies the newest committed one
+into the state tensors before the first capture and runs the rounds left.
 
 Randomness is an input, as in the trainer: each seed's CPU
 ``torch.Generator(seed)`` draws its initial parameters (unless ``params=``
@@ -58,15 +73,15 @@ gives them) and then, round by round, its full-M batch indices (unless
 threefry streams; the parity tests feed both packages the same
 parameters, batches and uniforms.
 
-Not ported in this slice (raise): ``mesh=`` (sharded rounds), fault
-channels and guards, checkpoints and resume, population mode and config
-sweeps.
+Not ported in this slice: ``mesh=`` (sharded rounds; raises), population
+mode and config sweeps.
 """
 from __future__ import annotations
 
 import contextlib
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,8 +90,10 @@ import torch
 from repro_torch.configs.splitme_dnn import DNNConfig
 from repro_torch.core import engine, quantcomm, scenario as scen
 from repro_torch.core.cost import SystemParams, schedule_metrics
-from repro_torch.core.engine import RoundMetrics, _later
+from repro_torch.core.engine import RoundGuards, RoundMetrics, _later
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.checkpoint import io
+from repro_torch.launch import resilience
 
 # Device→host transfer accounting: every metrics pull of a campaign goes
 # through _host_fetch (the scanned campaign: exactly 1; the loop: 1 a round)
@@ -139,10 +156,33 @@ class CampaignResult:
     # the final int8 error-feedback state, {param index: layers} with each
     # leaf stacked over seeds (() for the stateless wire formats)
     qstate: Any = ()
+    # a guarded campaign's accounting (None without guards): (R, S) 0/1
+    # non-finite rollbacks and quorum holds, and the (R,) server crashes
+    skipped_per_round: Optional[np.ndarray] = None
+    quorum_per_round: Optional[np.ndarray] = None
+    crashed_per_round: Optional[np.ndarray] = None
 
     def params_for(self, i: int):
         """The i-th seed's params tuple (unstacked)."""
         return _seed_params(self.params, i)
+
+    @property
+    def skipped_rounds(self) -> int:
+        """Non-finite rollbacks, summed over seeds."""
+        return (0 if self.skipped_per_round is None
+                else int(self.skipped_per_round.sum()))
+
+    @property
+    def quorum_rounds(self) -> int:
+        """Quorum hold-rounds, summed over seeds."""
+        return (0 if self.quorum_per_round is None
+                else int(self.quorum_per_round.sum()))
+
+    @property
+    def crashed_rounds(self) -> int:
+        """Rounds lost to server crashes (the same for every seed)."""
+        return (0 if self.crashed_per_round is None
+                else int(self.crashed_per_round.sum()))
 
 
 def _seed_params(params, i: int):
@@ -229,8 +269,8 @@ def _plan_segments(kb_r: Sequence[int], eb_r: Sequence[int]
 def _split_at_checkpoints(segs, every: Optional[int]
                           ) -> List[Tuple[int, int, int, int]]:
     """Additionally split the (kb, eb, start, length) runs at global rounds
-    divisible by ``every``, so every checkpoint boundary lands on a segment
-    edge (checkpoints themselves are a later slice of the port)."""
+    divisible by ``every``: the reference's segment ends, which are the
+    port's checkpoint cursors."""
     if not every:
         return segs
     out = []
@@ -243,7 +283,8 @@ def _split_at_checkpoints(segs, every: Optional[int]
     return out
 
 
-def _make_metrics(sched, comm, nsel, sim, cost, energy, losses, acc_rounds
+def _make_metrics(sched, comm, nsel, sim, cost, energy, losses, acc_rounds,
+                  skipped=None, quorum=None, crashed=None
                   ) -> List[RoundMetrics]:
     metrics = []
     for r in range(sched.rounds):
@@ -256,7 +297,11 @@ def _make_metrics(sched, comm, nsel, sim, cost, energy, losses, acc_rounds
             cost=float(cost[r]), energy=float(energy[r]), accuracy=acc_r,
             client_loss=float(losses[:, r, 0].mean()),
             server_loss=float(losses[:, r, 1].mean())
-            if losses.shape[-1] > 1 else float("nan")))
+            if losses.shape[-1] > 1 else float("nan"),
+            skipped=float(skipped[r].mean()) if skipped is not None else 0.0,
+            quorum_held=float(quorum[r].mean()) if quorum is not None
+            else 0.0,
+            crashed=float(crashed[r]) if crashed is not None else 0.0))
     return metrics
 
 
@@ -370,6 +415,8 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
                  index_source: Optional[IndexSource] = None,
                  uniform_source: Optional[UniformSource] = None,
                  _round_hook: Optional[Callable[[int], None]] = None,
+                 _checkpoint_hook: Optional[Callable[[int], None]] = None,
+                 _graphs: bool = True,
                  **hyper) -> CampaignResult:
     """Train ``len(seeds)`` independent runs of ``framework`` over one
     shared schedule (FedAvg's and SFL's random cohorts drawn from
@@ -392,8 +439,10 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     indices of round r, ``(n_phases, M, e_bucket, batch_size)`` int64;
     ``uniform_source(i, r)``, seed i's int8 uniforms of round r, ``(U,)``
     f32 in ``engine.quant_uniforms``'s layout; ``_round_hook(r)``, called
-    on the host once round r is queued.  Each round's wall time lands in
-    ``CampaignResult.round_ms``.  By default each seed's generator draws
+    on the host once round r is queued; ``_graphs=False`` runs the scan's
+    round bodies on CUDA without capturing them (to hold the graphs
+    against the same bodies run uncaptured).  Each round's wall time lands
+    in ``CampaignResult.round_ms``.  By default each seed's generator draws
     its initial weights and then its rounds' batches, the rule of the
     serial trainers: a baseline campaign's seed s equals its trainer with
     ``seed=s`` and the same K and E (FedAvg's and SFL's when ``policy_seed``
@@ -401,21 +450,29 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     campaign draws its E bucket's).
 
     ``scenario`` and ``scenario_seed`` make the plan time-varying (module
-    docstring); a trace with fault channels raises.
+    docstring).  A trace's fault channels are injected inside the scanned
+    rounds, and ``guards`` (an ``engine.RoundGuards``; None arms the
+    defaults when the trace has faults, False disarms them) adds the
+    rollback, the quorum hold and the optional norm clip; faults and guards
+    need ``scan=True``.  ``checkpoint_every`` with ``checkpoint_dir`` saves
+    the carry after every ``checkpoint_every``-th round and the last
+    (``launch/resilience.py``; each save is a device→host pull, so not
+    with ``strict_transfers``; ``scan=True`` only); ``resume=True`` checks
+    the newest committed checkpoint's fingerprint against the replanned
+    schedule, restores it and runs the rounds left.
+    ``_checkpoint_hook(round_cursor)`` runs after each committed save.
 
     ``policy`` and ``quant`` are bound into the spec (the precision request
     of ``"kernel_bf16"`` resolved for ``device``); ``quant`` also scales
     the host plan's payloads, as in the reference.
 
-    Raise as later slices of the port: ``mesh``, fault channels and
-    ``guards``, and ``checkpoint_every`` / ``checkpoint_dir`` / ``resume``.
+    Raises as a later slice of the port: ``mesh``.
     """
     if mesh is not None:
         raise _later("the sharded campaign (mesh=)")
-    if guards not in (None, False):
-        raise _later("fault channels and guards")
-    if checkpoint_every or checkpoint_dir is not None or resume:
-        raise _later("checkpoints and resume")
+    if guards not in (None, False) and not isinstance(guards, RoundGuards):
+        raise TypeError(f"guards must be None, False or a RoundGuards, got "
+                        f"{type(guards).__name__}")
     dev = resolve_device(device)
     x = torch.as_tensor(client_data["x"], dtype=torch.float32, device=dev)
     y = torch.as_tensor(client_data["y"], dtype=torch.int64, device=dev)
@@ -429,22 +486,45 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
                               e_initial=e_initial, policy_seed=policy_seed,
                               n_samples_per_client=n_m, quant=quant,
                               scenario=scenario, scenario_seed=scenario_seed)
-    scen.reject_faults(sched.trace)
     # the loss metric averages over the executed steps only, so a round
     # runs exactly its E bucket's steps; the trained params equal the
     # serial trainer's (masked updates are exact no-ops)
     spec = engine.make_spec(framework, cfg, masked_loss_metric=True,
                             policy=policy, quant=quant, device=dev, **hyper)
     comm, nsel, sim, cost, energy = _schedule_system_metrics(spec, sched, sp)
+
+    trace = sched.trace
+    has_faults = trace is not None and trace.has_faults()
+    if guards is None and has_faults:
+        guards = RoundGuards()              # faults arm the defaults
+    elif guards is False:
+        guards = None
+    if checkpoint_every or checkpoint_dir is not None or resume:
+        if not (checkpoint_every and checkpoint_dir is not None):
+            raise ValueError("checkpointing needs BOTH checkpoint_every "
+                             "and checkpoint_dir (resume implies both)")
+        if not scan:
+            raise ValueError("checkpoint/resume requires scan=True (the "
+                             "loop has no round buffers to save)")
+        if strict_transfers:
+            raise ValueError("checkpoint_every is incompatible with "
+                             "strict_transfers: each save is an explicit "
+                             "device→host pull")
     if not scan and eval_every:
         raise ValueError("eval_every (per-round eval) requires scan=True; "
                          "the loop only evaluates post-hoc")
+    if not scan and (has_faults or guards is not None):
+        raise ValueError("fault injection / RoundGuards require scan=True "
+                         "(the guards live inside the scanned rounds)")
     kb_r, eb_r = _round_shapes(sched, sp)
     params, qstate, indices, uniforms = _initial_state(
         spec, seeds, params, index_source, uniform_source, eb_r, int(sp.M),
         n_m, dev)
-    fns = {s: engine.build_round_fn(spec, cfg, x, y, e_max=s[1], gather=True)
-           for s in dict.fromkeys(zip(kb_r, eb_r))}
+    faults = _fault_plan(trace, guards, rounds, int(sp.M))
+    fns = {s: engine.build_round_fn(
+        spec, cfg, x, y, e_max=s[1], gather=True, guards=guards,
+        with_faults=faults is not None and faults["with_faults"])
+        for s in dict.fromkeys(zip(kb_r, eb_r))}
 
     if not scan:
         losses, params, qstate, round_ms = _run_rounds_loop(
@@ -474,31 +554,79 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
             do_eval[eval_every - 1::eval_every] = True
         do_eval[rounds - 1] = True
 
+    ckpt = None
+    if checkpoint_every:
+        fp = resilience.schedule_fingerprint(
+            framework, seeds, sched, do_eval=do_eval,
+            quant_mode=spec.quant.mode, checkpoint_every=checkpoint_every)
+        resume_from = None
+        if resume:
+            resume_from = resilience.latest_checkpoint(checkpoint_dir)
+            if resume_from is not None and resilience.load_checkpoint_meta(
+                    resume_from).get("fingerprint") != fp:
+                raise ValueError(
+                    f"checkpoint {resume_from} was written by a different "
+                    f"campaign plan (schedule fingerprint mismatch); "
+                    f"refusing to resume")
+        ckpt = {"dir": checkpoint_dir, "every": int(checkpoint_every),
+                "fingerprint": fp, "resume_from": resume_from,
+                "hook": _checkpoint_hook, "framework": framework,
+                "n_seeds": len(seeds)}
+
     params, buffers, clock, graphs = _run_rounds_scan(
         fns, sched, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
-        eval_fn, strict=strict_transfers, round_hook=_round_hook)
+        eval_fn, strict=strict_transfers, round_hook=_round_hook,
+        guards=guards, faults=faults, ckpt=ckpt, capture=_graphs)
     host = _host_fetch(buffers)            # THE per-campaign transfer
     round_ms = clock.round_ms()
     losses = np.transpose(host["loss"], (1, 0, 2))        # (S, R, n_ph)
     acc_rounds = host.get("acc")                           # (R, S)
+    skipped, quorum = host.get("skipped"), host.get("quorum")
+    crashed = None
+    if trace is not None and trace.crash is not None:
+        crashed = (np.asarray(trace.crash[:rounds]) > 0).astype(np.float64)
     result = CampaignResult(
         framework=framework, seeds=tuple(seeds), schedule=sched,
         params=params, losses=losses,
         metrics=_make_metrics(sched, comm, nsel, sim, cost, energy, losses,
-                              acc_rounds),
+                              acc_rounds, skipped, quorum, crashed),
         accuracy_per_round=acc_rounds, round_ms=round_ms, graphs=graphs,
-        qstate=qstate)
+        qstate=qstate, skipped_per_round=skipped, quorum_per_round=quorum,
+        crashed_per_round=crashed)
     if test_data is not None:
         result.accuracy = acc_rounds[rounds - 1]
     return result
 
 
+def _fault_plan(trace, guards, rounds: int, M: int) -> Optional[dict]:
+    """The scanned rounds' fault operands, as the reference arms them:
+    None when neither guards nor a fault channel nor a crash is armed (the
+    rounds stay as they are), else the (R, M) poison (zeros where the trace
+    has none) and wire gain (ones), the (R,) crash flags, and whether the
+    rounds take the poison and wire channels at all."""
+    poison = trace.poison if trace is not None else None
+    wire = trace.wire_gain if trace is not None else None
+    crash = trace.crash if trace is not None else None
+    with_faults = poison is not None or wire is not None
+    has_crash = crash is not None and bool(np.any(np.asarray(crash) > 0))
+    if guards is None and not with_faults and not has_crash:
+        return None
+    return {"with_faults": with_faults,
+            "poison": (np.zeros((rounds, M), np.float32) if poison is None
+                       else np.asarray(poison[:rounds], np.float32)),
+            "wire": (np.ones((rounds, M), np.float32) if wire is None
+                     else np.asarray(wire[:rounds], np.float32)),
+            "crash": (np.asarray(crash[:rounds], np.float32) if has_crash
+                      else np.zeros(rounds, np.float32))}
+
+
 class _RoundClock:
     """Each round's wall time: CUDA events on ``stream`` (read once the
-    campaign's fetch has synchronized), or the host clock on the CPU."""
+    campaign's fetch has synchronized), or the host clock on the CPU; NaN
+    for the first ``skipped`` rounds (restored by a resume, not run)."""
 
     def __init__(self, stream=None):
-        self.stream, self.marks = stream, []
+        self.stream, self.marks, self.skipped = stream, [], 0
         self.mark()
 
     def mark(self) -> None:
@@ -511,9 +639,11 @@ class _RoundClock:
 
     def round_ms(self) -> np.ndarray:
         if self.stream is None:
-            return np.diff(self.marks) * 1e3
-        return np.array([a.elapsed_time(b) for a, b
-                         in zip(self.marks, self.marks[1:])])
+            ms = np.diff(self.marks) * 1e3
+        else:
+            ms = np.array([a.elapsed_time(b) for a, b
+                           in zip(self.marks, self.marks[1:])])
+        return np.concatenate([np.full(self.skipped, np.nan), ms])
 
 
 def _run_rounds_loop(fns, sched, kb_r, eb_r, params, qstate, indices,
@@ -544,26 +674,37 @@ def _run_rounds_loop(fns, sched, kb_r, eb_r, params, qstate, indices,
 
 def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
                      uniforms, do_eval, eval_fn, *, strict: bool,
-                     round_hook):
-    """All rounds, one graph replay each on CUDA (the same bodies eagerly on
-    the CPU); returns (params, device metric buffers, the rounds'
-    ``_RoundClock``, graph stats).  ``params`` and ``qstate`` are updated
-    in place."""
+                     round_hook, guards=None, faults=None, ckpt=None,
+                     capture: bool = True):
+    """All rounds, one graph replay each on CUDA (the same bodies without
+    capture on the CPU, or with ``capture=False``); returns (params, device
+    metric buffers, the rounds' ``_RoundClock``, graph stats).  ``params``
+    and ``qstate`` are updated in place.  ``faults`` (``_fault_plan``) adds
+    each round's f32 fault row; ``ckpt`` saves and restores the carry
+    (``run_campaign``)."""
     dev = params[0][0]["w"].device
     R = sched.rounds
     S, n_ph, M, _, B = indices[0].shape
     cuda = dev.type == "cuda"
+    graphed = cuda and capture
     # every tensor a round writes and the next reads: the params and the
     # error-feedback state
     state = ([v for ps in params for p in ps for v in p.values()]
              + quantcomm.tree_leaves(qstate))
-    loss_buf = torch.full((R, S, n_ph), float("nan"), device=dev)
-    acc_buf = torch.full((R, S), float("nan"), device=dev)
+    buffers = {"loss": torch.full((R, S, n_ph), float("nan"), device=dev)}
+    if eval_fn is not None:
+        buffers["acc"] = torch.full((R, S), float("nan"), device=dev)
+    if guards is not None:
+        buffers["skipped"] = torch.zeros((R, S), device=dev)
+        buffers["quorum"] = torch.zeros((R, S), device=dev)
     r_slot = torch.zeros(1, dtype=torch.int64, device=dev)
+    start = _restore(ckpt, params, qstate, buffers)
 
-    # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices]
+    # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices];
+    # with faults one f32 row: [crash, poison (kb), wire gain (kb)]
     shapes = list(dict.fromkeys(zip(kb_r, eb_r)))
     rows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
+    frows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
     where, rounds_of = [], {s: [] for s in shapes}
     for r in range(R):
         s = (kb_r[r], eb_r[r])
@@ -571,10 +712,22 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
         rows[s].append(torch.cat([torch.tensor([r, int(sched.E[r]), k]),
                                   torch.from_numpy(sel),
                                   indices[r].reshape(-1)]))
+        if faults is not None:
+            # gathered by the cohort; pads stay neutral (poison 0, gain 1)
+            pz, wg = np.zeros(s[0], np.float32), np.ones(s[0], np.float32)
+            pz[:k], wg[:k] = faults["poison"][r, sel[:k]], \
+                faults["wire"][r, sel[:k]]
+            frows[s].append(torch.from_numpy(np.concatenate(
+                [faults["crash"][r:r + 1], pz, wg])))
         where.append(len(rows[s]) - 1)
         rounds_of[s].append(r)
     tables = {s: torch.stack(v).to(dev) for s, v in rows.items()}
     ops = {s: torch.empty_like(t[0]) for s, t in tables.items()}
+    ftables = fops = None
+    if faults is not None:
+        ftables = {s: torch.stack(v).to(dev) for s, v in frows.items()}
+        fops = {s: torch.empty_like(t[0]) for s, t in ftables.items()}
+    with_faults = faults is not None and faults["with_faults"]
     # the int8 uniforms: one (S, U) slice a round, copied into one operand
     utable = uop = None
     if uniforms is not None:
@@ -584,31 +737,46 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
     def round_body(s):
         kb, eb = s
         fn, op = fns[s], ops[s]
+        fop = fops[s] if fops is not None else None
 
         def body():
             r = op[0:1]
             mask = (torch.arange(kb, device=dev) < op[2]).float()
-            new, losses, nq = fn(params, op[3:3 + kb], mask, op[1],
-                                 op[3 + kb:].view(S, n_ph, M, eb, B),
-                                 qstate, uop)
-            for old, v in zip(state, [v for ps in new for p in ps
-                                      for v in p.values()]
-                              + quantcomm.tree_leaves(nq)):
-                old.copy_(v)
-            loss_buf.index_copy_(0, r, torch.stack(losses, -1)[None])
+            args = (params, op[3:3 + kb], mask, op[1],
+                    op[3 + kb:].view(S, n_ph, M, eb, B), qstate, uop)
+            if with_faults:
+                args += ({"poison": fop[1:1 + kb],
+                          "wire_gain": fop[1 + kb:]},)
+            out = fn(*args)
+            new, losses, nq = out[:3]
+            loss_row = torch.stack(losses, -1)
+            fresh = ([v for ps in new for p in ps for v in p.values()]
+                     + quantcomm.tree_leaves(nq))
+            if fop is None:
+                for old, v in zip(state, fresh):
+                    old.copy_(v)
+            else:
+                # a crash round is lost at the server: params and
+                # error-feedback state hold, its loss row is NaN
+                ran = fop[0] <= 0
+                for old, v in zip(state, fresh):
+                    old.copy_(torch.where(ran, v, old))
+                loss_row = torch.where(ran, loss_row, float("nan"))
+            buffers["loss"].index_copy_(0, r, loss_row[None])
+            if guards is not None:
+                for k, flag in out[3].items():
+                    buffers[k].index_copy_(
+                        0, r, torch.where(ran, flag, 0.0)[None])
             r_slot.copy_(r)
         return body
 
     def eval_body():
         acc = torch.stack([eval_fn(_seed_params(params, i))
                            for i in range(S)])
-        acc_buf.index_copy_(0, r_slot, acc[None])
+        buffers["acc"].index_copy_(0, r_slot, acc[None])
 
     bodies = {s: round_body(s) for s in shapes}
     bodies["eval"] = eval_body
-    buffers = {"loss": loss_buf}
-    if eval_fn is not None:
-        buffers["acc"] = acc_buf
     stream = torch.cuda.Stream(device=dev) if cuda else None
     if cuda:
         stream.wait_stream(torch.cuda.current_stream(dev))
@@ -618,7 +786,7 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
 
     def run(key, restore=()):
         nonlocal capture_s
-        if not cuda:
+        if not graphed:
             bodies[key]()
             return
         if key not in graphs:
@@ -628,9 +796,11 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
 
     with _no_syncs(dev, strict), torch.cuda.stream(stream):
         clock = _RoundClock(stream)
-        for r in range(R):
+        for r in range(start, R):
             s = (kb_r[r], eb_r[r])
             ops[s].copy_(tables[s][where[r]])
+            if fops is not None:
+                fops[s].copy_(ftables[s][where[r]])
             if uop is not None:
                 uop.copy_(utable[r])
             run(s, state)
@@ -639,12 +809,52 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
             clock.mark()
             if round_hook is not None:
                 round_hook(r)
+            if ckpt is not None and ((r + 1) % ckpt["every"] == 0
+                                     or r + 1 == R):
+                _save(ckpt, r + 1, R, params, qstate, buffers)
+    clock.skipped = start
     if not cuda:
         return params, buffers, clock, None
     torch.cuda.current_stream(dev).wait_stream(stream)
     stats = {"shapes": {s: rounds_of[s] for s in shapes},
              "graphs": len(graphs), "capture_s": capture_s}
     return params, buffers, clock, stats
+
+
+def _save(ckpt, cursor: int, R: int, params, qstate, buffers) -> None:
+    """Commit the carry after round ``cursor`` − 1 (the device→host pull
+    waits for the rounds queued on the current stream), then run the
+    hook."""
+    resilience.save_checkpoint(
+        ckpt["dir"], cursor, {"params": params, "qstate": qstate},
+        {k: v[:cursor] for k, v in buffers.items()},
+        fingerprint=ckpt["fingerprint"], rounds=R,
+        framework=ckpt["framework"], n_seeds=ckpt["n_seeds"])
+    if ckpt["hook"] is not None:
+        ckpt["hook"](cursor)
+
+
+def _restore(ckpt, params, qstate, buffers) -> int:
+    """Copy a resumed campaign's checkpoint into the state tensors and the
+    buffers' first rows, in place; the round cursor to go on from (0 when
+    there is nothing to resume)."""
+    if ckpt is None or ckpt["resume_from"] is None:
+        return 0
+    path = Path(ckpt["resume_from"])
+    io.restore(path, {"params": params, "qstate": qstate})
+    saved = io.load_arrays(path.with_name(path.name + "-buffers"))
+    if set(saved) != set(buffers):
+        raise ValueError(f"checkpoint {path} holds the buffers "
+                         f"{sorted(saved)}, this campaign has "
+                         f"{sorted(buffers)}")
+    cursor = int(io.manifest(path)["metadata"]["round_cursor"])
+    for k, v in saved.items():
+        if v.shape[0] != cursor or v.shape[1:] != buffers[k].shape[1:]:
+            raise ValueError(f"checkpoint {path}: buffer {k} is "
+                             f"{v.shape}, want ({cursor}, "
+                             f"{tuple(buffers[k].shape[1:])})")
+        buffers[k][:cursor].copy_(torch.from_numpy(v))
+    return cursor
 
 
 def _capture(body, pool, restore):

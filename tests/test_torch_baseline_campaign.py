@@ -29,7 +29,7 @@ from repro_torch.core.cost import SystemParams
 from repro_torch.data import oran
 from repro_torch.launch import campaign
 from torch_parity import (CampaignIndexReplay, TrainerIndexReplay,
-                          assert_params_close)
+                          assert_params_close, one_torch_thread)
 
 SEEDS = (0, 1)
 ROUNDS = 3

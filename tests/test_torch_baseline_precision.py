@@ -28,7 +28,8 @@ from test_torch_baselines import (B, CFG, E_R, JCFG, M, N, TRAINER_E,
                                   _jax_round, _round_data, _t,
                                   _trainer_pair, small_data)  # noqa: F401
 from torch_parity import (TrainerIndexReplay, assert_params_close,
-                          jax_to_torch, replay_round_indices)
+                          jax_to_torch, one_torch_thread,
+                          replay_round_indices)
 
 BF16_TOL = 1e-3
 WIRE_TOL = {"bf16": 2e-2, "int8": 6e-2}

@@ -35,7 +35,7 @@ from repro_torch.data import oran
 from repro_torch.kernels.dispatch import BF16, KernelPolicy
 from torch_parity import (TrainerIndexReplay, TrainerUniformReplay,
                           assert_params_close, jax_to_torch,
-                          replay_round_indices)
+                          one_torch_thread, replay_round_indices)
 
 BASELINES = ("fedavg", "sfl", "oranfed", "fedora", "ecofl")
 TRAINERS = {"fedavg": ("FedAvgTrainer", {"K": 10}),

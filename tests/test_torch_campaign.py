@@ -29,7 +29,8 @@ from repro_torch.core.cost import SystemParams
 from repro_torch.data import oran
 from repro_torch.launch import campaign
 from torch_parity import (CampaignIndexReplay, assert_params_close,
-                          jax_to_torch, replay_round_indices)
+                          jax_to_torch, one_torch_thread,
+                          replay_round_indices)
 
 SEEDS = (0, 1)
 ROUNDS = 3
@@ -441,31 +442,41 @@ def test_default_campaign_is_seeded(campaign_data):
     assert (runs[0].losses[0] != runs[0].losses[1]).any()
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "later slice"),
-    (dict(scenario="faults:0.2"), "later slice"),
-    (dict(guards=object()), "later slice"),
-    (dict(checkpoint_every=2, checkpoint_dir="ckpt"), "later slice"),
-    (dict(resume=True), "later slice"),
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(mesh=object()), NotImplementedError, "later slice"),
+    (dict(scenario="faults:0.2", scan=False), ValueError, "scan=True"),
+    (dict(guards=engine.RoundGuards(), scan=False), ValueError, "scan=True"),
+    (dict(checkpoint_every=2), ValueError, "BOTH"),
+    (dict(resume=True), ValueError, "BOTH"),
 ])
-def test_unported_campaign_options_raise(campaign_data, kw, match):
+def test_unported_campaign_options_raise(campaign_data, kw, err, match):
+    """``mesh=`` is the one option still to be ported; the fault and
+    checkpoint options raise the reference's own ValueErrors: faults or
+    guards without the scan, checkpoints without a directory, a resume
+    alone."""
     cd, _ = campaign_data
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(err, match=match):
         campaign.run_campaign("splitme", DNN10, SystemParams(M=M_C, seed=0),
                               cd, rounds=1, seeds=(0,), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("framework,kw,err", [
-    ("fedavg", dict(scenario="faults:0.2"), NotImplementedError),
-    ("oranfed", dict(guards=object()), NotImplementedError),
+    ("fedavg", dict(checkpoint_every=2, strict_transfers=True),
+     ValueError),
+    ("oranfed", dict(checkpoint_every=2, scan=False), ValueError),
     ("nope", {}, KeyError)])
-def test_other_frameworks_raise(campaign_data, framework, kw, err):
-    """An unknown framework, and the baselines with what is still
-    unported (fault channels, guards)."""
+def test_other_frameworks_raise(campaign_data, tmp_path, framework, kw,
+                                err):
+    """An unknown framework, and the baselines' checkpoints with
+    ``strict_transfers`` or without the scan (the reference's
+    ValueErrors)."""
     cd, _ = campaign_data
+    if "checkpoint_every" in kw:
+        kw = dict(kw, checkpoint_dir=tmp_path)
     with pytest.raises(err):
         campaign.run_campaign(framework, DNN10, SystemParams(M=M_C, seed=0),
                               cd, rounds=1, seeds=(0,), device="cpu", **kw)
+    assert not list(tmp_path.iterdir())
 
 
 def test_loop_rejects_eval_every_and_bad_indices(campaign_data):

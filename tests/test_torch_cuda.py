@@ -896,7 +896,75 @@ def test_scenario_campaign_graphed_equals_eager_and_cpu(cuda, name,
     np.testing.assert_allclose(g.losses, cpu.losses, rtol=0, atol=1e-5)
 
 
-def test_fault_trace_raises_on_the_card(cuda):
-    cd, _ = _campaign_data()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _framework_campaign("fedavg", cd, device=cuda, scenario="faults:0.2")
+def _same_guarded(a, b):
+    """Two campaigns equal bit for bit, NaN crash rows and guard flags
+    included."""
+    np.testing.assert_array_equal(a.losses, b.losses)
+    for i in range(len(a.seeds)):
+        for ha, hb in zip(a.params_for(i), b.params_for(i)):
+            for pa, pb in zip(ha, hb):
+                assert all(torch.equal(pa[k], pb[k]) for k in pa)
+    qa, qb = (quantcomm.tree_leaves(r.qstate) for r in (a, b))
+    assert len(qa) == len(qb) and all(torch.equal(u, v)
+                                      for u, v in zip(qa, qb))
+    for f in ("skipped_per_round", "quorum_per_round", "crashed_per_round"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("splitme", {}), ("fedavg", dict(_BASELINES["fedavg"][1])),
+    ("fedavg", dict(_BASELINES["fedavg"][1], quant="int8"))],
+    ids=["splitme", "fedavg", "fedavg-int8"])
+def test_fault_campaign_graphed_equals_uncaptured(cuda, name, kw):
+    """A ``faults:0.3`` campaign on the card (guards armed by the faults,
+    strict transfers, one host transfer): its graphs equal the same round
+    bodies run without capture bit for bit (params, NaN crash rows, flags,
+    error-feedback state), and the CPU's flags exactly, its losses at
+    1e-5 over the rounds before the first wire flip lands."""
+    cd, test = _campaign_data()
+    kw = dict(kw, scenario="faults:0.3", scenario_seed=1, rounds=6,
+              test_data=test, eval_every=2, eval_gamma=10.0)
+    campaign.HOST_TRANSFERS = 0
+    g = _framework_campaign(name, cd, device=cuda, strict_transfers=True,
+                            **kw)
+    assert campaign.HOST_TRANSFERS == 1
+    assert g.skipped_per_round is not None and g.graphs["graphs"] > 0
+    u = _framework_campaign(name, cd, device=cuda, _graphs=False, **kw)
+    assert u.graphs["graphs"] == 0
+    _same_guarded(g, u)
+    cpu = _framework_campaign(name, cd, device="cpu", **kw)
+    for f in ("skipped_per_round", "quorum_per_round", "crashed_per_round"):
+        np.testing.assert_array_equal(getattr(g, f), getattr(cpu, f))
+    np.testing.assert_array_equal(np.isnan(g.losses), np.isnan(cpu.losses))
+    trace = g.schedule.trace
+    gain = trace.wire_gain * g.schedule.a
+    flip = np.flatnonzero((gain != 0) & (gain != 1.0)).tolist()
+    early = slice(0, (flip[0] // 12) + 1 if flip else None)
+    np.testing.assert_allclose(g.losses[:, early], cpu.losses[:, early],
+                               rtol=0, atol=1e-5)
+
+
+def test_checkpoint_resume_on_the_card_is_bit_exact(cuda, tmp_path):
+    """A checkpointed SplitMe ``faults:0.3`` campaign aborted at round 4,
+    resumed from its checkpoint (fresh graphs captured), equals the
+    uninterrupted campaign bit for bit."""
+    from repro_torch.launch import resilience
+    cd, test = _campaign_data()
+    kw = dict(scenario="faults:0.3", scenario_seed=1, rounds=6,
+              test_data=test, eval_every=2, eval_gamma=10.0, device=cuda)
+    ref = _framework_campaign("splitme", cd, **kw)
+
+    def abort(cursor):
+        if cursor >= 4:
+            raise resilience.CampaignAborted(f"abort at {cursor}")
+    with pytest.raises(resilience.CampaignAborted):
+        _framework_campaign("splitme", cd, checkpoint_every=2,
+                            checkpoint_dir=tmp_path, _checkpoint_hook=abort,
+                            **kw)
+    assert resilience.latest_checkpoint(tmp_path).name == "ckpt-r000004"
+    res = resilience.resume_campaign(
+        "splitme", DNN10, SystemParams(M=12, seed=0), cd,
+        checkpoint_dir=tmp_path, checkpoint_every=2, seeds=(0, 1), **kw)
+    _same_guarded(res, ref)
+    assert [repr(m) for m in res.metrics] == [repr(m) for m in ref.metrics]
+    assert np.isnan(res.round_ms[:4]).all() and res.graphs["graphs"] > 0

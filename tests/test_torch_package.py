@@ -28,7 +28,9 @@ def _imported_roots(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py",
+        ROOT / "scripts" / "crash_resume_check_torch.py"]
 
 
 def test_port_files_exist():
@@ -48,7 +50,8 @@ def test_port_files_exist():
                  "serve.py", "kernels/flash_attention/ops.py",
                  "kernels/flash_attention/ref.py", "launch/campaign.py",
                  "core/quantcomm.py", "core/baselines.py",
-                 "core/scenario.py"):
+                 "core/scenario.py", "checkpoint/io.py",
+                 "launch/resilience.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",

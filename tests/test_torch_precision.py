@@ -41,7 +41,8 @@ from repro_torch.kernels.kl_mutual import ops as kl_ops
 from repro_torch.kernels.kl_mutual.ref import kl_grad_ref, kl_rows_ref
 from repro_torch.launch import campaign
 from torch_parity import (CampaignIndexReplay, assert_params_close,
-                          bf16_ulp, jax_to_torch, replay_round_indices)
+                          bf16_ulp, jax_to_torch, one_torch_thread,
+                          replay_round_indices)
 
 HIDDEN = (32, 32, 16, 16, 8)
 CFG = DNNConfig(hidden=HIDDEN)

@@ -39,7 +39,8 @@ from repro_torch.launch import campaign
 from torch_parity import (CampaignIndexReplay, CampaignUniformReplay,
                           TrainerIndexReplay, TrainerUniformReplay,
                           assert_params_close, bf16_ulp, jax_to_torch,
-                          replay_round_indices, replay_round_uniforms)
+                          one_torch_thread, replay_round_indices,
+                          replay_round_uniforms)
 
 HIDDEN = (32, 32, 16, 16, 8)
 CFG = DNNConfig(hidden=HIDDEN)

@@ -32,7 +32,7 @@ from repro_torch.core.splitme import SplitMeTrainer
 from repro_torch.data import oran
 from repro_torch.launch import campaign
 from torch_parity import (CampaignIndexReplay, TrainerIndexReplay,
-                          assert_params_close)
+                          assert_params_close, one_torch_thread)
 
 # each registry name at its default level and at one other
 LEVELS = {"static": None, "fading": 0.8, "straggler": 0.4, "noniid": 0.1,
@@ -363,20 +363,23 @@ def test_fedavg_trainer_under_fading_matches_jax(small_data):
 
 
 def test_fault_traces_raise_later_slice(small_data):
+    """A fault trace runs in the trainers (which ignore its channels, as the
+    reference's do) and in the scanned campaign; without the scan it is
+    refused with the reference's ValueError."""
     cd, test = small_data
     faults = scenario.make_trace("faults:0.2", 3, 12)
-    for scan in (True, False):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            campaign.run_campaign("fedavg", DNN10, SystemParams(M=12), cd,
+    for name in ("fedavg", "splitme"):
+        with pytest.raises(ValueError, match="scan=True"):
+            campaign.run_campaign(name, DNN10, SystemParams(M=12), cd,
                                   rounds=3, seeds=(0,), device="cpu",
-                                  scenario="faults:0.2", scan=scan)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        campaign.run_campaign("splitme", DNN10, SystemParams(M=12), cd,
-                              rounds=3, seeds=(0,), device="cpu",
-                              scenario=faults)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        baselines.EcoFLTrainer(DNN10, SystemParams(M=12), cd, test,
-                               device="cpu", scenario=faults)
+                                  scenario="faults:0.2", scan=False)
+    res = campaign.run_campaign("splitme", DNN10, SystemParams(M=12), cd,
+                                rounds=3, seeds=(0,), device="cpu",
+                                scenario=faults)
+    assert res.skipped_per_round is not None     # guards armed
+    tr = baselines.EcoFLTrainer(DNN10, SystemParams(M=12), cd, test,
+                                device="cpu", scenario=faults, E=2)
+    assert np.isfinite(float(tr.run_round().client_loss))
     with pytest.raises(TypeError, match="ScenarioTrace"):
         baselines.EcoFLTrainer(DNN10, SystemParams(M=12), cd, test,
                                device="cpu", scenario="fading")

@@ -25,7 +25,8 @@ from repro_torch.core.cost import SystemParams
 from repro_torch.core.splitme import SplitMeTrainer
 from repro_torch.data import oran
 from torch_parity import (TrainerIndexReplay, assert_params_close,
-                          jax_to_torch, replay_round_indices)
+                          jax_to_torch, one_torch_thread,
+                          replay_round_indices)
 
 HIDDEN = (32, 32, 16, 16, 8)
 CFG = DNNConfig(hidden=HIDDEN)
@@ -114,8 +115,10 @@ def test_splitme_schedule_matches_reference_exactly(M_, t_lo):
 
 
 def test_later_frameworks_and_options_raise():
-    """What is still unported: a trace with fault channels (in a trainer
-    of either kind), fault injection and guards in the round builders."""
+    """What used to be a later slice runs now: a trace with fault channels
+    in a trainer of either kind (its channels ignored), fault injection
+    and guards in the round builders; unknown names and a non-guard still
+    raise."""
     from repro_torch.core import scenario
     from repro_torch.core.baselines import FedAvgTrainer
     rng = np.random.default_rng(0)
@@ -124,24 +127,25 @@ def test_later_frameworks_and_options_raise():
     test = (clients["x"][0], clients["y"][0])
     faults = scenario.make_trace("faults:0.2", 4, M)
     assert faults.has_faults()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        SplitMeTrainer(CFG, SystemParams(M=M, E_max=2), clients, test,
-                       batch_size=B, e_initial=2, device="cpu",
-                       scenario=faults)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        FedAvgTrainer(CFG, SystemParams(M=M), clients, test, K=4, E=2,
-                      batch_size=B, device="cpu", scenario=faults)
+    tr = SplitMeTrainer(CFG, SystemParams(M=M, E_max=2), clients, test,
+                        batch_size=B, e_initial=2, device="cpu",
+                        scenario=faults)
+    assert np.isfinite(float(tr.run_round().client_loss))
+    tr = FedAvgTrainer(CFG, SystemParams(M=M), clients, test, K=4, E=2,
+                       batch_size=B, device="cpu", scenario=faults)
+    assert np.isfinite(float(tr.run_round().client_loss))
     with pytest.raises(KeyError):
         engine.make_spec("nope", CFG)
     with pytest.raises(KeyError):
         engine.make_policy("nope", SystemParams(M=4), CFG)
+    x, y = torch.zeros(M, N, 30), torch.zeros(M, N, dtype=torch.long)
     for name in ("splitme", "fedavg"):
         spec = engine.make_spec(name, CFG)
-        x, y = torch.zeros(M, N, 30), torch.zeros(M, N, dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            engine.build_round_fn(spec, CFG, x, y, e_max=2, gather=True,
-                                  with_faults=True)
-        with pytest.raises(NotImplementedError, match="later slice"):
+        assert callable(engine.build_round_fn(spec, CFG, x, y, e_max=2,
+                                              gather=True, with_faults=True))
+        assert callable(engine.build_round_fn(
+            spec, CFG, x, y, e_max=2, guards=engine.RoundGuards()))
+        with pytest.raises(TypeError, match="RoundGuards"):
             engine.build_round_fn(spec, CFG, x, y, e_max=2, guards=object())
     spec = engine.make_spec("splitme", CFG)
     with pytest.raises(ValueError, match="policy"):

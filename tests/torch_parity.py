@@ -1,19 +1,32 @@
 """Helpers for the port's parity tests: replay the JAX package's RNG chain
 so that the JAX round and the PyTorch round draw identical batches, and move
 parameters between the two packages as numpy arrays."""
+import functools
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.convert import params_from_numpy, params_to_numpy
 
 
-def replay_round_indices(key, n_phases: int, M: int, e_max: int, B: int,
-                         n: int) -> np.ndarray:
-    """Batch indices of one ``repro.core.engine.build_round_fn`` round:
-    ``split(key, n_phases*M)`` gives each (phase, client) a key; each step
-    does ``k, sk = split(k)`` and ``randint(sk, (B,), 0, n)``.  Returns
-    (n_phases, M, e_max, B) int64."""
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch intra-op thread while a test module runs (import it into
+    the module to apply it).  The parity tests' tensors are small, and in
+    the parallel test run torch's default pool, a thread a core in every
+    worker, oversubscribes the cores: its threads wait on one another and
+    slow the campaigns many times over (up to 70× on 8 cores, 6
+    workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _round_indices(key, n_phases: int, M: int, e_max: int, B: int, n: int):
     keys = jax.random.split(key, n_phases * M)
 
     def per_client(k):
@@ -22,7 +35,17 @@ def replay_round_indices(key, n_phases: int, M: int, e_max: int, B: int,
             return k, jax.random.randint(sk, (B,), 0, n)
         return jax.lax.scan(step, k, None, length=e_max)[1]
 
-    idx = jax.vmap(per_client)(keys)
+    return jax.vmap(per_client)(keys)
+
+
+def replay_round_indices(key, n_phases: int, M: int, e_max: int, B: int,
+                         n: int) -> np.ndarray:
+    """Batch indices of one ``repro.core.engine.build_round_fn`` round:
+    ``split(key, n_phases*M)`` gives each (phase, client) a key; each step
+    does ``k, sk = split(k)`` and ``randint(sk, (B,), 0, n)``.  Returns
+    (n_phases, M, e_max, B) int64 (the draw compiled once a shape: the
+    same bits as the reference's)."""
+    idx = _round_indices(key, n_phases, M, e_max, B, n)
     return np.asarray(idx, np.int64).reshape(n_phases, M, e_max, B)
 
 
@@ -143,3 +166,15 @@ class CampaignUniformReplay:
         self.rounds[i] += 1
         self.keys[i], sub = jax.random.split(self.keys[i])
         return torch.from_numpy(replay_round_uniforms(sub, self.trained))
+
+
+def jax_initial_params(name: str, jcfg, seeds):
+    """The JAX campaign's initial params of ``name`` on ``jcfg``
+    (``PRNGKey(seed + init_key_offset)``), one numpy params tuple a seed:
+    the port's ``run_campaign(params=)``."""
+    from repro.core import engine as jengine
+    jspec = jengine.make_spec(name, jcfg)
+    init = jax.device_get(jax.vmap(jspec.init_fn)(jax.numpy.stack(
+        [jax.random.PRNGKey(s + jspec.init_key_offset) for s in seeds])))
+    return [tuple([{k: v[i] for k, v in layer.items()} for layer in half]
+                  for half in init) for i in range(len(seeds))]

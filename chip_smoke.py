@@ -98,6 +98,17 @@ failure ends the run with a non-zero exit code:
    with the ms of each save and of the restore; then
    ``scripts/crash_resume_check_torch.py --device cuda`` (SIGKILL and
    resume) as a subprocess;
+3h. population mode: ``run_population_campaign("splitme", ...)`` over 10^6
+   virtual near-RT-RICs, a cohort of 32 sampled a round under
+   ``churn:0.5``, 30 rounds of 4 seeds (the README's population command at
+   the example's sizes): strict transfers and one host transfer, graphed
+   against uncaptured bit for bit, against the CPU by 3b's gates, its round
+   shapes, graphs, capture seconds, steady round (ms, operations, idle
+   share, in-graph KL and Gram launches) and whole campaign; the host
+   plan's seconds and tracemalloc peak; the device's peak memory at 10^4
+   and 10^6 clients (within 1.25x); the full-population cohort of 50
+   against ``run_campaign`` on the same rows and shards; the int8 wire
+   graphed against uncaptured; checkpoints, an abort and a bitwise resume;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -475,19 +486,27 @@ def steady_and_eval_windows(torch, run):
     """``run(_round_hook=...)`` with one profiler window over the rounds
     PROFILE_STEADY and one over the evaluating round PROFILE_EVAL: {"steady":
     (events, wall ms), "eval": (events, wall ms)}."""
-    win = {}
+    return profiled_windows(torch, run, {"steady": list(PROFILE_STEADY),
+                                         "eval": [PROFILE_EVAL]})
+
+
+def profiled_windows(torch, run, windows):
+    """``run(_round_hook=...)`` with torch.profiler (CUDA) open over each
+    window of ``windows`` ({name: consecutive rounds}, in round order, not
+    overlapping): {name: (events, wall ms)}."""
+    order = sorted(windows.items(), key=lambda kv: kv[1][0])
+    win, out = {}, {}
 
     def hook(r):
-        if r == PROFILE_STEADY[0] - 1 or r in (PROFILE_STEADY[-1],
-                                                 PROFILE_EVAL):
-            if "prof" in win:
-                wall = close_window(torch, win["prof"], win["t0"])
-                win[win["name"]] = (win.pop("prof").key_averages(), wall)
-            if r != PROFILE_EVAL:
-                win["name"] = "eval" if r == PROFILE_STEADY[-1] else "steady"
+        if "prof" in win and r == win["last"]:
+            wall = close_window(torch, win["prof"], win["t0"])
+            out[win.pop("name")] = (win.pop("prof").key_averages(), wall)
+        for name, rounds in order:
+            if r == rounds[0] - 1:
+                win["name"], win["last"] = name, rounds[-1]
                 win["prof"], win["t0"] = open_window(torch)
     run(_round_hook=hook)
-    return win
+    return out
 
 
 def campaign_phase(torch, port, sp, clients, test):
@@ -1740,6 +1759,283 @@ def checkpoint_phase(torch, port, sp, clients, ref, kw):
             "carry_mb_on_disk": size / 1e6, "crash_resume_check_s": secs}
 
 
+# population mode (phase 3h): the README's population campaign at the
+# example's sizes, SplitMe on DNN10 at full width over POP_SIZE virtual
+# near-RT-RICs (Population(seed=0)), POP_COHORT sampled a round under
+# POP_SCENARIO, 96 samples a client, 30 rounds, seeds 0-3, Step 4 every 10
+# rounds and after the last, at CMP_EVAL_GAMMA throughout (as 3f): strict
+# transfers and one host transfer; its graphs against the same round bodies
+# run uncaptured, bit for bit; the card against the CPU by 3b's gates; the
+# round shapes, graphs and capture seconds, the steady round's ms (medians
+# of CAMPAIGN_TURNS turns), operations and idle share, the KL and Gram
+# launches inside its graphs by name, and the whole campaign; the host
+# plan's seconds and tracemalloc peak; the device's peak memory for the
+# same campaign at POP_SMALL and POP_SIZE clients (within POP_MEM_RATIO);
+# the full-population cohort (POP_FULL clients, cohort POP_FULL) against
+# run_campaign on the same rows and shards; one int8-wire run graphed
+# against uncaptured with its error-feedback state; and checkpoints every
+# CKPT_EVERY rounds, an abort at CKPT_ABORT and a resume, bit for bit
+POP_SIZE, POP_SMALL, POP_COHORT = 10 ** 6, 10 ** 4, 32
+POP_SCENARIO, POP_SAMPLES, POP_FULL = "churn:0.5", 96, 50
+POP_MEM_RATIO = 1.25
+
+
+def population_phase(torch, port, data, test, base):
+    """Phase 3h; ``data`` is the (X, y) pool the shards are drawn from and
+    ``base`` phase 3b's summary.  Returns its numbers and the in-graph
+    launches of the main-path kernels."""
+    import gc
+    import tempfile
+    import tracemalloc
+    import numpy as np
+    camp, popn, kl_ops, rg_ops = (port.campaign, port.population,
+                                  port.kl_ops, port.rg_ops)
+    res_mod = port.resilience
+    S, n_test = len(CAMPAIGN_SEEDS), len(test[1])
+    kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS,
+              cohort=POP_COHORT, samples_per_client=POP_SAMPLES,
+              test_data=test, eval_every=CAMPAIGN_EVAL_EVERY,
+              eval_gamma=CMP_EVAL_GAMMA, scenario=POP_SCENARIO)
+    label = (f"population {POP_SIZE}, cohort {POP_COHORT}, splitme under "
+             f"{POP_SCENARIO!r}")
+
+    def run(size=POP_SIZE, device="cuda", **more):
+        return camp.run_population_campaign(
+            "splitme", port.DNN10, popn.Population(size, seed=0), data,
+            device=device, **dict(kw, **more))
+
+    # the host plan alone: its seconds, then its tracemalloc peak
+    plan_args = dict(cohort=POP_COHORT, n_samples_per_client=POP_SAMPLES,
+                     scenario=POP_SCENARIO)
+    t0 = time.perf_counter()
+    sp, sched = camp.plan_population_schedule(
+        "splitme", popn.Population(POP_SIZE, seed=0), port.DNN10,
+        CAMPAIGN_ROUNDS, **plan_args)
+    plan_s = time.perf_counter() - t0
+    tracemalloc.start()
+    camp.plan_population_schedule(
+        "splitme", popn.Population(POP_SIZE, seed=0), port.DNN10,
+        CAMPAIGN_ROUNDS, **plan_args)
+    plan_peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    # the shards the campaign draws: each round's trained slots
+    t0 = time.perf_counter()
+    kb_r, _ = camp._round_shapes(sched, sp)
+    for t in range(CAMPAIGN_ROUNDS):
+        sel, _ = camp._cohort(sched.a[t], kb_r[t])
+        popn.Population(POP_SIZE, seed=0).sample_shards(
+            data[0], data[1], sched.ids[t, sel], POP_SAMPLES)
+    shards_s = time.perf_counter() - t0
+    print(f"{label}: host plan of {CAMPAIGN_ROUNDS} rounds {plan_s:.3f} s, "
+          f"its shards {shards_s:.3f} s, "
+          f"tracemalloc peak {plan_peak / 1e6:.3f} MB; cohort ids up to "
+          f"{int(sched.ids.max())}, m_t {int(sched.m_t.min())}-"
+          f"{int(sched.m_t.max())}, selected per round "
+          f"{sched.a.sum(1).astype(int).tolist()}, E "
+          f"{sched.E.tolist()}")
+    check(sp.M == POP_COHORT and sched.ids.shape == (CAMPAIGN_ROUNDS,
+                                                     POP_COHORT),
+          f"{label}: the plan is not cohort-sized")
+
+    # the main run: strict transfers, one host transfer, the device peak
+    kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+    camp.HOST_TRANSFERS = 0
+    peaks = {}
+
+    def peak_run(size, **more):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out, ms = timed(torch, lambda: run(size=size, **more))
+        peaks[size] = (torch.cuda.max_memory_allocated(), before)
+        return out, ms
+
+    res, call_ms = peak_run(POP_SIZE, strict_transfers=True)
+    counters = {"kl_mutual": kl_ops.launches,
+                "kl_mutual (backward)": kl_ops.launches_bwd,
+                "ridge_gram": rg_ops.launches}
+    check(camp.HOST_TRANSFERS == 1,
+          f"{label}: {camp.HOST_TRANSFERS} host transfers")
+    shapes = res.graphs["shapes"]
+    check(res.graphs["graphs"] == len(shapes) + 1,
+          f"{label}: one graph per shape + eval")
+    check(bool(np.isfinite(res.losses).all()), f"{label}: non-finite loss")
+    check(bool(np.array_equal(res.schedule.ids, sched.ids))
+          and bool(np.array_equal(res.schedule.a, sched.a)),
+          f"{label}: the campaign's plan differs from the host plan's")
+    print(f"{label}: {len(shapes)} round shapes "
+          + ", ".join(f"({kb}, {eb}) x{len(rs)}"
+                      for (kb, eb), rs in shapes.items())
+          + f"; {res.graphs['graphs']} graphs, capture "
+          f"{res.graphs['capture_s']:.3f} s; call {call_ms:.1f} ms "
+          f"(host plan and shards included); HOST_TRANSFERS "
+          f"{camp.HOST_TRANSFERS} under strict_transfers; launch counters "
+          f"(warm-ups and captures) {counters}; final accuracy per seed "
+          f"{[round(float(v), 4) for v in res.accuracy]}")
+    check(all(v > 0 for v in counters.values()),
+          f"{label}: a kernel of the path never launched {counters}")
+    graphed_vs_eager(torch, port, res, run(_graphs=False), label,
+                     "uncaptured")
+
+    # the steady round (medians of CAMPAIGN_TURNS turns) and, under the
+    # profiler, its operations, idle share and in-graph launches, and the
+    # launches of an evaluating round
+    steady_shape, window = steady_window(shapes, CAMPAIGN_ROUNDS,
+                                         CAMPAIGN_EVAL_EVERY)
+    check(len(window) >= 3, f"{label}: steady window {window}")
+    eval_round = 2 * CAMPAIGN_EVAL_EVERY - 1
+    g_ms = [statistics.median(res.round_ms[window])]
+    whole = [float(sum(res.round_ms))]
+    for _ in range(CAMPAIGN_TURNS - 1):
+        again = run()
+        g_ms.append(statistics.median(again.round_ms[window]))
+        whole.append(float(sum(again.round_ms)))
+    # steady_window leaves out the evaluating rounds: no overlap
+    got = profiled_windows(torch, run, {"steady": window,
+                                        "eval": [eval_round]})
+    evts, wall = got["steady"]
+    busy, n_ops, per = campaign_window(torch, evts, len(window))
+    wall /= len(window)
+    launches = {k: v[0] for k, v in per.items()}
+    _, _, per_e = campaign_window(torch, got["eval"][0], 1)
+    launches_e = {k: v[0] for k, v in per_e.items()}
+    eb = steady_shape[1]
+    out = {"round_ms": statistics.median(g_ms), "ops_per_round": n_ops,
+           "idle_share": 1 - busy / wall, "steady_shape": list(steady_shape),
+           "steady_rounds": window, "shapes": len(shapes),
+           "graphs": res.graphs["graphs"],
+           "capture_s": res.graphs["capture_s"], "call_ms": call_ms,
+           "whole_ms": statistics.median(whole),
+           "plan_s": plan_s, "shards_s": shards_s,
+           "plan_peak_mb": plan_peak / 1e6,
+           "launches_per_round": launches,
+           "launches_per_eval_round": launches_e,
+           "selected": res.schedule.a.sum(1).astype(int).tolist()}
+    print(f"{label}: steady ({steady_shape[0]}, {eb}) round (rounds "
+          f"{window[0]}-{window[-1]}) of {S} seeds graphed "
+          f"{out['round_ms']:.3f} ms (medians of {CAMPAIGN_TURNS}: "
+          f"{[round(v, 3) for v in g_ms]}), {n_ops:.1f} device operations "
+          f"a round, idle share {out['idle_share']:.4f}; in-graph launches "
+          f"a steady round {launches}, at the evaluating round {eval_round} "
+          f"{launches_e}; whole campaign {out['whole_ms']:.1f} ms of rounds "
+          f"(capture and evaluations included; medians of "
+          f"{CAMPAIGN_TURNS}); phase 3b: ({base['launches_per_round']}) "
+          f"{base['round_ms']:.3f} ms, {base['ops_per_round']:.1f} "
+          f"operations, idle {base['idle_share']:.4f}")
+    check(launches["kl_mutual"] == 2 * eb
+          and launches["kl_mutual (backward)"] == 2 * eb
+          and launches["ridge_gram"] == 0,
+          f"{label}: steady round launches {launches} != 2 x E {eb} KL "
+          f"forward and backward, no Gram")
+    check(launches_e["ridge_gram"] == 8 * S,
+          f"{label}: evaluating round launches {launches_e}: not 8 Gram "
+          f"pairs a seed")
+
+    # the card against the CPU by 3b's gates
+    perr, lerr, aerr, _ = card_vs_cpu_campaign(torch, res, run(device="cpu"),
+                                               n_test)
+    print(f"{label}: card (graphed) vs CPU, {S} seeds, {CAMPAIGN_ROUNDS} "
+          f"rounds: max param diff {perr:.3e}, loss {lerr:.3e} (tol "
+          f"{CARD_CPU_TOL}); accuracy {aerr:.0f} of {n_test} test samples "
+          f"apart (tol {CMP_ACC_SAMPLES}, gamma {CMP_EVAL_GAMMA})")
+    check(perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL
+          and aerr <= CMP_ACC_SAMPLES + 1e-6,
+          f"{label}: campaign on the card and on the CPU disagree")
+    out.update(card_cpu_param_diff=perr, card_cpu_loss_diff=lerr,
+               card_cpu_acc_samples=aerr)
+
+    # the device peak at POP_SMALL clients against POP_SIZE's
+    peak_run(POP_SMALL)
+    (big, big0), (small, small0) = peaks[POP_SIZE], peaks[POP_SMALL]
+    shards_gb = POP_SIZE * POP_SAMPLES * (data[0].shape[1] * 4 + 4) / 1e9
+    print(f"{label}: torch.cuda.max_memory_allocated {big / 1e6:.2f} MB at "
+          f"{POP_SIZE} clients ({(big - big0) / 1e6:.2f} MB above the "
+          f"{big0 / 1e6:.2f} MB held before), {small / 1e6:.2f} MB at "
+          f"{POP_SMALL} ({(small - small0) / 1e6:.2f} MB above "
+          f"{small0 / 1e6:.2f}): {big / small:.3f}x (tol {POP_MEM_RATIO}); "
+          f"a materialized {POP_SIZE}-client population's shards alone: "
+          f"{shards_gb:.1f} GB")
+    check(big <= POP_MEM_RATIO * small,
+          f"{label}: the device peak grows with the population")
+    out.update(peak_mb={str(k): v[0] / 1e6 for k, v in peaks.items()},
+               peak_above_mb={str(k): (v[0] - v[1]) / 1e6
+                              for k, v in peaks.items()})
+
+    # the full-population cohort against the materialized campaign
+    pop = popn.Population(POP_FULL, seed=0)
+    ids = np.arange(POP_FULL)
+    fkw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS, test_data=test,
+               eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
+               device="cuda")
+    res_p = camp.run_population_campaign(
+        "splitme", port.DNN10, pop, data, cohort=POP_FULL,
+        samples_per_client=POP_SAMPLES, **fkw)
+    res_m = camp.run_campaign(
+        "splitme", port.DNN10, pop.system_params(ids),
+        pop.sample_shards(data[0], data[1], ids, POP_SAMPLES), **fkw)
+    same_plan = (bool(np.array_equal(res_p.schedule.a, res_m.schedule.a))
+                 and res_p.schedule.E.tolist() == res_m.schedule.E.tolist())
+    fp, fl = campaign_max_diff(res_p, res_m)
+    fa = float(np.nanmax(np.abs(res_p.accuracy_per_round
+                                - res_m.accuracy_per_round))) * n_test
+    print(f"full population {POP_FULL}, cohort {POP_FULL} vs run_campaign "
+          f"on the same rows and shards (card, graphed): schedules equal "
+          f"{same_plan}; max param diff {fp:.3e}, loss {fl:.3e} (tol "
+          f"{CARD_CPU_TOL}), accuracy {fa:.0f} test samples; bitwise "
+          f"{fp == fl == fa == 0.0}")
+    check(same_plan and fp <= CARD_CPU_TOL and fl <= CARD_CPU_TOL
+          and fa <= CMP_ACC_SAMPLES + 1e-6,
+          "the full-population cohort differs from the materialized "
+          "campaign")
+    out.update(full_population_param_diff=fp, full_population_loss_diff=fl,
+               full_population_bitwise=fp == fl == fa == 0.0)
+
+    # the int8 wire: graphed against uncaptured, the EF state included
+    r8 = run(quant="int8", strict_transfers=True)
+    check(len(port.quantcomm.tree_leaves(r8.qstate)) > 0,
+          f"{label}, int8 wire: no error-feedback state")
+    graphed_vs_eager(torch, port, r8, run(quant="int8", _graphs=False),
+                     f"{label}, int8 wire", "uncaptured")
+
+    # checkpoints every CKPT_EVERY rounds, an abort at CKPT_ABORT, a resume
+    def abort(cursor):
+        if cursor >= CKPT_ABORT:
+            raise res_mod.CampaignAborted(f"abort at round {cursor}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pop_") as d:
+        try:
+            run(checkpoint_every=CKPT_EVERY, checkpoint_dir=d,
+                _checkpoint_hook=abort)
+            aborted = False
+        except res_mod.CampaignAborted:
+            aborted = True
+        latest = res_mod.latest_checkpoint(d)
+        resumed = run(checkpoint_every=CKPT_EVERY, checkpoint_dir=d,
+                      resume=True)
+    perr, lerr, qerr, flags = campaign_diffs(port, resumed, res)
+    metrics = [repr(m) for m in resumed.metrics] == [repr(m)
+                                                     for m in res.metrics]
+    print(f"{label}: checkpoints every {CKPT_EVERY} rounds, aborted "
+          f"{aborted} at {CKPT_ABORT} (latest {latest and latest.name}), "
+          f"resumed ({resumed.graphs['graphs']} graphs captured) vs "
+          f"uninterrupted: max param diff {perr:.3e}, loss {lerr:.3e}, "
+          f"metrics equal {metrics}")
+    check(aborted and latest is not None
+          and latest.name == res_mod.checkpoint_tag(CKPT_ABORT),
+          f"{label}: no checkpoint at {CKPT_ABORT}")
+    check(perr == lerr == qerr == 0.0 and flags and metrics,
+          f"{label}: the resumed campaign differs from the uninterrupted "
+          f"one")
+    torch.cuda.empty_cache()
+    graph_launches = {
+        name: {"population_launches_per_round": launches[name],
+               "population_launches_per_eval_round": launches_e[name]}
+        for name in launches}
+    return out, graph_launches
+
+
 # the kl_mutual kernels: (rows, d) of the main path (50 clients x 32 rows of
 # 256), a ragged width, a tiny one in single floats (d % 4 != 0), 32 values
 # a lane (d 1000), a row streamed (d > 1024), and the campaign's cohorts of
@@ -2774,7 +3070,8 @@ def import_port():
     from repro_torch.configs.base import get_config
     from repro_torch.configs.splitme_dnn import DNN10
     from repro_torch.checkpoint import io as ckpt_io
-    from repro_torch.core import baselines, dnn, engine, quantcomm, scenario
+    from repro_torch.core import (baselines, dnn, engine, population,
+                                  quantcomm, scenario)
     from repro_torch.core.engine import RoundGuards
     from repro_torch.core.inversion import invert_inverse_model
     from repro_torch.core.cost import SystemParams
@@ -3063,6 +3360,11 @@ def main() -> int:
     faults["checkpoints"] = checkpoint_phase(torch, port, sp, clients,
                                              fault_ref, fault_kw)
 
+    # -- 3h. population mode -------------------------------------------------
+    phase("3h. population mode")
+    population, pop_launches = population_phase(torch, port, (Xtr, ytr),
+                                                test, base)
+
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
     for arch in ZOO_ARCHS:
@@ -3088,14 +3390,16 @@ def main() -> int:
         {"name": "kl_mutual", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/kl_mutual.py:38",
-         "launches": kl_n, **kl["fwd"], **graphed["kl_mutual"]},
+         "launches": kl_n, **kl["fwd"], **graphed["kl_mutual"],
+         **pop_launches["kl_mutual"]},
         # the closed-form backward beside the Pallas kernel (plain jnp in
         # the JAX package), one kernel here
         {"name": "kl_mutual (backward)", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/ops.py:33",
          "launches": kl_bwd_n, **kl["bwd"],
-         **graphed["kl_mutual (backward)"]},
+         **graphed["kl_mutual (backward)"],
+         **pop_launches["kl_mutual (backward)"]},
         {"name": "ridge_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
          "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:40",
@@ -3106,7 +3410,7 @@ def main() -> int:
          "library_device_ms": g_lib_dev, "host_us_per_call": g_host / 8,
          "bound_fp32_ms": g_bound_fp32, "max_rel_err": gram_rel,
          "shape": "16 Grams of one evaluation, 8 gram_pair calls",
-         **graphed["ridge_gram"]},
+         **graphed["ridge_gram"], **pop_launches["ridge_gram"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},
@@ -3139,6 +3443,7 @@ def main() -> int:
     print("time-varying RAN (phase 3e): " + json.dumps(scenarios))
     print("fault channels, guards and checkpoints (phases 3f, 3g): "
           + json.dumps(faults))
+    print("population mode (phase 3h): " + json.dumps(population))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

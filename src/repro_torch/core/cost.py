@@ -124,25 +124,36 @@ def round_energy(a: np.ndarray, b: np.ndarray, E: int,
 
 
 def schedule_metrics(a: np.ndarray, b: np.ndarray, E: np.ndarray,
-                     sp: SystemParams, trace=None):
+                     sp: SystemParams, trace=None, rows=None):
     """Eq. 18 latency, eq. 20 cost and the per-round energy for a whole
     stacked schedule in one vectorized pass: ``a``/``b`` are ``(R, M)``,
     ``E`` is ``(R,)``.  ``trace`` (a ``scenario.ScenarioTrace`` or None)
     supplies the per-round channel gains and Q_C / Q_S rescalings, ``sp``
     the round-invariant base values.  Without a trace every row equals the
     scalar ``total_time`` / ``round_cost`` / ``round_energy`` of that
-    round.  Returns ``(sim_time, cost, energy)``, each ``(R,)``.  (The
-    reference's population-mode ``rows=`` is a later slice.)"""
+    round.  Returns ``(sim_time, cost, energy)``, each ``(R,)``.
+
+    ``rows`` (exclusive with ``trace``) gives absolute per-round rows,
+    ``{"q_c", "q_s", "gain"}`` each ``(R, M)``, for schedules whose rounds
+    sample different cohorts (population mode: row m of round t is the
+    client round t sampled at position m, so there is no round-invariant
+    base); ``sp`` still gives the scalar fields and S_m."""
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     E = np.asarray(E, np.float64)[:, None]                     # (R, 1)
-    if trace is None:
+    if rows is not None:
+        if trace is not None:
+            raise ValueError("pass either trace= or rows=, not both")
+        q_c = np.asarray(rows["q_c"], np.float64)
+        q_s = np.asarray(rows["q_s"], np.float64)
+        gain = np.asarray(rows["gain"], np.float64)
+    elif trace is None:
         q_c, q_s, gain = sp.Q_C[None], sp.Q_S[None], sp.G_m[None]
     else:
         q_c = sp.Q_C[None] * trace.qc_scale
         q_s = sp.Q_S[None] * trace.qs_scale
         gain = sp.G_m[None] * trace.gain
-    size = sp.S_m[None] + sp.omega * sp.d_model_bits           # (1, M)
+    size = sp.S_m[None] + sp.omega * sp.d_model_bits           # (1|R, M)
     with np.errstate(divide="ignore"):
         t_co = size / np.maximum(b * sp.B * gain, 1e-12)
     t_co = np.where(a > 0, t_co, 0.0)

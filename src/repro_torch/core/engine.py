@@ -26,6 +26,8 @@ selection/allocation ``Policy``.  The engine owns the round:
 ``build_round_fn(gather=True)`` trains only a gathered, padded client
 cohort, for one or more seeds at once: the seeds' stacked parameters are replicated onto their cohorts and the (seed, cohort) pairs
 folded into the one client axis, so a kernel launch covers every seed.
+``build_cohort_round_fn`` is the same round with the client data as
+arguments (population mode: every round samples a new cohort).
 
 Randomness is an input: JAX's threefry streams cannot be reproduced, so the
 round takes the per-phase, per-client, per-step batch indices as an
@@ -350,7 +352,8 @@ def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
 def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps,
                    idx: torch.Tensor, qstate=(), uniforms=None, faults=None,
-                   guards: Optional[RoundGuards] = None):
+                   guards: Optional[RoundGuards] = None,
+                   ctx_gathered: bool = False):
     """One masked round over the gathered cohort ``sel_idx`` (kb,) of every
     seed: ``params`` leaves are seed-stacked (S, ...), ``idx`` is the
     full-M draw (S, n_phases, M, e_max, B).  The (seed, slot) pairs form
@@ -358,11 +361,17 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     the wire format run per seed (an int8 scale and residual per seed, as
     the reference's round vmapped over seeds quantizes), and so do the
     guards' decisions.  ``faults`` are the cohort's slices, (kb,) each,
-    shared by the seeds."""
+    shared by the seeds.  ``ctx_gathered``: the context's rows are already
+    the cohort's kb slots (population mode's per-round data), not the M
+    clients ``sel_idx`` indexes."""
     S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
     kb = sel_idx.shape[0]
-    folded_sel = sel_idx.repeat(S)                      # client of each slot
-    ctx_c = {k: v[folded_sel] for k, v in ctx.items()}
+    if ctx_gathered:
+        ctx_c = {k: v.repeat((S,) + (1,) * (v.dim() - 1))
+                 for k, v in ctx.items()}
+    else:
+        folded_sel = sel_idx.repeat(S)                  # client of each slot
+        ctx_c = {k: v[folded_sel] for k, v in ctx.items()}
     folded = tuple(_fold(p, kb) for p in params)
     do = _step_mask(e_max, e_steps, sel_idx.device)
     # the full per-client streams, gathered: client m's batches are the
@@ -395,6 +404,47 @@ def _check_on(device, **tensors) -> None:
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} must be on {device}, not {t.device}")
+
+
+def _check_idx(idx: torch.Tensor, shape: tuple) -> None:
+    if tuple(idx.shape) != shape or idx.dtype != torch.int64:
+        raise ValueError(f"batch indices must be int64 {shape}, got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+
+
+def _check_sel(sel_idx: torch.Tensor, sel_mask: torch.Tensor) -> None:
+    if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 \
+            or tuple(sel_mask.shape) != tuple(sel_idx.shape):
+        raise ValueError("sel_idx must be int64 (kb,) and sel_mask (kb,)")
+
+
+def _check_quant(spec: FrameworkSpec, params, qstate, uniforms, lead,
+                 device) -> None:
+    if spec.quant.stochastic:
+        want = lead + (quantcomm.n_elements(
+            trained_params(spec, params), len(lead)),)
+        if uniforms is None or tuple(uniforms.shape) != want \
+                or uniforms.dtype != torch.float32:
+            raise ValueError(f"int8 rounds need f32 uniforms {want}")
+        _check_on(device, uniforms=uniforms)
+    elif uniforms is not None:
+        raise ValueError(f"uniforms given to a {spec.quant.mode!r} round")
+    if spec.quant.stateful != (qstate != ()):
+        raise ValueError("qstate must come from init_quant_state(spec)")
+
+
+def _check_spec_policy(spec: FrameworkSpec, policy, device) -> None:
+    if policy is not None and (dispatch.get_policy(policy).resolved(device)
+                               != spec.policy):
+        raise ValueError("round builders cannot override the spec-bound "
+                         f"kernel policy (spec has {spec.policy}); rebuild "
+                         "via make_spec(..., policy=...)")
+
+
+def _check_guards(guards) -> None:
+    if guards is not None and not isinstance(guards, RoundGuards):
+        raise TypeError(f"guards must be a RoundGuards, got "
+                        f"{type(guards).__name__}")
 
 
 def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
@@ -438,14 +488,8 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     cohort's (kb,) slices (shared by the seeds; pads poison 0 and gain 1)
     for the gathered one.  Both default off, leaving the round as it
     was."""
-    if policy is not None and (dispatch.get_policy(policy).resolved(x.device)
-                               != spec.policy):
-        raise ValueError("round builders cannot override the spec-bound "
-                         f"kernel policy (spec has {spec.policy}); rebuild "
-                         "via make_spec(..., policy=...)")
-    if guards is not None and not isinstance(guards, RoundGuards):
-        raise TypeError(f"guards must be a RoundGuards, got "
-                        f"{type(guards).__name__}")
+    _check_spec_policy(spec, policy, x.device)
+    _check_guards(guards)
     prec = spec.policy.precision
     if x.dtype != torch.float32 and not (prec.is_mixed
                                          and x.dtype == prec.compute_dtype):
@@ -458,24 +502,6 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     ctx = {"x": x, "y": y, "y1": F.one_hot(y, cfg.n_classes).float()}
     runners = [_phase_runner(ph, e_max) for ph in spec.phases]
     idx_shape = (len(spec.phases), M, e_max, spec.batch_size)
-
-    def check_idx(idx, lead=()):
-        if tuple(idx.shape) != lead + idx_shape or idx.dtype != torch.int64:
-            raise ValueError(f"batch indices must be int64 {lead + idx_shape}"
-                             f", got {idx.dtype} {tuple(idx.shape)}")
-
-    def check_quant(params, qstate, uniforms, lead):
-        if spec.quant.stochastic:
-            want = lead + (quantcomm.n_elements(
-                trained_params(spec, params), len(lead)),)
-            if uniforms is None or tuple(uniforms.shape) != want \
-                    or uniforms.dtype != torch.float32:
-                raise ValueError(f"int8 rounds need f32 uniforms {want}")
-            _check_on(x.device, uniforms=uniforms)
-        elif uniforms is not None:
-            raise ValueError(f"uniforms given to a {spec.quant.mode!r} round")
-        if spec.quant.stateful != (qstate != ()):
-            raise ValueError("qstate must come from init_quant_state(spec)")
 
     def check_faults(faults, m):
         if not with_faults:
@@ -495,13 +521,11 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     if gather:
         def round_fn(params: ParamsTuple, sel_idx, sel_mask, e_steps, idx,
                      qstate=(), uniforms=None, faults=None):
-            check_idx(idx, tuple(idx.shape[:1]))
-            if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 \
-                    or tuple(sel_mask.shape) != tuple(sel_idx.shape):
-                raise ValueError("sel_idx must be int64 (kb,) and sel_mask "
-                                 "(kb,)")
+            _check_idx(idx, tuple(idx.shape[:1]) + idx_shape)
+            _check_sel(sel_idx, sel_mask)
             _check_on(x.device, idx=idx, sel_idx=sel_idx, sel_mask=sel_mask)
-            check_quant(params, qstate, uniforms, tuple(idx.shape[:1]))
+            _check_quant(spec, params, qstate, uniforms,
+                         tuple(idx.shape[:1]), x.device)
             faults = check_faults(faults, sel_idx.shape[0])
             with torch.no_grad():
                 return _gathered_core(spec, runners, params, ctx, sel_idx,
@@ -512,13 +536,100 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
 
     def round_fn(params: ParamsTuple, a_mask, e_steps: int, idx, qstate=(),
                  uniforms=None, faults=None):
-        check_idx(idx)
+        _check_idx(idx, idx_shape)
         _check_on(x.device, idx=idx, a_mask=a_mask)
-        check_quant(params, qstate, uniforms, ())
+        _check_quant(spec, params, qstate, uniforms, (), x.device)
         faults = check_faults(faults, M)
         with torch.no_grad():
             return _round_core(spec, runners, params, ctx, a_mask,
                                int(e_steps), idx, qstate, uniforms, faults,
+                               guards)
+
+    return round_fn
+
+
+def build_cohort_round_fn(spec: FrameworkSpec, cfg: DNNConfig, *,
+                          e_max: int, gather: bool = False,
+                          policy: PolicyLike = None,
+                          guards: Optional[RoundGuards] = None):
+    """One federated round whose client data arrive as arguments: the
+    population-mode round (``repro_torch.core.population``), where every
+    round samples a new cohort, so no dataset can be fixed when the round is
+    built.
+
+    Returns ``round_fn(params_tuple, xc, yc, a_mask, e_steps, idx,
+    qstate=(), uniforms=None) -> (params_tuple, per_phase_losses, qstate)``:
+    ``xc`` (C, n, d) f32 cohort data (or already in a mixed policy's compute
+    dtype; f32 is cast inside the round), ``yc`` (C, n) int labels,
+    ``a_mask`` (C,) f32 selection over cohort positions, ``idx`` the
+    (n_phases, C, e_max, B) int64 batch indices, ``qstate`` and
+    ``uniforms`` as in ``build_round_fn``.  It is ``build_round_fn``'s round
+    over the data ``(xc, yc)`` (the same ``_round_core``): when the cohort
+    is the whole population in id order, position m is client m and the
+    round equals the materialized one.
+
+    ``gather=True`` returns ``round_fn(params, xc, yc, sel_idx, sel_mask,
+    e_steps, idx, qstate=(), uniforms=None)`` over S seed-stacked params:
+    ``xc`` (kb, n, d) and ``yc`` (kb, n) are the data of the cohort slots
+    ``sel_idx`` (kb,) int64 names (cohort positions; pads carry
+    ``sel_mask`` 0), ``idx`` the (S, n_phases, C, e_max, B) draw over all C
+    positions, gathered by ``sel_idx``; the rest as in ``build_round_fn(
+    gather=True)``.  ``guards`` returns the flags as there; population
+    traces carry no fault channels, so there is no ``faults`` argument."""
+    _check_guards(guards)
+    prec = spec.policy.precision
+    n_ph = len(spec.phases)
+    runners = [_phase_runner(ph, e_max) for ph in spec.phases]
+
+    def context(xc, yc, lead_c: int):
+        if policy is not None:
+            _check_spec_policy(spec, policy, xc.device)
+        if xc.dtype == torch.float32 and prec.is_mixed:
+            xc = xc.to(prec.compute_dtype)
+        elif xc.dtype != torch.float32 and not (
+                prec.is_mixed and xc.dtype == prec.compute_dtype):
+            raise TypeError(f"cohort data must be float32 (or "
+                            f"{prec.compute} under a mixed policy), got "
+                            f"{xc.dtype}")
+        if xc.dim() != 3 or tuple(yc.shape) != tuple(xc.shape[:2]) \
+                or xc.shape[0] != lead_c:
+            raise ValueError(f"cohort data must be ({lead_c}, n, d) and "
+                             f"labels ({lead_c}, n), got "
+                             f"{tuple(xc.shape)} and {tuple(yc.shape)}")
+        _check_on(xc.device, yc=yc)
+        yc = yc.long()
+        return {"x": xc, "y": yc,
+                "y1": F.one_hot(yc, cfg.n_classes).float()}
+
+    if gather:
+        def round_fn(params: ParamsTuple, xc, yc, sel_idx, sel_mask, e_steps,
+                     idx, qstate=(), uniforms=None):
+            _check_sel(sel_idx, sel_mask)
+            ctx = context(xc, yc, sel_idx.shape[0])
+            _check_idx(idx, tuple(idx.shape[:1]) + (n_ph, idx.shape[2],
+                                                    e_max, spec.batch_size))
+            _check_on(xc.device, idx=idx, sel_idx=sel_idx,
+                      sel_mask=sel_mask)
+            _check_quant(spec, params, qstate, uniforms,
+                         tuple(idx.shape[:1]), xc.device)
+            with torch.no_grad():
+                return _gathered_core(spec, runners, params, ctx, sel_idx,
+                                      sel_mask, e_steps, idx, qstate,
+                                      uniforms, None, guards,
+                                      ctx_gathered=True)
+
+        return round_fn
+
+    def round_fn(params: ParamsTuple, xc, yc, a_mask, e_steps: int, idx,
+                 qstate=(), uniforms=None):
+        C = xc.shape[0]
+        ctx = context(xc, yc, C)
+        _check_idx(idx, (n_ph, C, e_max, spec.batch_size))
+        _check_on(xc.device, idx=idx, a_mask=a_mask)
+        _check_quant(spec, params, qstate, uniforms, (), xc.device)
+        with torch.no_grad():
+            return _round_core(spec, runners, params, ctx, a_mask,
+                               int(e_steps), idx, qstate, uniforms, None,
                                guards)
 
     return round_fn

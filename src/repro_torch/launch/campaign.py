@@ -73,8 +73,15 @@ gives them) and then, round by round, its full-M batch indices (unless
 threefry streams; the parity tests feed both packages the same
 parameters, batches and uniforms.
 
-Not ported in this slice: ``mesh=`` (sharded rounds; raises), population
-mode and config sweeps.
+Population mode (``run_population_campaign``): a ``core.population``
+population of millions of virtual clients of which each round samples a
+cohort; the host plan, the shards and the device operands are O(rounds ×
+cohort), never O(population).  Its rounds run through the same scan (one
+graph a round shape plus the evaluation's), with each round's selected
+shards as one more operand (``_run_rounds_scan(data=)``).
+
+Not ported in this slice: ``mesh=`` (sharded rounds; raises) and config
+sweeps.
 """
 from __future__ import annotations
 
@@ -88,7 +95,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.splitme_dnn import DNNConfig
-from repro_torch.core import engine, quantcomm, scenario as scen
+from repro_torch.core import engine, population as popn, quantcomm
+from repro_torch.core import scenario as scen
 from repro_torch.core.cost import SystemParams, schedule_metrics
 from repro_torch.core.engine import RoundGuards, RoundMetrics, _later
 from repro_torch.device import DeviceLike, resolve_device
@@ -499,17 +507,11 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
         guards = RoundGuards()              # faults arm the defaults
     elif guards is False:
         guards = None
-    if checkpoint_every or checkpoint_dir is not None or resume:
-        if not (checkpoint_every and checkpoint_dir is not None):
-            raise ValueError("checkpointing needs BOTH checkpoint_every "
-                             "and checkpoint_dir (resume implies both)")
-        if not scan:
-            raise ValueError("checkpoint/resume requires scan=True (the "
-                             "loop has no round buffers to save)")
-        if strict_transfers:
-            raise ValueError("checkpoint_every is incompatible with "
-                             "strict_transfers: each save is an explicit "
-                             "device→host pull")
+    _check_checkpoint_args(checkpoint_every, checkpoint_dir, resume,
+                           strict_transfers)
+    if checkpoint_every and not scan:
+        raise ValueError("checkpoint/resume requires scan=True (the loop "
+                         "has no round buffers to save)")
     if not scan and eval_every:
         raise ValueError("eval_every (per-round eval) requires scan=True; "
                          "the loop only evaluates post-hoc")
@@ -554,25 +556,9 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
             do_eval[eval_every - 1::eval_every] = True
         do_eval[rounds - 1] = True
 
-    ckpt = None
-    if checkpoint_every:
-        fp = resilience.schedule_fingerprint(
-            framework, seeds, sched, do_eval=do_eval,
-            quant_mode=spec.quant.mode, checkpoint_every=checkpoint_every)
-        resume_from = None
-        if resume:
-            resume_from = resilience.latest_checkpoint(checkpoint_dir)
-            if resume_from is not None and resilience.load_checkpoint_meta(
-                    resume_from).get("fingerprint") != fp:
-                raise ValueError(
-                    f"checkpoint {resume_from} was written by a different "
-                    f"campaign plan (schedule fingerprint mismatch); "
-                    f"refusing to resume")
-        ckpt = {"dir": checkpoint_dir, "every": int(checkpoint_every),
-                "fingerprint": fp, "resume_from": resume_from,
-                "hook": _checkpoint_hook, "framework": framework,
-                "n_seeds": len(seeds)}
-
+    ckpt = _checkpoint_plan(framework, seeds, sched, spec, do_eval,
+                            checkpoint_every, checkpoint_dir, resume,
+                            _checkpoint_hook)
     params, buffers, clock, graphs = _run_rounds_scan(
         fns, sched, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
         eval_fn, strict=strict_transfers, round_hook=_round_hook,
@@ -596,6 +582,45 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     if test_data is not None:
         result.accuracy = acc_rounds[rounds - 1]
     return result
+
+
+def _check_checkpoint_args(checkpoint_every, checkpoint_dir, resume,
+                           strict_transfers: bool) -> None:
+    if not (checkpoint_every or checkpoint_dir is not None or resume):
+        return
+    if not (checkpoint_every and checkpoint_dir is not None):
+        raise ValueError("checkpointing needs BOTH checkpoint_every "
+                         "and checkpoint_dir (resume implies both)")
+    if strict_transfers:
+        raise ValueError("checkpoint_every is incompatible with "
+                         "strict_transfers: each save is an explicit "
+                         "device→host pull")
+
+
+def _checkpoint_plan(framework: str, seeds, sched, spec, do_eval,
+                     checkpoint_every, checkpoint_dir, resume: bool, hook,
+                     extra=()) -> Optional[dict]:
+    """The scan's ``ckpt`` (None without ``checkpoint_every``): the
+    schedule's fingerprint (``extra`` appends plan arrays), and with
+    ``resume`` the newest committed checkpoint, refused when another plan
+    wrote it."""
+    if not checkpoint_every:
+        return None
+    fp = resilience.schedule_fingerprint(
+        framework, seeds, sched, do_eval=do_eval, quant_mode=spec.quant.mode,
+        checkpoint_every=checkpoint_every, extra=extra)
+    resume_from = None
+    if resume:
+        resume_from = resilience.latest_checkpoint(checkpoint_dir)
+        if resume_from is not None and resilience.load_checkpoint_meta(
+                resume_from).get("fingerprint") != fp:
+            raise ValueError(
+                f"checkpoint {resume_from} was written by a different "
+                f"campaign plan (schedule fingerprint mismatch); "
+                f"refusing to resume")
+    return {"dir": checkpoint_dir, "every": int(checkpoint_every),
+            "fingerprint": fp, "resume_from": resume_from, "hook": hook,
+            "framework": framework, "n_seeds": len(seeds)}
 
 
 def _fault_plan(trace, guards, rounds: int, M: int) -> Optional[dict]:
@@ -675,13 +700,17 @@ def _run_rounds_loop(fns, sched, kb_r, eb_r, params, qstate, indices,
 def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
                      uniforms, do_eval, eval_fn, *, strict: bool,
                      round_hook, guards=None, faults=None, ckpt=None,
-                     capture: bool = True):
+                     capture: bool = True, data=None):
     """All rounds, one graph replay each on CUDA (the same bodies without
     capture on the CPU, or with ``capture=False``); returns (params, device
     metric buffers, the rounds' ``_RoundClock``, graph stats).  ``params``
     and ``qstate`` are updated in place.  ``faults`` (``_fault_plan``) adds
     each round's f32 fault row; ``ckpt`` saves and restores the carry
-    (``run_campaign``)."""
+    (``run_campaign``).  ``data`` (population mode) gives each round's
+    cohort data, ``(x (kb, n, d) f32, y (kb, n) int)`` for its kb slots:
+    the labels ride at the end of the round's int64 row, the features in
+    one f32 operand a shape, and the rounds are ``build_cohort_round_fn(
+    gather=True)``'s, which take them first."""
     dev = params[0][0]["w"].device
     R = sched.rounds
     S, n_ph, M, _, B = indices[0].shape
@@ -700,18 +729,26 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
     r_slot = torch.zeros(1, dtype=torch.int64, device=dev)
     start = _restore(ckpt, params, qstate, buffers)
 
-    # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices];
-    # with faults one f32 row: [crash, poison (kb), wire gain (kb)]
+    # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices,
+    # and in population mode the cohort's labels (kb·n)]; with faults one
+    # f32 row: [crash, poison (kb), wire gain (kb)]; in population mode the
+    # cohort's features, one (kb, n, d) f32 slice a round
     shapes = list(dict.fromkeys(zip(kb_r, eb_r)))
     rows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
     frows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
+    drows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
     where, rounds_of = [], {s: [] for s in shapes}
     for r in range(R):
         s = (kb_r[r], eb_r[r])
         sel, k = _cohort(sched.a[r], s[0])
-        rows[s].append(torch.cat([torch.tensor([r, int(sched.E[r]), k]),
-                                  torch.from_numpy(sel),
-                                  indices[r].reshape(-1)]))
+        row = [torch.tensor([r, int(sched.E[r]), k]), torch.from_numpy(sel),
+               indices[r].reshape(-1)]
+        if data is not None:
+            drows[s].append(torch.from_numpy(
+                np.ascontiguousarray(data[r][0], np.float32)))
+            row.append(torch.from_numpy(
+                np.asarray(data[r][1], np.int64).reshape(-1)))
+        rows[s].append(torch.cat(row))
         if faults is not None:
             # gathered by the cohort; pads stay neutral (poison 0, gain 1)
             pz, wg = np.zeros(s[0], np.float32), np.ones(s[0], np.float32)
@@ -728,6 +765,10 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
         ftables = {s: torch.stack(v).to(dev) for s, v in frows.items()}
         fops = {s: torch.empty_like(t[0]) for s, t in ftables.items()}
     with_faults = faults is not None and faults["with_faults"]
+    dtables = dops = None
+    if data is not None:
+        dtables = {s: torch.stack(v).to(dev) for s, v in drows.items()}
+        dops = {s: torch.empty_like(t[0]) for s, t in dtables.items()}
     # the int8 uniforms: one (S, U) slice a round, copied into one operand
     utable = uop = None
     if uniforms is not None:
@@ -739,11 +780,15 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
         fn, op = fns[s], ops[s]
         fop = fops[s] if fops is not None else None
 
+        end = 3 + kb + S * n_ph * M * eb * B
+
         def body():
             r = op[0:1]
             mask = (torch.arange(kb, device=dev) < op[2]).float()
             args = (params, op[3:3 + kb], mask, op[1],
-                    op[3 + kb:].view(S, n_ph, M, eb, B), qstate, uop)
+                    op[3 + kb:end].view(S, n_ph, M, eb, B), qstate, uop)
+            if dops is not None:
+                args = (params, dops[s], op[end:].view(kb, -1)) + args[1:]
             if with_faults:
                 args += ({"poison": fop[1:1 + kb],
                           "wire_gain": fop[1 + kb:]},)
@@ -765,8 +810,9 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
             buffers["loss"].index_copy_(0, r, loss_row[None])
             if guards is not None:
                 for k, flag in out[3].items():
-                    buffers[k].index_copy_(
-                        0, r, torch.where(ran, flag, 0.0)[None])
+                    if fop is not None:
+                        flag = torch.where(ran, flag, 0.0)
+                    buffers[k].index_copy_(0, r, flag[None])
             r_slot.copy_(r)
         return body
 
@@ -777,7 +823,7 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
 
     bodies = {s: round_body(s) for s in shapes}
     bodies["eval"] = eval_body
-    stream = torch.cuda.Stream(device=dev) if cuda else None
+    stream = _side_stream(dev) if cuda else None
     if cuda:
         stream.wait_stream(torch.cuda.current_stream(dev))
         pool = torch.cuda.graph_pool_handle()
@@ -801,6 +847,8 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
             ops[s].copy_(tables[s][where[r]])
             if fops is not None:
                 fops[s].copy_(ftables[s][where[r]])
+            if dops is not None:
+                dops[s].copy_(dtables[s][where[r]])
             if uop is not None:
                 uop.copy_(utable[r])
             run(s, state)
@@ -819,6 +867,21 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
     stats = {"shapes": {s: rounds_of[s] for s in shapes},
              "graphs": len(graphs), "capture_s": capture_s}
     return params, buffers, clock, stats
+
+
+_SIDE_STREAMS: Dict[int, Any] = {}
+
+
+def _side_stream(dev: torch.device):
+    """The campaigns' side stream on ``dev``, one per device for the
+    process: cuBLAS keeps a workspace per (handle, stream) for as long as
+    the process lives (~67 MB on the H100), so a new stream per campaign
+    would hold one more workspace each, up to the 32 streams of torch's
+    pool."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SIDE_STREAMS:
+        _SIDE_STREAMS[index] = torch.cuda.Stream(device=dev)
+    return _SIDE_STREAMS[index]
 
 
 def _save(ckpt, cursor: int, R: int, params, qstate, buffers) -> None:
@@ -887,6 +950,254 @@ def _capture(body, pool, restore):
         return graph, time.perf_counter() - t0
     finally:
         torch.backends.cuda.preferred_linalg_library(prev)
+
+
+# ---------------------------------------------------------------------------
+# Population mode: O(cohort) campaigns over millions of virtual clients
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PopulationSchedule:
+    """The host plan of a population campaign, cohort-shaped throughout:
+    round t touches the ``cohort_sizes[t]`` distinct clients ``ids[t]``
+    (pads repeat ``ids[t, 0]`` and are never selectable), and ``a`` / ``b``
+    index cohort positions, not client ids.  ``rows`` holds the realized
+    per-round Q_C / Q_S / gain of the sampled clients (framework derivation
+    and trace channels applied), which ``cost.schedule_metrics(rows=)``
+    vectorizes over."""
+    ids: np.ndarray           # (R, C) int64 sampled client ids
+    a: np.ndarray             # (R, C) realized selection over positions
+    b: np.ndarray             # (R, C) bandwidth fractions
+    E: np.ndarray             # (R,)   local-update counts
+    m_t: np.ndarray           # (R,)   registered population per round
+    cohort_sizes: np.ndarray  # (R,)   distinct sampled ids (<= C)
+    rows: Dict[str, np.ndarray]           # {"q_c", "q_s", "gain"} (R, C)
+    trace: Optional[popn.PopulationTrace] = None
+
+    @property
+    def rounds(self) -> int:
+        return len(self.E)
+
+
+def plan_population_schedule(framework: str, population: popn.Population,
+                             cfg: DNNConfig, rounds: int, *, cohort: int,
+                             policy_seed: int = 0, K: int = 10, E: int = 10,
+                             e_initial: int = 20,
+                             n_samples_per_client: Optional[int] = None,
+                             quant=None, scenario=None,
+                             scenario_seed: int = 0,
+                             stratified: bool = False
+                             ) -> Tuple[SystemParams, PopulationSchedule]:
+    """The framework's host policy over per-round sampled cohorts, as the
+    reference plans it.  Each round t: sample ``min(cohort, m_t)`` distinct
+    ids of the round's registered population (uniform or stratified;
+    deterministic in ``(scenario_seed, t)`` alone, so a resume replans the
+    same cohorts), evaluate their rows and the trace's channels, write them
+    into the framework's derived ``SystemParams`` copy, and let
+    ``policy.step()`` select and allocate within the cohort.  Memory is
+    O(rounds × cohort); the population's size enters only the samplers.
+
+    With no scenario and ``cohort >= population.size`` every cohort is the
+    whole population in id order, and the plan equals ``plan_schedule`` on
+    ``population.system_params(arange(size))``."""
+    ptrace = popn.get_population_trace(scenario, rounds, population.size,
+                                       seed=scenario_seed)
+    m_t = (ptrace.m_t if ptrace is not None
+           else np.full(rounds, population.size, np.int64))
+    C = int(min(cohort, population.size))
+    if C < 1:
+        raise ValueError(f"cohort must be >= 1, got {cohort}")
+    ids = np.zeros((rounds, C), np.int64)
+    csize = np.zeros(rounds, np.int64)
+    for t in range(rounds):
+        got = popn.sample_cohort(scenario_seed, t, m_t[t], C,
+                                 stratified=stratified)
+        csize[t] = got.size
+        ids[t, :got.size] = got
+        if got.size < C:
+            ids[t, got.size:] = got[0]     # pads: real data, never selected
+    sp, policy = engine.make_policy(
+        framework, population.system_params(ids[0]), cfg, seed=policy_seed,
+        K=K, E=E, e_initial=e_initial,
+        n_samples_per_client=n_samples_per_client, quant=quant)
+    fold_offload = framework == "oranfed"  # make_policy folded Q_S into Q_C
+    pos = np.arange(C)
+    a_l, b_l, e_l = [], [], []
+    q_c_all = np.zeros((rounds, C))
+    q_s_all = np.zeros((rounds, C))
+    gain_all = np.zeros((rounds, C))
+    for t in range(rounds):
+        r = population.rows(ids[t])
+        ch = ptrace.channels(t, ids[t]) if ptrace is not None else None
+        q_c = r["Q_C"] * (ch["qc_scale"] if ch is not None else 1.0)
+        q_s = r["Q_S"] * (ch["qs_scale"] if ch is not None else 1.0)
+        if fold_offload:
+            q_c, q_s = q_c + q_s, np.zeros_like(q_s)
+        gain = r["G_m"] * (ch["gain"] if ch is not None else 1.0)
+        pad_live = (pos < csize[t]).astype(np.float64)
+        # the policies read sp's arrays on every step(); S_m, omega and
+        # d_model_bits do not depend on the cohort, so only the per-client
+        # rows are rewritten round to round
+        sp.Q_C, sp.Q_S, sp.G_m = q_c, q_s, gain
+        sp.t_round = r["t_round"] * (ch["deadline_scale"] if ch is not None
+                                     else 1.0)
+        sp.avail = (ch["avail"] if ch is not None else 1.0) * pad_live
+        a, b, e = policy.step()
+        if ch is not None:
+            a_real = a * ch["drop"]
+            if a_real.sum() == 0 and a.sum() > 0:   # never stall
+                a_real = np.zeros_like(a)
+                a_real[np.argmax(a > 0)] = 1.0
+            a = a_real
+        a_l.append(a), b_l.append(b), e_l.append(e)
+        q_c_all[t], q_s_all[t], gain_all[t] = q_c, q_s, gain
+    sched = PopulationSchedule(
+        ids=ids, a=np.stack(a_l), b=np.stack(b_l),
+        E=np.asarray(e_l, np.int32), m_t=np.asarray(m_t, np.int64),
+        cohort_sizes=csize,
+        rows={"q_c": q_c_all, "q_s": q_s_all, "gain": gain_all},
+        trace=ptrace)
+    return sp, sched
+
+
+def run_population_campaign(framework: str, cfg: DNNConfig,
+                            population: popn.Population, data, *,
+                            rounds: int, seeds: Sequence[int], cohort: int,
+                            samples_per_client: int = 64, test_data=None,
+                            K: int = 10, E: int = 10, e_initial: int = 20,
+                            policy_seed: Optional[int] = None,
+                            eval_every: Optional[int] = None,
+                            eval_gamma: float = 1e-3,
+                            strict_transfers: bool = False, policy=None,
+                            quant=None, scenario=None,
+                            scenario_seed: int = 0,
+                            stratified: bool = False, guards=None,
+                            checkpoint_every: Optional[int] = None,
+                            checkpoint_dir=None, resume: bool = False,
+                            device: DeviceLike = None, params=None,
+                            index_source: Optional[IndexSource] = None,
+                            uniform_source: Optional[UniformSource] = None,
+                            _round_hook: Optional[Callable[[int], None]]
+                            = None,
+                            _checkpoint_hook: Optional[Callable[[int], None]]
+                            = None,
+                            _graphs: bool = True,
+                            **hyper) -> CampaignResult:
+    """The scanned campaign over a ``Population``: O(cohort) in memory,
+    never O(population).
+
+    ``data`` is the raw ``(X, y)`` sample pool.  The plan
+    (``plan_population_schedule``) samples each round's cohort; only the
+    clients a round trains draw their shards (``Population.sample_shards``,
+    a pure function of the id), and each round's selected shards, padded to
+    its (cohort bucket, E bucket) shape, become that round's data operand
+    (``build_cohort_round_fn(gather=True)``), uploaded with the other
+    operand tables before the device phase: O(Σ_t kb_t · n · d) on the
+    device.  The rest is ``run_campaign``'s scanned path (one CUDA graph a
+    round shape plus the evaluation's, the seeds folded into the client
+    axis, one host transfer, ``strict_transfers``, the wire formats,
+    ``RoundGuards``, checkpoints and resume, with the cohort ids and
+    ``m_t`` in the schedule fingerprint).  Population traces carry no fault
+    channels (``"faults:p"`` raises ``KeyError``), so guards arm only when
+    given.
+
+    SplitMe's Step 4 takes the final round's cohort shards, pads included,
+    as its client data; with ``cohort >= population.size`` that is the
+    whole materialized dataset.  The baselines evaluate their full model.
+
+    The port's own keywords are ``run_campaign``'s: ``device``, ``params``,
+    ``index_source(i, r, e_bucket)`` (seed i's batch indices of round r
+    over all C cohort positions, ``(n_phases, C, e_bucket, batch_size)``
+    int64), ``uniform_source``, ``_round_hook``, ``_checkpoint_hook`` and
+    ``_graphs``.  By default each seed's generator draws its initial
+    weights and then, round by round, its indices over the C positions."""
+    if guards not in (None, False) and not isinstance(guards, RoundGuards):
+        raise TypeError(f"guards must be None, False or a RoundGuards, got "
+                        f"{type(guards).__name__}")
+    if guards is False:
+        guards = None
+    dev = resolve_device(device)
+    X, y = np.asarray(data[0]), np.asarray(data[1])
+    n = int(samples_per_client)
+    if policy_seed is None:
+        policy_seed = min(seeds)
+    sp, sched = plan_population_schedule(
+        framework, population, cfg, rounds, cohort=cohort,
+        policy_seed=policy_seed, K=K, E=E, e_initial=e_initial,
+        n_samples_per_client=n, quant=quant, scenario=scenario,
+        scenario_seed=scenario_seed, stratified=stratified)
+    spec = engine.make_spec(framework, cfg, masked_loss_metric=True,
+                            policy=policy, quant=quant, device=dev, **hyper)
+    comm = np.atleast_1d(np.asarray(
+        spec.comm_model(sched.a, sched.E, sp), np.float64))
+    nsel = sched.a.sum(axis=1).astype(int)
+    sim, cost, energy = schedule_metrics(sched.a, sched.b, sched.E, sp,
+                                         rows=sched.rows)
+    _check_checkpoint_args(checkpoint_every, checkpoint_dir, resume,
+                           strict_transfers)
+
+    # each round's trained slots draw their shards (pads repeat slot 0's
+    # position, as the materialized round's pads index client 0)
+    alpha = "population"
+    if sched.trace is not None and sched.trace.data_alpha is not None:
+        alpha = sched.trace.data_alpha
+    C = int(sched.ids.shape[1])
+    kb_r, eb_r = _round_shapes(sched, sp)
+    shards = []
+    for t in range(rounds):
+        sel, _ = _cohort(sched.a[t], kb_r[t])
+        sh = population.sample_shards(X, y, sched.ids[t, sel], n,
+                                      alpha=alpha)
+        shards.append((sh["x"], sh["y"]))
+    params, qstate, indices, uniforms = _initial_state(
+        spec, seeds, params, index_source, uniform_source, eb_r, C, n, dev)
+    fns = {s: engine.build_cohort_round_fn(spec, cfg, e_max=s[1],
+                                           gather=True, guards=guards)
+           for s in dict.fromkeys(zip(kb_r, eb_r))}
+
+    eval_fn = None
+    do_eval = np.zeros(rounds, bool)
+    if test_data is not None:
+        client_data = None
+        if framework == "splitme":
+            last = population.sample_shards(X, y, sched.ids[-1], n,
+                                            alpha=alpha)
+            client_data = {
+                "x": torch.as_tensor(last["x"], dtype=torch.float32,
+                                     device=dev),
+                "y": torch.as_tensor(last["y"], dtype=torch.int64,
+                                     device=dev)}
+        eval_fn = engine.build_eval_fn(
+            spec, cfg,
+            torch.as_tensor(test_data[0], dtype=torch.float32, device=dev),
+            torch.as_tensor(test_data[1], dtype=torch.int64, device=dev),
+            gamma=eval_gamma, client_data=client_data)
+        if eval_every:
+            do_eval[eval_every - 1::eval_every] = True
+        do_eval[rounds - 1] = True
+
+    ckpt = _checkpoint_plan(framework, seeds, sched, spec, do_eval,
+                            checkpoint_every, checkpoint_dir, resume,
+                            _checkpoint_hook, extra=(sched.ids, sched.m_t))
+    params, buffers, clock, graphs = _run_rounds_scan(
+        fns, sched, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
+        eval_fn, strict=strict_transfers, round_hook=_round_hook,
+        guards=guards, ckpt=ckpt, capture=_graphs, data=shards)
+    host = _host_fetch(buffers)            # THE per-campaign transfer
+    losses = np.transpose(host["loss"], (1, 0, 2))        # (S, R, n_ph)
+    acc_rounds = host.get("acc")                           # (R, S)
+    skipped, quorum = host.get("skipped"), host.get("quorum")
+    result = CampaignResult(
+        framework=framework, seeds=tuple(seeds), schedule=sched,
+        params=params, losses=losses,
+        metrics=_make_metrics(sched, comm, nsel, sim, cost, energy, losses,
+                              acc_rounds, skipped, quorum),
+        accuracy_per_round=acc_rounds, round_ms=clock.round_ms(),
+        graphs=graphs, qstate=qstate, skipped_per_round=skipped,
+        quorum_per_round=quorum)
+    if test_data is not None:
+        result.accuracy = acc_rounds[rounds - 1]
+    return result
 
 
 def evaluate_campaign(result: CampaignResult, cfg: DNNConfig, test_data,

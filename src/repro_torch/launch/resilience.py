@@ -85,9 +85,14 @@ def checkpoint_tag(round_cursor: int) -> str:
 
 
 def schedule_fingerprint(framework: str, seeds, sched, *, do_eval,
-                         quant_mode: str, checkpoint_every: int) -> str:
+                         quant_mode: str, checkpoint_every: int,
+                         extra=()) -> str:
     """sha256 of everything a resume must replan identically (module
-    docstring); ``sched`` is a ``campaign.RoundSchedule``."""
+    docstring); ``sched`` is a ``campaign.RoundSchedule`` or a
+    ``campaign.PopulationSchedule`` (whose trace has no fault channels).
+    ``extra`` appends further plan arrays, each hashed as f64: the
+    population runner passes its per-round cohort ids and ``m_t``, so a
+    resume against a drifted cohort plan is refused."""
     h = hashlib.sha256()
     h.update(framework.encode())
     h.update(np.asarray(sorted(int(s) for s in seeds), np.int64).tobytes())
@@ -100,6 +105,8 @@ def schedule_fingerprint(framework: str, seeds, sched, *, do_eval,
         ch = getattr(tr, name, None) if tr is not None else None
         h.update(b"\0" if ch is None else
                  np.ascontiguousarray(np.asarray(ch, np.float64)).tobytes())
+    for arr in extra:
+        h.update(np.ascontiguousarray(np.asarray(arr, np.float64)).tobytes())
     return h.hexdigest()
 
 

@@ -968,3 +968,103 @@ def test_checkpoint_resume_on_the_card_is_bit_exact(cuda, tmp_path):
     _same_guarded(res, ref)
     assert [repr(m) for m in res.metrics] == [repr(m) for m in ref.metrics]
     assert np.isnan(res.round_ms[:4]).all() and res.graphs["graphs"] > 0
+
+
+# population mode: the graphed population campaign
+# ---------------------------------------------------------------------------
+
+def _population_data():
+    X, y = oran.generate(n_per_class=300, seed=0)
+    return oran.train_test_split(X, y)
+
+
+def _population(name, size, device, **kw):
+    from repro_torch.core import population as popn
+    (Xtr, ytr), test = _population_data()
+    kw = dict(dict(rounds=6, seeds=(0, 1), cohort=16, samples_per_client=32,
+                   test_data=test, eval_every=2, eval_gamma=10.0,
+                   scenario="churn:0.5", K=4, E=3), **kw)
+    return campaign.run_population_campaign(
+        name, DNN10, popn.Population(size, seed=0), (Xtr, ytr),
+        device=device, **kw)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("splitme", {}), ("fedavg", {}), ("splitme", dict(quant="int8")),
+    ("fedavg", dict(quant="int8", guards=engine.RoundGuards(clip_norm=1.0)))],
+    ids=["splitme", "fedavg", "splitme-int8", "fedavg-int8-clip"])
+def test_population_campaign_graphed_equals_uncaptured_and_cpu(cuda, name,
+                                                               kw):
+    """A population campaign over 10^6 clients (cohort 16, ``churn:0.5``)
+    on the card: strict transfers and one host transfer, one graph a round
+    shape plus the evaluation's, the graphs equal to the same bodies run
+    uncaptured bit for bit (params, losses, error-feedback state, flags),
+    and the CPU's params and losses at 1e-5 over its first 3 rounds (the
+    baselines' SGD amplifies last-bit differences later) and SplitMe's
+    over all 6, its accuracy within one test sample; on the int8 wire at
+    6e-2, the wire's bound (a last-bit difference moves a stochastic
+    rounding by a grid step, as in ``chip_smoke.py`` phase 3c)."""
+    tol = 6e-2 if kw.get("quant") == "int8" else 1e-5
+    campaign.HOST_TRANSFERS = 0
+    g = _population(name, 10 ** 6, cuda, strict_transfers=True, **kw)
+    assert campaign.HOST_TRANSFERS == 1
+    assert g.graphs["graphs"] == len(g.graphs["shapes"]) + 1
+    assert g.schedule.ids.max() > 10 ** 4
+    u = _population(name, 10 ** 6, cuda, _graphs=False, **kw)
+    assert u.graphs["graphs"] == 0
+    _same_guarded(g, u)
+    rounds = 6 if name == "splitme" else 3
+    card = g if rounds == 6 else _population(name, 10 ** 6, cuda,
+                                             rounds=rounds, **kw)
+    cpu = _population(name, 10 ** 6, "cpu", rounds=rounds, **kw)
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=0, atol=tol)
+    for pc, pu in zip(quantcomm.tree_leaves(card.params),
+                      quantcomm.tree_leaves(cpu.params)):
+        torch.testing.assert_close(pc.cpu(), pu, rtol=0, atol=tol)
+    if name == "splitme":
+        n_test = len(_population_data()[1][1])
+        np.testing.assert_allclose(card.accuracy_per_round,
+                                   cpu.accuracy_per_round, rtol=0,
+                                   atol=1.0 / n_test + 1e-9)
+
+
+def test_full_population_cohort_equals_materialized_on_the_card(cuda):
+    """The full-population cohort (12 clients, cohort 12) equals
+    ``run_campaign`` on the same rows and shards at 1e-5 on the card."""
+    from repro_torch.core import population as popn
+    (Xtr, ytr), test = _population_data()
+    pop = popn.Population(12, seed=0)
+    kw = dict(rounds=4, seeds=(0, 1), test_data=test, eval_every=2,
+              eval_gamma=10.0, device=cuda)
+    p = campaign.run_population_campaign("splitme", DNN10, pop, (Xtr, ytr),
+                                         cohort=12, samples_per_client=32,
+                                         **kw)
+    ids = np.arange(12)
+    m = campaign.run_campaign("splitme", DNN10, pop.system_params(ids),
+                              pop.sample_shards(Xtr, ytr, ids, 32), **kw)
+    np.testing.assert_array_equal(p.schedule.a, m.schedule.a)
+    np.testing.assert_allclose(p.losses, m.losses, rtol=0, atol=1e-5)
+    for a, b in zip(quantcomm.tree_leaves(p.params),
+                    quantcomm.tree_leaves(m.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(p.accuracy_per_round, m.accuracy_per_round,
+                               rtol=0, atol=1e-5)
+
+
+def test_population_resume_on_the_card_is_bit_exact(cuda, tmp_path):
+    """A checkpointed population campaign aborted at round 4 and resumed
+    equals the uninterrupted one bit for bit."""
+    from repro_torch.launch import resilience
+    ref = _population("splitme", 10 ** 6, cuda)
+
+    def abort(cursor):
+        if cursor >= 4:
+            raise resilience.CampaignAborted(f"abort at {cursor}")
+    with pytest.raises(resilience.CampaignAborted):
+        _population("splitme", 10 ** 6, cuda, checkpoint_every=2,
+                    checkpoint_dir=tmp_path, _checkpoint_hook=abort)
+    res = _population("splitme", 10 ** 6, cuda, checkpoint_every=2,
+                      checkpoint_dir=tmp_path, resume=True)
+    _same_guarded(res, ref)
+    assert [repr(m) for m in res.metrics] == [repr(m) for m in ref.metrics]
+    assert np.isnan(res.round_ms[:4]).all() and res.graphs["graphs"] > 0

@@ -51,7 +51,7 @@ def test_port_files_exist():
                  "kernels/flash_attention/ref.py", "launch/campaign.py",
                  "core/quantcomm.py", "core/baselines.py",
                  "core/scenario.py", "checkpoint/io.py",
-                 "launch/resilience.py"):
+                 "launch/resilience.py", "core/population.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
@@ -110,6 +110,25 @@ def test_trainer_without_device_needs_a_card():
     t = SplitMeTrainer(*_tiny_trainer_args(), batch_size=4, e_initial=2,
                        device="cpu")
     assert t.x.device.type == "cpu"
+
+
+def test_population_campaign_without_device_needs_a_card():
+    from repro_torch.configs.splitme_dnn import DNNConfig
+    from repro_torch.core.population import Population
+    from repro_torch.launch.campaign import run_population_campaign
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    rng = np.random.default_rng(0)
+    pool = (rng.normal(size=(30, 30)).astype(np.float32),
+            np.arange(30) % 3)
+    kw = dict(rounds=1, seeds=(0,), cohort=4, samples_per_client=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_population_campaign("fedavg", DNNConfig(hidden=(8,)),
+                                Population(10 ** 6), pool, **kw)
+    res = run_population_campaign("fedavg", DNNConfig(hidden=(8,)),
+                                  Population(10 ** 6), pool, device="cpu",
+                                  **kw)
+    assert res.params[0][0]["w"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])

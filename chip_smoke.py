@@ -109,6 +109,21 @@ failure ends the run with a non-zero exit code:
    and 10^6 clients (within 1.25x); the full-population cohort of 50
    against ``run_campaign`` on the same rows and shards; the int8 wire
    graphed against uncaptured; checkpoints, an abort and a bitwise resume;
+3i. the config sweep: ``run_config_sweep("splitme", ...)`` over the
+   bandwidth B of Table III halved, kept and doubled twice (4 variants x
+   seeds 0-3 = 16 (variant, seed) pairs, 30 rounds, Step 4 every 10 rounds
+   and after the last): strict transfers and one host transfer for the
+   sweep, its round shapes and graphs, graphed against the same bodies
+   uncaptured bit for bit, the steady round's ms, operations, idle share
+   and in-graph KL and Gram launches, the whole sweep beside its four
+   ``vmap_configs=False`` campaigns, the device peak; the sweep against
+   its per-variant campaigns on draws both read alike, and against the CPU
+   over its first rounds by 3d's gates;
+3j. the port's entry points: the README's four command lines through
+   ``repro_torch.examples.oran_splitfl_campaign.main(argv)`` on the card,
+   in this process (the resumable line twice: the rerun resumes; the
+   serial line's five baseline trainers at 10 of their 60 rounds), each
+   printing the reference's lines;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -905,7 +920,7 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
 # SystemParams(seed=0), DNN10 at full width, the data of phase 3b; the
 # full-model evaluation (no ridge solve) every 10 rounds and after the last.
 # Each: graphed (strict transfers, one transfer) against eager bit for bit,
-# its steady round graphed and eager (medians of CAMPAIGN_TURNS turns), the
+# its steady round graphed and eager (medians of BASELINE_TURNS turns), the
 # whole campaign, one profiled window, and the card against the CPU over
 # the first BASELINE_CMP_ROUNDS rounds (CARD_CPU_TOL; accuracy after every
 # round within CMP_ACC_SAMPLES test samples).  The baselines' SGD on the
@@ -924,6 +939,9 @@ BASELINES = (("fedavg", {"K": 10, "E": 10}), ("sfl", {"K": 20, "E": 14}),
              ("oranfed", {"E": 10}), ("fedora", {"E": 10}),
              ("ecofl", {"K": 10, "E": 10}))
 BASELINE_ROUNDS = 60
+# one turn, where 3b takes three: the phase is the script's longest (5
+# frameworks x 60 rounds, graphed and eager, each turn)
+BASELINE_TURNS = 1
 BASELINE_CMP_ROUNDS = 3
 # O-RANFed's cohort changes nearly every round: its most frequent round
 # shape, (16, 10), runs at most 2 rounds in a row, so phase 3d profiles
@@ -1229,7 +1247,7 @@ def baselines_phase(torch, port, clients, test):
               f"{name}: steady window {window}")
         steady = [r for r in shapes[shape][1:]
                   if (r + 1) % CAMPAIGN_EVAL_EVERY]
-        for turn in range(CAMPAIGN_TURNS):
+        for turn in range(BASELINE_TURNS):
             g = graphed() if turn else res
             e = run(scan=False)
             if turn == 0:
@@ -1278,7 +1296,7 @@ def baselines_phase(torch, port, clients, test):
               f"graphed {v['round_ms']:.3f} ms, eager "
               f"{v['eager_round_ms']:.3f} ms "
               f"({v['eager_round_ms'] / v['round_ms']:.1f}x; medians of "
-              f"{CAMPAIGN_TURNS}); whole {BASELINE_ROUNDS} rounds graphed "
+              f"{BASELINE_TURNS}); whole {BASELINE_ROUNDS} rounds graphed "
               f"{v['whole_ms']:.1f} ms (capture and evaluations included; "
               f"call {call_ms:.1f} ms), eager {v['eager_whole_ms']:.1f} ms "
               f"with its post-hoc evaluation; profiled rounds "
@@ -2036,13 +2054,314 @@ def population_phase(torch, port, data, test, base):
     return out, graph_launches
 
 
+# the config sweep (phase 3i): the paper's SplitMe schedule (SystemParams(
+# seed=0), DNN10 at full width, 96 samples a client, 30 rounds) at the
+# bandwidths SWEEP_B (Table III's B halved, kept and doubled twice), seeds
+# 0-3, Step 4 every 10 rounds and after the last at gamma 10: 16 (variant,
+# seed) pairs in one scan, each pair training its own cohort for its own E
+# in the round of the largest ones; SWEEP_TURNS timed turns of the sweep
+# and of its four vmap_configs=False campaigns on draws both read alike
+# (prefix_index_source), the first turn's held together at the
+# reference test's bounds (tests/test_campaign.py: losses 1e-5, accuracy
+# 1e-6, comm_bits exactly, params 2e-3), and against the CPU over its
+# first BASELINE_CMP_ROUNDS rounds by phase 3d's gates
+SWEEP_B = (0.5e9, 1e9, 2e9, 4e9)
+SWEEP_LOSS_TOL, SWEEP_ACC_TOL, SWEEP_PARAM_TOL = 1e-5, 1e-6, 2e-3
+SWEEP_TURNS = 1
+SWEEP_TOP = 8            # device operations listed of the steady round
+
+
+def prefix_index_source(torch, seeds, M: int, B: int, n: int,
+                        n_phases: int = 2):
+    """An ``index_source`` whose E-bucket draws are prefixes of one
+    another, as the reference's key chains are: step j of seed s's round r
+    draws its (n_phases, M, B) batch indices from a generator of its own,
+    so a sweep and its per-variant campaigns, which draw a round at
+    different E buckets, read the same batches."""
+    def source(i, r, eb):
+        return torch.stack([torch.randint(
+            0, n, (n_phases, M, B), generator=torch.Generator().manual_seed(
+                (int(seeds[i]) * 10 ** 4 + r) * 100 + j))
+            for j in range(eb)], 2)
+    return source
+
+
+def sweep_phase(torch, port, clients, test, base):
+    """Phase 3i; ``base`` is phase 3b's summary.  Returns its numbers and
+    the in-graph launches of the main-path kernels."""
+    import gc
+    import numpy as np
+    camp, kl_ops, rg_ops = port.campaign, port.kl_ops, port.rg_ops
+    sps = [port.SystemParams(seed=0, B=b) for b in SWEEP_B]
+    V, S, n_test = len(sps), len(CAMPAIGN_SEEDS), len(test[1])
+    P, n = V * S, int(clients["x"].shape[1])
+    kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS, test_data=test,
+              eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA)
+    label = f"config sweep (splitme, {V} bandwidths x {S} seeds)"
+
+    def run(device="cuda", **more):
+        return camp.run_config_sweep("splitme", port.DNN10, sps, clients,
+                                     device=device, **dict(kw, **more))
+
+    # the main run: strict transfers, one host transfer, the device peak
+    kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+    camp.HOST_TRANSFERS = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    res, call_ms = timed(torch, lambda: run(strict_transfers=True))
+    peak = torch.cuda.max_memory_allocated()
+    counters = {"kl_mutual": kl_ops.launches,
+                "kl_mutual (backward)": kl_ops.launches_bwd,
+                "ridge_gram": rg_ops.launches}
+    check(camp.HOST_TRANSFERS == 1,
+          f"{label}: {camp.HOST_TRANSFERS} host transfers")
+    check(len(res) == V, f"{label}: {len(res)} results")
+    for b, r in zip(SWEEP_B, res):
+        print(f"{label}: B {b:.1e}: selected per round "
+              f"{r.schedule.a.sum(1).astype(int).tolist()}, E "
+              f"{r.schedule.E.tolist()}")
+    stats = res[0].graphs
+    shapes = stats["shapes"]
+    check(stats["graphs"] == len(shapes) + 1,
+          f"{label}: one graph per shape + eval")
+    check(all(bool(np.isfinite(r.losses).all()) for r in res),
+          f"{label}: non-finite loss")
+    check(all(v > 0 for v in counters.values()),
+          f"{label}: a kernel of the path never launched {counters}")
+    print(f"{label}: {len(shapes)} round shapes "
+          + ", ".join(f"({kb}, {eb}) x{len(rs)}"
+                      for (kb, eb), rs in shapes.items())
+          + f"; {stats['graphs']} graphs, capture {stats['capture_s']:.3f} "
+          f"s; call {call_ms:.1f} ms; HOST_TRANSFERS {camp.HOST_TRANSFERS} "
+          f"under strict_transfers; launch counters (warm-ups and captures) "
+          f"{counters}; torch.cuda.max_memory_allocated {peak / 1e6:.2f} MB "
+          f"({(peak - before) / 1e6:.2f} MB above the {before / 1e6:.2f} "
+          f"MB held before); final accuracy per variant "
+          f"{[[round(float(a), 4) for a in r.accuracy] for r in res]}")
+    unc = run(_graphs=False)
+    for b, r, u in zip(SWEEP_B, res, unc):
+        graphed_vs_eager(torch, port, r, u, f"{label}, B {b:.1e}",
+                         "uncaptured")
+
+    # the steady round and the whole sweep beside its four per-variant
+    # campaigns, in SWEEP_TURNS turns on draws both read alike
+    # (prefix_index_source); the first turn's pair is also held together
+    steady_shape, window = steady_window(shapes, CAMPAIGN_ROUNDS,
+                                         CAMPAIGN_EVAL_EVERY)
+    check(len(window) >= 3, f"{label}: steady window {window}")
+    eval_round = 2 * CAMPAIGN_EVAL_EVERY - 1
+    src = prefix_index_source(torch, CAMPAIGN_SEEDS, int(sps[0].M), 32, n)
+    g_ms = [statistics.median(res[0].round_ms[window])]
+    whole, calls, s_whole, s_calls = [], [], [], []
+    for turn in range(SWEEP_TURNS):
+        vm, ms = timed(torch, lambda: run(index_source=src))
+        g_ms.append(statistics.median(vm[0].round_ms[window]))
+        whole.append(float(sum(vm[0].round_ms)))
+        calls.append(ms)
+        se, ms = timed(torch, lambda: run(index_source=src,
+                                          vmap_configs=False))
+        s_whole.append(float(sum(sum(r.round_ms) for r in se)))
+        s_calls.append(ms)
+        print(f"{label}, turn {turn}: steady round {g_ms[-1]:.3f} ms; whole "
+              f"sweep {whole[-1]:.1f} ms of rounds (call {calls[-1]:.1f} "
+              f"ms), its {V} vmap_configs=False campaigns {s_whole[-1]:.1f} "
+              f"ms of rounds (calls {s_calls[-1]:.1f} ms): "
+              f"{s_whole[-1] / whole[-1]:.3f}x of rounds, "
+              f"{s_calls[-1] / calls[-1]:.3f}x of calls")
+        if turn == 0:
+            perr = lerr = aerr = 0.0
+            comm = True
+            for a, b in zip(vm, se):
+                p, l = campaign_max_diff(a, b)
+                perr, lerr = max(perr, p), max(lerr, l)
+                aerr = max(aerr, float(np.abs(a.accuracy - b.accuracy).max()))
+                comm = comm and [m.comm_bits for m in a.metrics] == [
+                    m.comm_bits for m in b.metrics]
+            print(f"{label} vs its vmap_configs=False campaigns (card, "
+                  f"graphed, prefix-consistent draws): max param diff "
+                  f"{perr:.3e} (tol {SWEEP_PARAM_TOL}), loss {lerr:.3e} (tol "
+                  f"{SWEEP_LOSS_TOL}), final accuracy {aerr:.3e} (tol "
+                  f"{SWEEP_ACC_TOL}), comm_bits equal {comm}")
+            check(perr <= SWEEP_PARAM_TOL and lerr <= SWEEP_LOSS_TOL
+                  and aerr <= SWEEP_ACC_TOL and comm,
+                  f"{label}: the sweep and its per-variant campaigns "
+                  f"disagree")
+        del vm, se
+    got = profiled_windows(torch, run, {"steady": window,
+                                        "eval": [eval_round]})
+    evts, wall = got["steady"]
+    busy, n_ops, per = campaign_window(torch, evts, len(window))
+    wall /= len(window)
+    launches = {k: v[0] for k, v in per.items()}
+    _, n_ops_e, per_e = campaign_window(torch, got["eval"][0], 1)
+    launches_e = {k: v[0] for k, v in per_e.items()}
+    eb = steady_shape[1]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    heavy = sorted(evts, key=dev_us, reverse=True)[:SWEEP_TOP]
+    for e in heavy:
+        print(f"{label}: steady round, {dev_us(e) / 1e3 / len(window):8.3f} "
+              f"ms {e.count / len(window):7.1f} calls  {e.key[:90]}")
+    out = {"round_ms": statistics.median(g_ms), "ops_per_round": n_ops,
+           "idle_share": 1 - busy / wall, "steady_shape": list(steady_shape),
+           "steady_rounds": window, "pairs": P,
+           "top_ms_per_round": {e.key[:60]: dev_us(e) / 1e3 / len(window)
+                                for e in heavy}, "shapes": len(shapes),
+           "graphs": stats["graphs"], "capture_s": stats["capture_s"],
+           "whole_ms": statistics.median(whole),
+           "serial_whole_ms": statistics.median(s_whole),
+           "call_ms": statistics.median(calls),
+           "serial_call_ms": statistics.median(s_calls),
+           "peak_mb": peak / 1e6, "peak_above_mb": (peak - before) / 1e6,
+           "launches_per_round": launches,
+           "launches_per_eval_round": launches_e,
+           "ops_per_eval_round": n_ops_e, "serial_param_diff": perr,
+           "serial_loss_diff": lerr, "serial_acc_diff": aerr}
+    print(f"{label}: steady ({steady_shape[0]}, {eb}) round (rounds "
+          f"{window[0]}-{window[-1]}) of {P} pairs graphed "
+          f"{out['round_ms']:.3f} ms (medians of {len(g_ms)}: "
+          f"{[round(float(v), 3) for v in g_ms]}) = "
+          f"{P * 1e3 / out['round_ms']:.1f} pair-rounds/s, {n_ops:.1f} "
+          f"device operations a round, idle share {out['idle_share']:.4f}; "
+          f"in-graph launches a steady round {launches}, at the evaluating "
+          f"round {eval_round} {launches_e} ({n_ops_e:.0f} operations); "
+          f"whole sweep {out['whole_ms']:.1f} ms of rounds against "
+          f"{out['serial_whole_ms']:.1f} ms for its {V} campaigns "
+          f"({out['serial_whole_ms'] / out['whole_ms']:.2f}x of rounds "
+          f"only); calls {out['call_ms']:.1f} against "
+          f"{out['serial_call_ms']:.1f} ms, host plans included "
+          f"({out['serial_call_ms'] / out['call_ms']:.2f}x of calls); "
+          f"phase 3b: ({base['launches_per_round']}) "
+          f"{base['round_ms']:.3f} ms, {base['ops_per_round']:.1f} "
+          f"operations, idle {base['idle_share']:.4f}")
+    check(launches["kl_mutual"] == 2 * eb
+          and launches["kl_mutual (backward)"] == 2 * eb
+          and launches["ridge_gram"] == 0,
+          f"{label}: steady round launches {launches} != 2 x E {eb} KL "
+          f"forward and backward, no Gram")
+    check(launches_e["ridge_gram"] == 8 * P,
+          f"{label}: evaluating round launches {launches_e}: not 8 Gram "
+          f"pairs a (variant, seed) pair")
+
+    # the card against the CPU over the first rounds, by 3d's gates
+    card = run(rounds=BASELINE_CMP_ROUNDS, eval_every=1)
+    cpu = run(device="cpu", rounds=BASELINE_CMP_ROUNDS, eval_every=1)
+    worst = (0.0, 0.0, 0.0, 0)
+    for b, c, u in zip(SWEEP_B, card, cpu):
+        d = card_vs_cpu_campaign(torch, c, u, n_test)
+        check_card_cpu_flips(f"{label}, B {b:.1e}", *d)
+        worst = tuple(max(x, y) for x, y in zip(worst, d))
+    print(f"{label}: card (graphed) vs CPU over {BASELINE_CMP_ROUNDS} "
+          f"rounds: max param diff {worst[0]:.3e} (tol {CARD_CPU_TOL}, "
+          f"{FLIP_TOL} for at most {FLIP_UNITS} hidden units a seed: "
+          f"{worst[3]}), loss {worst[1]:.3e}, accuracy {worst[2]:.0f} of "
+          f"{n_test} test samples (gamma {CMP_EVAL_GAMMA})")
+    out.update(card_cpu_param_diff=worst[0], card_cpu_loss_diff=worst[1],
+               card_cpu_acc_samples=worst[2], card_cpu_flipped_units=worst[3])
+    del res, unc, card, cpu
+    torch.cuda.empty_cache()
+    graph_launches = {
+        name: {"sweep_launches_per_round": launches[name],
+               "sweep_launches_per_eval_round": launches_e[name]}
+        for name in launches}
+    return out, graph_launches
+
+
+# the README's four command lines (README.md, Quickstart) through the port's
+# example on the card (phase 3j): "{dir}" is a temporary directory; the
+# resumable line runs twice, the rerun resuming from its last checkpoint.
+# The serial line's five eager baseline trainers run README_BASELINE_ROUNDS
+# of their 60 rounds (the script's time; each round is an eager trainer
+# round, 3d's graphed campaigns run all 60)
+README_BASELINE_ROUNDS = 10
+README_LINES = (
+    ("serial", ["--rounds", "30", "--baselines", "--baseline-rounds",
+                str(README_BASELINE_ROUNDS), "--ckpt-dir", "{dir}"]),
+    ("campaign", ["--seeds", "4", "--eval-every", "5", "--quant", "bf16",
+                  "--scenario", "fading:0.8"]),
+    ("resumable", ["--seeds", "4", "--checkpoint-every", "10",
+                   "--checkpoint-dir", "{dir}/ckpt", "--resume"]),
+    ("population", ["--seeds", "2", "--population", "1000000", "--cohort",
+                    "32", "--scenario", "churn:0.5"]),
+)
+_ACC = r"acc=(\d\.\d{3})"
+README_OUTPUT = {
+    "serial": [r"\[splitme\] round \d+: sel=\d+ E=\d+ " + _ACC
+               + r" cum_comm=[\d.]+MB"] * 6
+    + [r"\[splitme\] FINAL " + _ACC + r" rounds=30 sim_time=[\d.]+s "
+       r"wall=\d+s"]
+    + [rf"\[{f}\] " + _ACC + rf" rounds={README_BASELINE_ROUNDS} "
+       r"sim_time=[\d.]+s comm=[\d.]+MB"
+       for f in ("fedavg", "sfl", "oranfed", "fedora", "ecofl")],
+    "campaign": [r"\[splitme\] 4 seeds x 30 rounds: " + _ACC
+                 + r"±\d\.\d{3} \(per-seed \[.*\]\) comm=[\d.]+MB "
+                 r"sim_time=[\d.]+s wall=\d+s",
+                 r"\[splitme\] fused-eval accuracy curve: \[.*\]"],
+    "resumable": [r"\[splitme\] 4 seeds x 30 rounds: " + _ACC
+                  + r"±\d\.\d{3} \(per-seed \[.*\]\) comm=[\d.]+MB "
+                  r"sim_time=[\d.]+s wall=\d+s"],
+    "population": [r"\[splitme/pop\] 1,000,000 clients, cohort 32, 2 seeds "
+                   r"x 30 rounds: " + _ACC + r"±\d\.\d{3} comm=[\d.]+MB "
+                   r"wall=\d+s"],
+}
+
+
+def readme_phase(port):
+    """Phase 3j: each README line through ``main(argv + ["--device",
+    "cuda"])``; its printed lines must have the reference's formats and
+    accuracies in [0, 1].  Returns each line's seconds."""
+    import io
+    import re
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_readme_") as d:
+        for name, line in README_LINES:
+            argv = [a.replace("{dir}", d) for a in line] + ["--device",
+                                                           "cuda"]
+            printed = []
+            for rep in range(2 if name == "resumable" else 1):
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    port.example_cli.main(argv)
+                secs = time.perf_counter() - t0
+                lines = buf.getvalue().splitlines()
+                for text in lines:
+                    print(f"3j {name}: {text}")
+                want = README_OUTPUT[name]
+                check(len(lines) == len(want)
+                      and all(re.fullmatch(p, t)
+                              for p, t in zip(want, lines)),
+                      f"README line {name!r}: printed {lines}")
+                accs = [float(m.group(1)) for p, t in zip(want, lines)
+                        for m in [re.fullmatch(p, t)] if m.groups()]
+                check(all(0.0 <= a <= 1.0 for a in accs),
+                      f"README line {name!r}: accuracy out of range")
+                printed.append([re.sub(r"wall=\d+s", "", t) for t in lines])
+                out[name if rep == 0 else f"{name} (rerun)"] = secs
+                print(f"3j {name}{' (rerun, resumed)' if rep else ''}: "
+                      f"{secs:.1f} s: python -m "
+                      f"repro_torch.examples.oran_splitfl_campaign "
+                      f"{' '.join(argv)}")
+            if name == "resumable":
+                check(printed[0] == printed[1],
+                      "the resumed README line printed other results")
+    return out
+
+
 # the kl_mutual kernels: (rows, d) of the main path (50 clients x 32 rows of
 # 256), a ragged width, a tiny one in single floats (d % 4 != 0), 32 values
-# a lane (d 1000), a row streamed (d > 1024), and the campaign's cohorts of
-# 32 and 50 clients x 4 seeds x 32 rows; the shapes of
-# tests/test_torch_cuda.py's test_kl_kernel_matches_plain
+# a lane (d 1000), a row streamed (d > 1024), the campaign's cohorts of 32
+# and 50 clients x 4 seeds x 32 rows, and the config sweep's 16 pairs x 50
+# slots x 32 rows (phase 3i); the shapes of tests/test_torch_cuda.py's
+# test_kl_kernel_matches_plain
 KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000),
-             (4096, 256), (6400, 256)]
+             (4096, 256), (6400, 256), (25600, 256)]
 KL_T = 2.0               # the SplitMe temperature
 KL_HOST_BLOCKS = 9       # blocks of 50 calls a wrapper, for the host time
 
@@ -2194,7 +2513,8 @@ def kl_phase(torch, port, normal):
 
 # the mixed-dtype kl_mutual entries (the bf16 policy's client phase gives
 # bf16 x against f32 y, its server phase f32 x against bf16 y; bf16 against
-# bf16 has no caller): held against their plain versions at KL_SHAPES, and
+# bf16 has no caller): held against their plain versions at KL_SHAPES (but
+# the f32 config sweep's last one, which no bf16 path gives them), and
 # at a width with d % 8 != 0, with x aligned and one element off (the
 # kernels' single-element loads); a bf16 gradient within one bf16 unit in
 # the last place of the plain version's (which rounds the same f32 value),
@@ -2203,7 +2523,7 @@ def kl_phase(torch, port, normal):
 # x 4 seeds x 32 rows of 256
 KL_PAIRS = (("bfloat16", "float32"), ("float32", "bfloat16"),
             ("bfloat16", "bfloat16"))
-KL_MIXED_SHAPES = KL_SHAPES + [(100, 37)]
+KL_MIXED_SHAPES = KL_SHAPES[:-1] + [(100, 37)]
 KL_MIXED_TIME = (4096, 256)
 KL_TYPE = {"float32": ("f32", "float"), "bfloat16": ("bf16", "__nv_bfloat16")}
 
@@ -3078,6 +3398,7 @@ def import_port():
     from repro_torch.core.splitme import SplitMeTrainer
     from repro_torch.data import oran
     from repro_torch.device import resolve_device
+    from repro_torch.examples import oran_splitfl_campaign as example_cli
     from repro_torch.kernels import build, dispatch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
@@ -3365,6 +3686,14 @@ def main() -> int:
     population, pop_launches = population_phase(torch, port, (Xtr, ytr),
                                                 test, base)
 
+    # -- 3i. the config sweep ------------------------------------------------
+    phase("3i. the config sweep")
+    sweep, sweep_launches = sweep_phase(torch, port, clients, test, base)
+
+    # -- 3j. the port's entry points -----------------------------------------
+    phase("3j. the README's command lines through the port's example")
+    readme = readme_phase(port)
+
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
     for arch in ZOO_ARCHS:
@@ -3391,7 +3720,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/kl_mutual.py:38",
          "launches": kl_n, **kl["fwd"], **graphed["kl_mutual"],
-         **pop_launches["kl_mutual"]},
+         **pop_launches["kl_mutual"], **sweep_launches["kl_mutual"]},
         # the closed-form backward beside the Pallas kernel (plain jnp in
         # the JAX package), one kernel here
         {"name": "kl_mutual (backward)", "route": "cuda",
@@ -3399,7 +3728,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/kl_mutual/ops.py:33",
          "launches": kl_bwd_n, **kl["bwd"],
          **graphed["kl_mutual (backward)"],
-         **pop_launches["kl_mutual (backward)"]},
+         **pop_launches["kl_mutual (backward)"],
+         **sweep_launches["kl_mutual (backward)"]},
         {"name": "ridge_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
          "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:40",
@@ -3410,7 +3740,8 @@ def main() -> int:
          "library_device_ms": g_lib_dev, "host_us_per_call": g_host / 8,
          "bound_fp32_ms": g_bound_fp32, "max_rel_err": gram_rel,
          "shape": "16 Grams of one evaluation, 8 gram_pair calls",
-         **graphed["ridge_gram"], **pop_launches["ridge_gram"]},
+         **graphed["ridge_gram"], **pop_launches["ridge_gram"],
+         **sweep_launches["ridge_gram"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},
@@ -3444,6 +3775,8 @@ def main() -> int:
     print("fault channels, guards and checkpoints (phases 3f, 3g): "
           + json.dumps(faults))
     print("population mode (phase 3h): " + json.dumps(population))
+    print("config sweep (phase 3i): " + json.dumps(sweep))
+    print("README command lines (phase 3j), seconds: " + json.dumps(readme))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

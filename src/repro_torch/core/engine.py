@@ -192,12 +192,14 @@ def _fold(params: Params, kb: int) -> Params:
 def _phase_runner(phase: PhaseSpec, e_max: int):
     """Masked e_max-step SGD of the phase's loss over a stacked cohort.
 
-    ``do`` is the (e_max,) f32 executed-step mask on the data's device;
-    the first ``n_grad`` steps run a backward and the update
-    ``p − (lr·do_i)·g`` (the reference's order), the rest compute only
-    their loss.  Returns the trained weights and the (C,) loss metric."""
+    ``do`` is the (e_max,) f32 executed-step mask on the data's device,
+    or a (C, e_max) mask of each slot's own steps; the first ``n_grad``
+    steps run a backward and the update ``p − (lr·do_i)·g`` (the
+    reference's order), the rest compute only their loss.  Returns the
+    trained weights and the (C,) loss metric."""
     def run(w: Params, data, target, do, idx, n_grad: int):
         rows = torch.arange(data.shape[0], device=data.device)[:, None]
+        per_slot = do.dim() == 2
         step = phase.lr * do
         losses = []
         for i in range(e_max):
@@ -210,15 +212,16 @@ def _phase_runner(phase: PhaseSpec, e_max: int):
                     loss = phase.loss_fn(leaves, xb, tb)
                     flat = [v for p in leaves for v in p.values()]
                     grads = iter(torch.autograd.grad(loss.sum(), flat))
-                w = [{k: v.detach() - step[i] * next(grads)
-                      for k, v in p.items()} for p in leaves]
+                w = [{k: v.detach() - (quantcomm._per_client(step[:, i], v)
+                                       if per_slot else step[i])
+                      * next(grads) for k, v in p.items()} for p in leaves]
             else:
                 loss = phase.loss_fn(w, xb, tb)
             losses.append(loss.detach())
         losses = torch.stack(losses)                    # (e_max, C)
         if phase.loss_over_mask:
-            return w, ((losses * do[:, None]).sum(0)
-                       / do.sum().clamp(min=1.0))
+            return w, ((losses * (do.T if per_slot else do[:, None])).sum(0)
+                       / do.sum(-1).clamp(min=1.0))
         return w, losses.mean(0)
 
     return run
@@ -226,7 +229,10 @@ def _phase_runner(phase: PhaseSpec, e_max: int):
 
 def _step_mask(e_max: int, e_steps, device) -> torch.Tensor:
     """(e_max,) f32: 1 for the executed steps i < e_steps (an int or a
-    0-d tensor on ``device``)."""
+    0-d tensor on ``device``); (P, e_max) for a (P,) tensor of per-pair
+    counts."""
+    if isinstance(e_steps, torch.Tensor) and e_steps.dim() == 1:
+        e_steps = e_steps[:, None]
     return (torch.arange(e_max, device=device) < e_steps).float()
 
 
@@ -236,8 +242,10 @@ def _aggregate(spec: FrameworkSpec, params: ParamsTuple, weighted, msum,
     reference's order: int8 quantizes the numerators ``weighted`` ({param
     index: layers}) with error feedback, bf16 rounds (weighted, |A_t|, the
     loss sums); then |A_t| is clamped to ≥ 1 and divides.  ``lead``: 1 for
-    seed-stacked payloads (a scale and a residual per seed).  Returns (new
-    params, losses, new qstate, |A_t| as it crossed the wire)."""
+    seed- or pair-stacked payloads (a scale and a residual per seed or
+    pair; ``msum`` is 0-d, or (P,) for pairs of their own cohorts).
+    Returns (new params, losses, new qstate, |A_t| as it crossed the
+    wire)."""
     quant = spec.quant
     if quant.stochastic:
         weighted, qstate = quantcomm.fake_quant_int8(weighted, qstate,
@@ -246,8 +254,11 @@ def _aggregate(spec: FrameworkSpec, params: ParamsTuple, weighted, msum,
         weighted, msum, loss_sums = quantcomm.simulate_cast(
             (weighted, msum, loss_sums), torch.bfloat16)
     wsum = msum.clamp(min=1.0)
+
+    def divide(v):
+        return v / (quantcomm._per_client(wsum, v) if wsum.dim() else wsum)
     new_params = tuple(
-        [{k: v / wsum for k, v in p.items()} for p in weighted[i]]
+        [{k: divide(v) for k, v in p.items()} for p in weighted[i]]
         if i in weighted else params[i] for i in range(len(params)))
     return new_params, tuple(s / wsum for s in loss_sums), qstate, msum
 
@@ -349,6 +360,23 @@ def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    qstate, uniforms, guards, 0)
 
 
+def _train_slots(spec: FrameworkSpec, runners, folded, ctx_c, do,
+                 cohort_idx, lead: int):
+    """Every phase over the folded client axis of ``lead`` seeds or pairs
+    of kb slots each: the trained weights ({param index: layers}) and each
+    phase's (lead, kb) losses."""
+    updated: Dict[int, Params] = {}
+    phase_losses = []
+    for pi, ph in enumerate(spec.phases):
+        tgt = ph.target_fn(folded, updated, ctx_c)
+        w_new, loss_c = runners[pi](folded[ph.param_idx], ctx_c[ph.data_key],
+                                    tgt, do, cohort_idx[pi],
+                                    cohort_idx.shape[2])
+        updated[ph.param_idx] = w_new
+        phase_losses.append(loss_c.reshape(lead, -1))
+    return updated, phase_losses
+
+
 def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps,
                    idx: torch.Tensor, qstate=(), uniforms=None, faults=None,
@@ -363,7 +391,17 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     guards' decisions.  ``faults`` are the cohort's slices, (kb,) each,
     shared by the seeds.  ``ctx_gathered``: the context's rows are already
     the cohort's kb slots (population mode's per-round data), not the M
-    clients ``sel_idx`` indexes."""
+    clients ``sel_idx`` indexes.
+
+    With ``sel_idx`` and ``sel_mask`` (P, kb) and ``e_steps`` (P,), each of
+    P pairs has its own cohort and E (the config sweep's (variant, seed)
+    pairs, variant-major): ``params`` are pair-stacked (P, ...) and pair p
+    draws from seed p % S's ``idx`` (and int8 ``uniforms``, (S, U)), so the
+    variants of a seed share its batches; FedAvg, |A_t|, the loss sums,
+    and the wire format run per pair."""
+    if sel_idx.dim() == 2:
+        return _paired_core(spec, runners, params, ctx, sel_idx, sel_mask,
+                            e_steps, idx, qstate, uniforms)
     S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
     kb = sel_idx.shape[0]
     if ctx_gathered:
@@ -378,14 +416,8 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     # same whether or not the other clients are computed
     cohort_idx = idx[:, :, sel_idx].transpose(0, 1).reshape(
         len(spec.phases), S * kb, e_max, B)
-    updated: Dict[int, Params] = {}
-    phase_losses = []
-    for pi, ph in enumerate(spec.phases):
-        tgt = ph.target_fn(folded, updated, ctx_c)
-        w_new, loss_c = runners[pi](folded[ph.param_idx], ctx_c[ph.data_key],
-                                    tgt, do, cohort_idx[pi], e_max)
-        updated[ph.param_idx] = w_new
-        phase_losses.append(loss_c.reshape(S, kb))
+    updated, phase_losses = _train_slots(spec, runners, folded, ctx_c, do,
+                                         cohort_idx, S)
     clip = guards.clip_norm if guards is not None else None
     if faults is not None or clip is not None:
         updated = _inject(
@@ -400,6 +432,32 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    qstate, uniforms, guards, 1)
 
 
+def _paired_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
+                 sel_idx, sel_mask, e_steps, idx, qstate, uniforms):
+    """``_gathered_core`` for P pairs of their own cohorts (P, kb) and E
+    (P,): the (pair, slot) pairs form one client axis of P·kb, pair-major,
+    each slot stepping under its pair's E mask."""
+    S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
+    P, kb = sel_idx.shape
+    seed_of = torch.arange(P, device=sel_idx.device) % S
+    ctx_c = {k: v[sel_idx.reshape(-1)] for k, v in ctx.items()}
+    folded = tuple(_fold(p, kb) for p in params)
+    do = _step_mask(e_max, e_steps, sel_idx.device).repeat_interleave(kb, 0)
+    # pair p's slots read seed p % S's full-M streams at its cohort
+    cohort_idx = idx.transpose(0, 1)[:, seed_of[:, None], sel_idx].reshape(
+        len(spec.phases), P * kb, e_max, B)
+    updated, phase_losses = _train_slots(spec, runners, folded, ctx_c, do,
+                                         cohort_idx, P)
+    weighted = {i: [{k: torch.bmm(sel_mask[:, None], v.reshape(P, kb, -1))
+                     .reshape(P, *v.shape[1:]) for k, v in p.items()}
+                    for p in u]
+                for i, u in updated.items()}
+    loss_sums = tuple((l * sel_mask).sum(1) for l in phase_losses)
+    return _finish(spec, params, updated, weighted, sel_mask.sum(1),
+                   loss_sums, qstate,
+                   None if uniforms is None else uniforms[seed_of], None, 1)
+
+
 def _check_on(device, **tensors) -> None:
     for name, t in tensors.items():
         if t.device != device:
@@ -412,10 +470,24 @@ def _check_idx(idx: torch.Tensor, shape: tuple) -> None:
                          f"{idx.dtype} {tuple(idx.shape)}")
 
 
-def _check_sel(sel_idx: torch.Tensor, sel_mask: torch.Tensor) -> None:
-    if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 \
+def _check_sel(sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps=None,
+               params=None, n_seeds: int = 0) -> None:
+    """A shared cohort (kb,); or, where ``params`` is given, P pairs'
+    cohorts (P, kb) with their E (P,), P a multiple of the seeds and the
+    params pair-stacked."""
+    pairs = params is not None and sel_idx.dim() == 2
+    if sel_idx.dtype != torch.int64 or sel_idx.dim() != 1 + pairs \
             or tuple(sel_mask.shape) != tuple(sel_idx.shape):
-        raise ValueError("sel_idx must be int64 (kb,) and sel_mask (kb,)")
+        raise ValueError("sel_idx must be int64 (kb,), or (P, kb) for "
+                         "pairs of their own cohorts, and sel_mask its shape")
+    if pairs:
+        P = sel_idx.shape[0]
+        if not isinstance(e_steps, torch.Tensor) \
+                or tuple(e_steps.shape) != (P,):
+            raise ValueError(f"{P} pairs need e_steps as a ({P},) tensor")
+        if P % n_seeds or params[0][0]["w"].shape[0] != P:
+            raise ValueError(f"{P} pairs need params stacked over {P} "
+                             f"pairs and a multiple of {n_seeds} seeds")
 
 
 def _check_quant(spec: FrameworkSpec, params, qstate, uniforms, lead,
@@ -479,6 +551,11 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     CUDA graph's operand): every one of the e_max steps runs its backward
     and the masked update.  The gathered round checks no index values
     (that would wait on the card); its callers check them on the host.
+    With ``sel_idx`` / ``sel_mask`` (P, kb) and ``e_steps`` a (P,) tensor,
+    P pairs (a multiple of S, variant-major) train their own cohorts for
+    their own E: the params, losses and qstate are pair-stacked, pair p
+    draws seed p % S's ``idx`` and uniforms (``_paired_core``); such a
+    round takes no fault channels and no guards.
 
     ``guards`` (a ``RoundGuards``) arms the in-round guards: the round then
     returns ``(params, losses, qstate, flags)`` with ``flags = {"skipped",
@@ -522,10 +599,13 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
         def round_fn(params: ParamsTuple, sel_idx, sel_mask, e_steps, idx,
                      qstate=(), uniforms=None, faults=None):
             _check_idx(idx, tuple(idx.shape[:1]) + idx_shape)
-            _check_sel(sel_idx, sel_mask)
+            _check_sel(sel_idx, sel_mask, e_steps, params, idx.shape[0])
             _check_on(x.device, idx=idx, sel_idx=sel_idx, sel_mask=sel_mask)
             _check_quant(spec, params, qstate, uniforms,
                          tuple(idx.shape[:1]), x.device)
+            if sel_idx.dim() == 2 and (with_faults or guards is not None):
+                raise ValueError("pairs of their own cohorts take no fault "
+                                 "channels and no guards")
             faults = check_faults(faults, sel_idx.shape[0])
             with torch.no_grad():
                 return _gathered_core(spec, runners, params, ctx, sel_idx,

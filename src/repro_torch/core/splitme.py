@@ -172,7 +172,10 @@ class SplitMeTrainer(_SerialTrainer):
     """Runs the full Algorithm 2 over the partitioned O-RAN dataset.
 
     ``device`` defaults to the card and raises where there is none.
-    ``params`` optionally gives the initial ``(w_c, w_s_inv)``.
+    ``interactive=True`` pulls each round's losses (and accuracy) to the
+    host as it ends; by default they stay device tensors until
+    ``fetch_history``.  ``params`` optionally gives the initial
+    ``(w_c, w_s_inv)``.
     ``index_source(round) -> (2, M, E_max, batch_size)`` int64 optionally
     gives each round's batch indices, ``uniform_source(round) -> (U,)`` f32
     the int8 uniforms (``engine.quant_uniforms``'s layout)."""
@@ -184,7 +187,7 @@ class SplitMeTrainer(_SerialTrainer):
                  temperature: float = 2.0, batch_size: int = 32,
                  e_initial: int = 20, gamma: float = 1e-3, seed: int = 0,
                  kernel_policy=None, comm_quant=None, scenario=None,
-                 *, device: DeviceLike = None,
+                 interactive: bool = False, *, device: DeviceLike = None,
                  params: Optional[Tuple[List[dict], List[dict]]] = None,
                  index_source: Optional[IndexSource] = None,
                  uniform_source: Optional[UniformSource] = None):
@@ -201,6 +204,7 @@ class SplitMeTrainer(_SerialTrainer):
                          batch_size=batch_size, policy=kernel_policy,
                          quant=comm_quant))
         self.gamma = gamma
+        self.interactive = interactive
         self._qstate = engine.init_quant_state(self._spec,
                                                (self.w_c, self.w_s_inv))
         self.E = e_initial
@@ -226,6 +230,8 @@ class SplitMeTrainer(_SerialTrainer):
                            self._qstate, uniforms)
         acc = (self._eval_fn((self.w_c, self.w_s_inv)) if eval_acc
                else float("nan"))
+        if self.interactive:
+            closs, sloss, acc = float(closs), float(sloss), float(acc)
         return self._metrics(a, b, client_loss=closs, server_loss=sloss,
                              accuracy=acc)
 

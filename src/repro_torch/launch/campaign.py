@@ -80,8 +80,12 @@ cohort), never O(population).  Its rounds run through the same scan (one
 graph a round shape plus the evaluation's), with each round's selected
 shards as one more operand (``_run_rounds_scan(data=)``).
 
-Not ported in this slice: ``mesh=`` (sharded rounds; raises) and config
-sweeps.
+Config sweeps (``run_config_sweep``): SystemParams variants of one client
+count train all their (variant, seed) pairs through the same scan, each
+pair with its own cohort and E in one gathered round a round shape, and
+one host transfer for the whole sweep.
+
+Not ported in this slice: ``mesh=`` (sharded rounds; raises).
 """
 from __future__ import annotations
 
@@ -317,16 +321,26 @@ def _round_shapes(sched: RoundSchedule, sp: SystemParams):
     """Each round's (cohort bucket, E bucket).  A round that selects no
     client gets a cohort of one padded slot (mask 0): it trains nothing
     and aggregates zeros, as the reference's empty cohort does."""
-    counts = sched.a.sum(axis=1).astype(int)
-    size_of = _bucket_cohorts(counts, sp.M)
-    e_of = _bucket_cohorts(sched.E, int(sp.E_max))
+    return _shape_buckets(sched.a.sum(axis=1), sched.E, sp.M,
+                          int(sp.E_max))
+
+
+def _shape_buckets(counts, es, M: int, e_cap: int):
+    """(cohort bucket, E bucket) of each round's cohort size and E."""
+    counts = np.asarray(counts).astype(int)
+    size_of = _bucket_cohorts(counts, M)
+    e_of = _bucket_cohorts(es, e_cap)
     return ([max(1, size_of[int(c)]) for c in counts],
-            [max(1, e_of[int(e)]) for e in sched.E])
+            [max(1, e_of[int(e)]) for e in es])
 
 
-def _cohort(a_r: np.ndarray, kb: int) -> Tuple[np.ndarray, int]:
+def _cohort(a_r: np.ndarray, kb: int):
     """Round r's selected clients padded to ``kb`` (pads index client 0
-    and carry mask 0) and their count."""
+    and carry mask 0) and their count; for (P, M) pairs' masks, (P, kb)
+    cohorts and (P,) counts."""
+    if a_r.ndim == 2:
+        sels, counts = zip(*(_cohort(a, kb) for a in a_r))
+        return np.stack(sels), np.asarray(counts, np.int64)
     sel = np.nonzero(a_r)[0]
     idx = np.zeros(kb, np.int64)
     idx[:len(sel)] = sel
@@ -584,6 +598,145 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     return result
 
 
+def run_config_sweep(framework: str, cfg: DNNConfig,
+                     system_params: Sequence[SystemParams],
+                     client_data: Dict[str, np.ndarray], *, rounds: int,
+                     seeds: Sequence[int], test_data=None,
+                     vmap_configs: bool = True, K: int = 10, E: int = 10,
+                     e_initial: int = 20, policy_seed: Optional[int] = None,
+                     eval_gamma: float = 1e-3,
+                     eval_every: Optional[int] = None, mesh=None,
+                     strict_transfers: bool = False, policy=None,
+                     quant=None, scenario=None, scenario_seed: int = 0,
+                     device: DeviceLike = None, params=None,
+                     index_source: Optional[IndexSource] = None,
+                     uniform_source: Optional[UniformSource] = None,
+                     _round_hook: Optional[Callable[[int], None]] = None,
+                     _graphs: bool = True,
+                     **hyper) -> List[CampaignResult]:
+    """Multi-config campaign over SystemParams variants: one
+    ``CampaignResult`` a variant, in order.
+
+    With ``vmap_configs=True`` (default) every variant's schedule is planned
+    on the host (``plan_schedule``, ``policy_seed`` default ``min(seeds)``)
+    and the V·S (variant, seed) pairs, variant-major, train through one
+    scan (``_run_rounds_scan``): a round's shape is the bucket of the
+    largest variant's cohort and of its largest E, and each pair trains its
+    own variant's cohort for its own E inside it (masked slots and steps are
+    exact no-ops).  The variants of a seed start from the same params and
+    share its batches and int8 uniforms, as the reference's variant-free key
+    chain does; each pair keeps its own error-feedback state.  The
+    evaluation (every ``eval_every`` rounds and the last) is one graph over
+    the pairs, and the metrics of the whole sweep come back in one host
+    transfer.  Every variant must have the sweep's client count M, and a
+    fault scenario or ``mesh`` raise ``ValueError`` here.
+    ``vmap_configs=False`` runs one ``run_campaign`` a variant (``mesh``
+    then reaches its error).
+
+    The port's keywords are ``run_campaign``'s: ``device``, ``params`` (one
+    tuple a seed, shared by the variants), ``index_source(i, r, e_bucket)``
+    (seed i's batch indices of round r at the sweep's E bucket),
+    ``uniform_source(i, r)``, ``_round_hook`` and ``_graphs``.  By default
+    each seed's generator draws its weights and then, round by round, its
+    indices at the sweep's E buckets, so a variant's batches are not those
+    of its own ``run_campaign``, which draws at its own buckets; an
+    ``index_source`` whose E-bucket draws are prefixes of one another (the
+    reference's key chains are) gives both the same batches."""
+    if not vmap_configs:
+        return [run_campaign(framework, cfg, sp, client_data, rounds=rounds,
+                             seeds=seeds, test_data=test_data, K=K, E=E,
+                             e_initial=e_initial, policy_seed=policy_seed,
+                             eval_gamma=eval_gamma, eval_every=eval_every,
+                             mesh=mesh, strict_transfers=strict_transfers,
+                             policy=policy, quant=quant, scenario=scenario,
+                             scenario_seed=scenario_seed, device=device,
+                             params=params, index_source=index_source,
+                             uniform_source=uniform_source,
+                             _round_hook=_round_hook, _graphs=_graphs,
+                             **hyper)
+                for sp in system_params]
+    if mesh is not None:
+        raise ValueError("mesh (sharded rounds) requires vmap_configs=False")
+    dev = resolve_device(device)
+    x = torch.as_tensor(client_data["x"], dtype=torch.float32, device=dev)
+    y = torch.as_tensor(client_data["y"], dtype=torch.int64, device=dev)
+    M, n_m = int(x.shape[0]), int(x.shape[1])
+    if policy_seed is None:
+        policy_seed = min(seeds)
+    planned = [plan_schedule(framework, sp, cfg, rounds, K=K, E=E,
+                             e_initial=e_initial, policy_seed=policy_seed,
+                             n_samples_per_client=n_m, quant=quant,
+                             scenario=scenario, scenario_seed=scenario_seed)
+               for sp in system_params]
+    for sp_d, _ in planned:
+        if sp_d.M != M:
+            raise ValueError(f"all SystemParams variants must have M={M} "
+                             f"to share one schedule shape")
+    scheds = [sch for _, sch in planned]
+    for sch in scheds:
+        if sch.trace is not None and sch.trace.has_faults():
+            raise ValueError("fault-injection scenarios are not supported "
+                             "by the vmapped config sweep; use "
+                             "vmap_configs=False (per-variant campaigns)")
+    V, S = len(planned), len(seeds)
+    spec = engine.make_spec(framework, cfg, masked_loss_metric=True,
+                            policy=policy, quant=quant, device=dev, **hyper)
+    # each round's shape: the largest variant's cohort and E, bucketed
+    a_v = np.stack([sch.a for sch in scheds], 1)             # (R, V, M)
+    e_v = np.stack([sch.E for sch in scheds], 1)             # (R, V)
+    kb_r, eb_r = _shape_buckets(
+        a_v.sum(-1).max(1), e_v.max(1), M,
+        max(int(sp_d.E_max) for sp_d, _ in planned))
+    pairs = RoundSchedule(a=np.repeat(a_v, S, 1),
+                          b=np.repeat(np.stack([sch.b for sch in scheds], 1),
+                                      S, 1),
+                          E=np.repeat(e_v, S, 1))
+    params, _, indices, uniforms = _initial_state(
+        spec, seeds, params, index_source, uniform_source, eb_r, M, n_m, dev)
+    params = quantcomm.tree_map(
+        lambda v: v.repeat((V,) + (1,) * (v.dim() - 1)), params)
+    qstate = engine.init_quant_state(spec, params)
+    fns = {s: engine.build_round_fn(spec, cfg, x, y, e_max=s[1], gather=True)
+           for s in dict.fromkeys(zip(kb_r, eb_r))}
+    eval_fn = None
+    do_eval = np.zeros(rounds, bool)
+    if test_data is not None:
+        eval_fn = engine.build_eval_fn(
+            spec, cfg,
+            torch.as_tensor(test_data[0], dtype=torch.float32, device=dev),
+            torch.as_tensor(test_data[1], dtype=torch.int64, device=dev),
+            gamma=eval_gamma,
+            client_data={"x": x, "y": y} if framework == "splitme" else None)
+        if eval_every:
+            do_eval[eval_every - 1::eval_every] = True
+        do_eval[rounds - 1] = True
+    params, buffers, clock, graphs = _run_rounds_scan(
+        fns, pairs, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
+        eval_fn, strict=strict_transfers, round_hook=_round_hook,
+        capture=_graphs)
+    host = _host_fetch(buffers)            # THE per-sweep transfer
+    round_ms = clock.round_ms()
+    results = []
+    for v, (sp_d, sched) in enumerate(planned):
+        part = slice(v * S, (v + 1) * S)
+        losses = np.transpose(host["loss"][:, part], (1, 0, 2))
+        acc_rounds = host["acc"][:, part] if "acc" in host else None
+        comm, nsel, sim, cost, energy = _schedule_system_metrics(
+            spec, sched, sp_d)
+        res = CampaignResult(
+            framework=framework, seeds=tuple(seeds), schedule=sched,
+            params=quantcomm.tree_map(lambda t: t[part], params),
+            losses=losses,
+            metrics=_make_metrics(sched, comm, nsel, sim, cost, energy,
+                                  losses, acc_rounds),
+            accuracy_per_round=acc_rounds, round_ms=round_ms, graphs=graphs,
+            qstate=quantcomm.tree_map(lambda t: t[part], qstate))
+        if acc_rounds is not None:
+            res.accuracy = acc_rounds[rounds - 1]
+        results.append(res)
+    return results
+
+
 def _check_checkpoint_args(checkpoint_every, checkpoint_dir, resume,
                            strict_transfers: bool) -> None:
     if not (checkpoint_every or checkpoint_dir is not None or resume):
@@ -710,29 +863,34 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
     cohort data, ``(x (kb, n, d) f32, y (kb, n) int)`` for its kb slots:
     the labels ride at the end of the round's int64 row, the features in
     one f32 operand a shape, and the rounds are ``build_cohort_round_fn(
-    gather=True)``'s, which take them first."""
+    gather=True)``'s, which take them first.  A ``sched`` whose ``a`` is
+    (R, P, M) and ``E`` (R, P) gives P pairs their own cohorts and E (the
+    config sweep; ``params`` pair-stacked, ``indices`` per seed)."""
     dev = params[0][0]["w"].device
     R = sched.rounds
     S, n_ph, M, _, B = indices[0].shape
+    L = params[0][0]["w"].shape[0]             # seeds, or (variant, seed)
+    P = L if sched.a.ndim == 3 else 0
     cuda = dev.type == "cuda"
     graphed = cuda and capture
     # every tensor a round writes and the next reads: the params and the
     # error-feedback state
     state = ([v for ps in params for p in ps for v in p.values()]
              + quantcomm.tree_leaves(qstate))
-    buffers = {"loss": torch.full((R, S, n_ph), float("nan"), device=dev)}
+    buffers = {"loss": torch.full((R, L, n_ph), float("nan"), device=dev)}
     if eval_fn is not None:
-        buffers["acc"] = torch.full((R, S), float("nan"), device=dev)
+        buffers["acc"] = torch.full((R, L), float("nan"), device=dev)
     if guards is not None:
-        buffers["skipped"] = torch.zeros((R, S), device=dev)
-        buffers["quorum"] = torch.zeros((R, S), device=dev)
+        buffers["skipped"] = torch.zeros((R, L), device=dev)
+        buffers["quorum"] = torch.zeros((R, L), device=dev)
     r_slot = torch.zeros(1, dtype=torch.int64, device=dev)
     start = _restore(ckpt, params, qstate, buffers)
 
     # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices,
-    # and in population mode the cohort's labels (kb·n)]; with faults one
-    # f32 row: [crash, poison (kb), wire gain (kb)]; in population mode the
-    # cohort's features, one (kb, n, d) f32 slice a round
+    # and in population mode the cohort's labels (kb·n)], for pairs [r, E
+    # (P), |A_t| (P), cohorts (P·kb), indices]; with faults one f32 row:
+    # [crash, poison (kb), wire gain (kb)]; in population mode the cohort's
+    # features, one (kb, n, d) f32 slice a round
     shapes = list(dict.fromkeys(zip(kb_r, eb_r)))
     rows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
     frows: Dict[Tuple[int, int], list] = {s: [] for s in shapes}
@@ -741,8 +899,10 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
     for r in range(R):
         s = (kb_r[r], eb_r[r])
         sel, k = _cohort(sched.a[r], s[0])
-        row = [torch.tensor([r, int(sched.E[r]), k]), torch.from_numpy(sel),
-               indices[r].reshape(-1)]
+        row = [torch.tensor([r]),
+               torch.from_numpy(np.asarray(sched.E[r], np.int64).reshape(-1)),
+               torch.from_numpy(np.asarray(k, np.int64).reshape(-1)),
+               torch.from_numpy(sel.reshape(-1)), indices[r].reshape(-1)]
         if data is not None:
             drows[s].append(torch.from_numpy(
                 np.ascontiguousarray(data[r][0], np.float32)))
@@ -780,13 +940,20 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
         fn, op = fns[s], ops[s]
         fop = fops[s] if fops is not None else None
 
-        end = 3 + kb + S * n_ph * M * eb * B
+        head = 1 + 2 * P + P * kb if P else 3 + kb
+        end = head + S * n_ph * M * eb * B
 
         def body():
             r = op[0:1]
-            mask = (torch.arange(kb, device=dev) < op[2]).float()
-            args = (params, op[3:3 + kb], mask, op[1],
-                    op[3 + kb:end].view(S, n_ph, M, eb, B), qstate, uop)
+            if P:
+                mask = (torch.arange(kb, device=dev)
+                        < op[1 + P:1 + 2 * P, None]).float()
+                sel, e = op[1 + 2 * P:head].view(P, kb), op[1:1 + P]
+            else:
+                mask = (torch.arange(kb, device=dev) < op[2]).float()
+                sel, e = op[3:3 + kb], op[1]
+            args = (params, sel, mask, e,
+                    op[head:end].view(S, n_ph, M, eb, B), qstate, uop)
             if dops is not None:
                 args = (params, dops[s], op[end:].view(kb, -1)) + args[1:]
             if with_faults:
@@ -818,7 +985,7 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
 
     def eval_body():
         acc = torch.stack([eval_fn(_seed_params(params, i))
-                           for i in range(S)])
+                           for i in range(L)])
         buffers["acc"].index_copy_(0, r_slot, acc[None])
 
     bodies = {s: round_body(s) for s in shapes}

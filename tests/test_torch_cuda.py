@@ -51,10 +51,11 @@ def _normal(seed, shape, device, scale=1.0):
 
 # (rows, d) of the KL kernels: the main path's (50 clients x 32 rows of
 # 256), a ragged width, single floats (d % 4 != 0), 32 values a lane (d
-# 1000), a row streamed (d > 1024), and the campaign's cohorts of 32 and 50
-# clients x 4 seeds x 32 rows
+# 1000), a row streamed (d > 1024), the campaign's cohorts of 32 and 50
+# clients x 4 seeds x 32 rows, and the config sweep's 16 pairs x 50 slots x
+# 32 rows
 _KL_SHAPES = [(1600, 256), (1000, 200), (7, 3), (33, 1000), (5, 5000),
-              (4096, 256), (6400, 256)]
+              (4096, 256), (6400, 256), (25600, 256)]
 
 
 def _off_alignment(t, offset):
@@ -130,7 +131,9 @@ def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-@pytest.mark.parametrize("rows,d", _KL_SHAPES + [(100, 37)])
+# the f32 shapes but the config sweep's (no bf16 path gives it) and a
+# width with d % 8 != 0
+@pytest.mark.parametrize("rows,d", _KL_SHAPES[:-1] + [(100, 37)])
 @pytest.mark.parametrize("tx,ty", _KL_PAIRS)
 @pytest.mark.parametrize("x_offset", [0, 1])
 def test_kl_mixed_kernels_match_plain(cuda, rows, d, tx, ty, x_offset):
@@ -1068,3 +1071,90 @@ def test_population_resume_on_the_card_is_bit_exact(cuda, tmp_path):
     _same_guarded(res, ref)
     assert [repr(m) for m in res.metrics] == [repr(m) for m in ref.metrics]
     assert np.isnan(res.round_ms[:4]).all() and res.graphs["graphs"] > 0
+
+
+# the config sweep: (variant, seed) pairs of their own cohorts and E
+# ---------------------------------------------------------------------------
+
+_SWEEP_B = (0.5e9, 1e9, 2e9)
+
+
+def _sweep(name, cd, device, **kw):
+    kw = dict(dict(rounds=4, seeds=(0, 1)), **kw)
+    return campaign.run_config_sweep(
+        name, DNN10, [SystemParams(M=12, seed=0, B=b) for b in _SWEEP_B], cd,
+        device=device, **kw)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("splitme", {}), ("oranfed", dict(E=3)),
+    ("fedavg", dict(_BASELINES["fedavg"][1], quant="int8"))],
+    ids=["splitme", "oranfed", "fedavg-int8"])
+def test_sweep_graphed_equals_uncaptured(cuda, name, kw):
+    """The sweep on the card (strict transfers, one host transfer, one
+    graph a round shape and one for the evaluation over the pairs) equals
+    the same bodies run uncaptured bit for bit, each variant's params,
+    losses, error-feedback state and accuracy; SplitMe's launches its
+    KL and Gram kernels."""
+    cd, test = _campaign_data()
+    kw = dict(kw, test_data=test, eval_every=2, eval_gamma=10.0)
+    kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+    campaign.HOST_TRANSFERS = 0
+    g = _sweep(name, cd, cuda, strict_transfers=True, **kw)
+    assert campaign.HOST_TRANSFERS == 1
+    launched = (kl_ops.launches, kl_ops.launches_bwd, rg_ops.launches)
+    assert all(launched) if name == "splitme" else not any(launched)
+    assert g[0].graphs["graphs"] == len(g[0].graphs["shapes"]) + 1
+    u = _sweep(name, cd, cuda, _graphs=False, **kw)
+    assert u[0].graphs["graphs"] == 0
+    for a, b in zip(g, u):
+        _same_campaigns(a, b)
+        np.testing.assert_array_equal(a.accuracy_per_round,
+                                      b.accuracy_per_round)
+
+
+@pytest.mark.parametrize("name,kw,rounds", [("splitme", {}, 3),
+                                            ("oranfed", dict(E=3), 2)])
+def test_sweep_on_card_matches_cpu(cuda, name, kw, rounds):
+    """The sweep on the card against the CPU on the same draws over its
+    first rounds, by ``chip_smoke.py`` phase 3d's gates: losses at 1e-5,
+    params at 1e-5 but for the weights of at most 4 hidden units a seed,
+    within 1e-4, accuracy within one test sample.  SplitMe over 3 rounds;
+    O-RANFed over 2, as test_graphed_baseline_campaign_equals_eager_and_cpu
+    holds the baselines: on an H100 its own campaign at B 2e9, outside the
+    sweep, parted from the CPU by 2.3e-5 (3 hidden units) after 2 rounds
+    and 1.6e-4 (6 units) after 3."""
+    cd, test = _campaign_data()
+    kw = dict(kw, rounds=rounds, test_data=test, eval_every=1,
+              eval_gamma=10.0)
+    card = _sweep(name, cd, cuda, **kw)
+    cpu = _sweep(name, cd, "cpu", **kw)
+    for g, c in zip(card, cpu):
+        np.testing.assert_array_equal(g.schedule.a, c.schedule.a)
+        np.testing.assert_allclose(g.losses, c.losses, rtol=0, atol=1e-5)
+        for i in range(2):
+            assert _flipped_units(g.params_for(i), c.params_for(i)) <= 4
+            for pg, pc in zip(quantcomm.tree_leaves(g.params_for(i)),
+                              quantcomm.tree_leaves(c.params_for(i))):
+                torch.testing.assert_close(pg.cpu(), pc, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g.accuracy_per_round,
+                                   c.accuracy_per_round, rtol=0,
+                                   atol=1.0 / len(test[1]) + 1e-9)
+
+
+def test_int8_sweep_on_card_matches_cpu(cuda):
+    """FedAvg's sweep on the int8 wire (a scale and an error-feedback state
+    a pair) on the card against the CPU: params and losses at the wire's
+    6e-2, as the population campaign's card test holds them (a last-bit
+    difference moves a stochastic rounding by a grid step: on an H100 one
+    step of the first layer, 8.3e-3, after the first round)."""
+    cd, test = _campaign_data()
+    kw = dict(_BASELINES["fedavg"][1], quant="int8", rounds=3)
+    card = _sweep("fedavg", cd, cuda, **kw)
+    cpu = _sweep("fedavg", cd, "cpu", **kw)
+    for g, c in zip(card, cpu):
+        assert len(quantcomm.tree_leaves(g.qstate)) > 0
+        np.testing.assert_allclose(g.losses, c.losses, rtol=0, atol=6e-2)
+        for a, b in zip(quantcomm.tree_leaves(g.params),
+                        quantcomm.tree_leaves(c.params)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=6e-2)

@@ -51,7 +51,8 @@ def test_port_files_exist():
                  "kernels/flash_attention/ref.py", "launch/campaign.py",
                  "core/quantcomm.py", "core/baselines.py",
                  "core/scenario.py", "checkpoint/io.py",
-                 "launch/resilience.py", "core/population.py"):
+                 "launch/resilience.py", "core/population.py",
+                 "examples/oran_splitfl_campaign.py", "examples/quickstart.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
@@ -129,6 +130,34 @@ def test_population_campaign_without_device_needs_a_card():
                                   Population(10 ** 6), pool, device="cpu",
                                   **kw)
     assert res.params[0][0]["w"].device.type == "cpu"
+
+
+def test_config_sweep_without_device_needs_a_card():
+    from repro_torch.configs.splitme_dnn import DNNConfig
+    from repro_torch.core.cost import SystemParams
+    from repro_torch.launch.campaign import run_config_sweep
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cfg, sp, clients, test = _tiny_trainer_args()
+    sps = [sp, SystemParams(M=4, E_max=2, B=2e9)]
+    kw = dict(rounds=1, seeds=(0,), K=2, E=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_config_sweep("fedavg", cfg, sps, clients, **kw)
+    res = run_config_sweep("fedavg", cfg, sps, clients, device="cpu", **kw)
+    assert [r.params[0][0]["w"].device.type for r in res] == ["cpu", "cpu"]
+
+
+def test_examples_without_device_need_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for name, argv in (("quickstart", ["--rounds", "1"]),
+                       ("oran_splitfl_campaign", ["--rounds", "1"])):
+        out = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+            env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert "device='cpu'" in out.stderr
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])

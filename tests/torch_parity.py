@@ -112,6 +112,31 @@ class CampaignIndexReplay:
             sub, *self.shape, e_max, self.B, self.n))
 
 
+class CampaignIndexTable:
+    """``index_source`` with the draws of ``CampaignIndexReplay``, callable
+    in any order and again (the round keys are split once, up front): a
+    config sweep and its per-variant campaigns, which draw the same rounds
+    at different E buckets, read one table.  An E-bucket draw is the
+    prefix of a longer one, as the reference's step keys are split one
+    after another."""
+
+    def __init__(self, seeds, rounds: int, M: int, B: int, n: int,
+                 n_phases: int = 2):
+        self.subs = []
+        for s in seeds:
+            key, subs = jax.random.PRNGKey(s), []
+            for _ in range(rounds):
+                key, sub = jax.random.split(key)
+                subs.append(sub)
+            self.subs.append(subs)
+        self.shape = (n_phases, M)
+        self.B, self.n = B, n
+
+    def __call__(self, i: int, round_idx: int, e_max: int) -> torch.Tensor:
+        return torch.from_numpy(replay_round_indices(
+            self.subs[i][round_idx], *self.shape, e_max, self.B, self.n))
+
+
 # the reference's quantization salt (``repro.core.engine._QSALT``)
 QSALT = 0x5157
 

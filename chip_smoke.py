@@ -69,18 +69,18 @@ failure ends the run with a non-zero exit code:
    campaign, the idle share and the operations a round;
 3d. the paper's framework comparison: the five baselines (FedAvg, SFL,
    O-RANFed, FedORA, EcoFL) as ``examples/oran_splitfl_campaign.py --seeds 4
-   --baselines`` runs them, 60 rounds of 4 seeds each: graphed (strict
-   transfers, one host transfer) against eager bit for bit, against the CPU
-   over the first rounds (the trajectories part by chaos later: FedAvg's
-   whole-campaign difference is printed beside the card's own under a
-   one-ulp change of the initial weights), the steady round graphed and
-   eager, the whole campaign, the idle share and operations a round, final
+   --baselines`` runs them, 30 of its 60 rounds of 4 seeds each: graphed
+   (strict transfers, one host transfer) against eager bit for bit, against
+   the CPU over the first rounds (the trajectories part by chaos later:
+   FedAvg's whole-campaign difference is printed beside the card's own
+   under a one-ulp change of the initial weights), the steady round graphed
+   and eager, the whole campaign, the idle share and operations a round, final
    accuracy, comm, sim time and cost; FedAvg under the bf16 policy and the
    int8 wire too, and the bf16 policy against the CPU's three-round rule
    beside what a one-ulp change of the initial weights does; the KL and
    Gram counters stay 0 through all of it;
 3e. a time-varying RAN: SplitMe under ``straggler:0.4`` (30 rounds) and
-   FedORA under ``fading`` (60 rounds), 4 seeds each, graphed against eager
+   FedORA under ``fading`` (30 rounds), 4 seeds each, graphed against eager
    bit for bit and against the CPU, with their round shapes, graphs,
    capture seconds and whole campaigns;
 3f. fault channels and guards: the campaign of 3b under ``faults:0.3``
@@ -117,12 +117,23 @@ failure ends the run with a non-zero exit code:
    uncaptured bit for bit, the steady round's ms, operations, idle share
    and in-graph KL and Gram launches, the whole sweep beside its four
    ``vmap_configs=False`` campaigns, the device peak; the sweep against
-   its per-variant campaigns on draws both read alike, and against the CPU
-   over its first rounds by 3d's gates;
+   its per-variant campaigns on the default draws and on draws both read
+   alike, and against the CPU over its first rounds by 3d's gates;
+3k. the sharded campaign: the campaign of 3b under a 1-shard NCCL mesh
+   (``run_campaign(mesh=)``, a process group of this process): graphed
+   against the same round bodies uncaptured bit for bit and against 3b's
+   gathered campaign, its one all-reduce a round and one a server layer an
+   evaluation (the counter uncaptured; the all-reduce's kernel and the KL
+   and Gram launches inside the graphs by the profiler), its steady round's
+   ms and operations beside 3b's; then a job of 4 ranks
+   on this one card over gloo, uncaptured
+   (``scripts/chip_sharded_check_torch.py --backend gloo --quick``): the six
+   frameworks' sharded round and a short sharded campaign against the
+   single-device port (it runs after 3i, before 3j);
 3j. the port's entry points: the README's four command lines through
    ``repro_torch.examples.oran_splitfl_campaign.main(argv)`` on the card,
    in this process (the resumable line twice: the rerun resumes; the
-   serial line's five baseline trainers at 10 of their 60 rounds), each
+   serial line's five baseline trainers at 5 of their 60 rounds), each
    printing the reference's lines;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
@@ -413,7 +424,8 @@ def step4_vs_plain(torch, port, trainer, gamma):
 # well-conditioned CMP_EVAL_GAMMA (at the default 1e-3 the f32 ridge is
 # ill-conditioned: its accuracy difference is printed, not checked)
 CAMPAIGN_ROUNDS, CAMPAIGN_SEEDS, CAMPAIGN_EVAL_EVERY = 30, (0, 1, 2, 3), 10
-CAMPAIGN_TURNS = 3
+# 2 turns since phase 3k (3 before): the script's time
+CAMPAIGN_TURNS = 2
 PROFILE_STEADY, PROFILE_EVAL = range(10, 19), 19
 CMP_EVAL_GAMMA, CMP_ACC_SAMPLES = 10.0, 1
 CAMPAIGN_KERNELS = {"kl_mutual": ("kl_rows_kernel", "kl_rows_online_kernel"),
@@ -916,7 +928,8 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
 
 # the paper's framework comparison (phase 3d): the five baselines as
 # examples/oran_splitfl_campaign.py --seeds 4 --baselines runs them
-# (:194-200): per-framework K and E, its 60 baseline rounds, 4 seeds,
+# (:194-200): per-framework K and E, BASELINE_ROUNDS of its 60 baseline
+# rounds, 4 seeds,
 # SystemParams(seed=0), DNN10 at full width, the data of phase 3b; the
 # full-model evaluation (no ridge solve) every 10 rounds and after the last.
 # Each: graphed (strict transfers, one transfer) against eager bit for bit,
@@ -926,9 +939,9 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
 # round within CMP_ACC_SAMPLES test samples).  The baselines' SGD on the
 # whole DNN10 amplifies a difference in the last bit round after round (on
 # an H100 a 1-ulp change of every initial weight moved FedAvg's own params
-# by 1.0e-1 over the 60 rounds, the card and the CPU parted by 2.8e-2,
+# by 1.0e-1 over 60 rounds, the card and the CPU parted by 2.8e-2,
 # after agreeing to 3e-7 over 3), so no two summation orders agree at
-# 1e-5 over 60 rounds: for FedAvg the whole campaign's card vs CPU
+# 1e-5 over many rounds: for FedAvg the whole campaign's card vs CPU
 # difference is printed beside the card's own under that 1-ulp change.
 # FedAvg also runs one turn under BASELINE_VARIANTS: (name, options, the
 # bound of phase 3c, the rounds it is held over); the bf16 policy's round
@@ -938,9 +951,12 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
 BASELINES = (("fedavg", {"K": 10, "E": 10}), ("sfl", {"K": 20, "E": 14}),
              ("oranfed", {"E": 10}), ("fedora", {"E": 10}),
              ("ecofl", {"K": 10, "E": 10}))
-BASELINE_ROUNDS = 60
+# 30 of the example's 60 rounds since phase 3k (60 before; the script's
+# time): the steady shapes and profiled windows of the five are those of
+# the 60-round plan, whose first 30 rounds these are
+BASELINE_ROUNDS = 30
 # one turn, where 3b takes three: the phase is the script's longest (5
-# frameworks x 60 rounds, graphed and eager, each turn)
+# frameworks x 30 rounds, graphed and eager, each turn)
 BASELINE_TURNS = 1
 BASELINE_CMP_ROUNDS = 3
 # O-RANFed's cohort changes nearly every round: its most frequent round
@@ -2059,12 +2075,13 @@ def population_phase(torch, port, data, test, base):
 # bandwidths SWEEP_B (Table III's B halved, kept and doubled twice), seeds
 # 0-3, Step 4 every 10 rounds and after the last at gamma 10: 16 (variant,
 # seed) pairs in one scan, each pair training its own cohort for its own E
-# in the round of the largest ones; SWEEP_TURNS timed turns of the sweep
-# and of its four vmap_configs=False campaigns on draws both read alike
-# (prefix_index_source), the first turn's held together at the
-# reference test's bounds (tests/test_campaign.py: losses 1e-5, accuracy
-# 1e-6, comm_bits exactly, params 2e-3), and against the CPU over its
-# first BASELINE_CMP_ROUNDS rounds by phase 3d's gates
+# in the round of the largest ones; held against its four
+# vmap_configs=False campaigns on the default draws, then SWEEP_TURNS timed
+# turns of both on draws both read alike (prefix_index_source), the first
+# turn's held together, each at the reference test's bounds
+# (tests/test_campaign.py: losses 1e-5, accuracy 1e-6, comm_bits exactly,
+# params 2e-3), and against the CPU over its first BASELINE_CMP_ROUNDS
+# rounds by phase 3d's gates
 SWEEP_B = (0.5e9, 1e9, 2e9, 4e9)
 SWEEP_LOSS_TOL, SWEEP_ACC_TOL, SWEEP_PARAM_TOL = 1e-5, 1e-6, 2e-3
 SWEEP_TURNS = 1
@@ -2084,6 +2101,28 @@ def prefix_index_source(torch, seeds, M: int, B: int, n: int,
                 (int(seeds[i]) * 10 ** 4 + r) * 100 + j))
             for j in range(eb)], 2)
     return source
+
+
+def sweep_vs_campaigns(sweep, serial, label):
+    """A sweep's results against its per-variant campaigns at the
+    reference test's bounds; the largest param, loss and final accuracy
+    differences."""
+    import numpy as np
+    perr = lerr = aerr = 0.0
+    comm = True
+    for a, b in zip(sweep, serial):
+        p, l = campaign_max_diff(a, b)
+        perr, lerr = max(perr, p), max(lerr, l)
+        aerr = max(aerr, float(np.abs(a.accuracy - b.accuracy).max()))
+        comm = comm and [m.comm_bits for m in a.metrics] == [
+            m.comm_bits for m in b.metrics]
+    print(f"{label}: max param diff {perr:.3e} (tol {SWEEP_PARAM_TOL}), loss "
+          f"{lerr:.3e} (tol {SWEEP_LOSS_TOL}), final accuracy {aerr:.3e} "
+          f"(tol {SWEEP_ACC_TOL}), comm_bits equal {comm}")
+    check(perr <= SWEEP_PARAM_TOL and lerr <= SWEEP_LOSS_TOL
+          and aerr <= SWEEP_ACC_TOL and comm,
+          f"{label}: the sweep and its per-variant campaigns disagree")
+    return perr, lerr, aerr
 
 
 def sweep_phase(torch, port, clients, test, base):
@@ -2145,6 +2184,11 @@ def sweep_phase(torch, port, clients, test, base):
     for b, r, u in zip(SWEEP_B, res, unc):
         graphed_vs_eager(torch, port, r, u, f"{label}, B {b:.1e}",
                          "uncaptured")
+    # on the default draws too: each pair reads its variant's own campaign's
+    # batches (ROADMAP C 6)
+    sweep_vs_campaigns(res, run(vmap_configs=False),
+                       f"{label} vs its vmap_configs=False campaigns (card, "
+                       f"graphed, default draws)")
 
     # the steady round and the whole sweep beside its four per-variant
     # campaigns, in SWEEP_TURNS turns on draws both read alike
@@ -2172,23 +2216,9 @@ def sweep_phase(torch, port, clients, test, base):
               f"{s_whole[-1] / whole[-1]:.3f}x of rounds, "
               f"{s_calls[-1] / calls[-1]:.3f}x of calls")
         if turn == 0:
-            perr = lerr = aerr = 0.0
-            comm = True
-            for a, b in zip(vm, se):
-                p, l = campaign_max_diff(a, b)
-                perr, lerr = max(perr, p), max(lerr, l)
-                aerr = max(aerr, float(np.abs(a.accuracy - b.accuracy).max()))
-                comm = comm and [m.comm_bits for m in a.metrics] == [
-                    m.comm_bits for m in b.metrics]
-            print(f"{label} vs its vmap_configs=False campaigns (card, "
-                  f"graphed, prefix-consistent draws): max param diff "
-                  f"{perr:.3e} (tol {SWEEP_PARAM_TOL}), loss {lerr:.3e} (tol "
-                  f"{SWEEP_LOSS_TOL}), final accuracy {aerr:.3e} (tol "
-                  f"{SWEEP_ACC_TOL}), comm_bits equal {comm}")
-            check(perr <= SWEEP_PARAM_TOL and lerr <= SWEEP_LOSS_TOL
-                  and aerr <= SWEEP_ACC_TOL and comm,
-                  f"{label}: the sweep and its per-variant campaigns "
-                  f"disagree")
+            perr, lerr, aerr = sweep_vs_campaigns(
+                vm, se, f"{label} vs its vmap_configs=False campaigns (card, "
+                f"graphed, prefix-consistent draws)")
         del vm, se
     got = profiled_windows(torch, run, {"steady": window,
                                         "eval": [eval_round]})
@@ -2272,13 +2302,204 @@ def sweep_phase(torch, port, clients, test, base):
     return out, graph_launches
 
 
+# the sharded campaign (phase 3k): the campaign of phase 3b (kw of 3b's
+# card-vs-CPU run: Step 4 at CMP_EVAL_GAMMA) under a 1-shard NCCL mesh, a
+# process group of this process alone: graphed (strict transfers, one host
+# transfer) against the same round bodies uncaptured bit for bit, against
+# 3b's gathered campaign within CARD_CPU_TOL (params, losses) and
+# CMP_ACC_SAMPLES (accuracy); its steady rounds and an evaluating round
+# profiled (beside 3b's gathered steady round): operations, the
+# all-reduce's kernels (at most one a round and one a server layer an
+# evaluation; none with one rank, NCCL_KERNELS) and the KL and Gram
+# launches inside the graphs.  Then a job of SHARDED_RANKS ranks on this
+# one card over gloo (NCCL refuses two ranks on one card), uncaptured:
+# scripts/chip_sharded_check_torch.py --backend gloo --quick, the six
+# frameworks' round and a short campaign against the single-device port
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT_S = 400
+# the all-reduce's device kernels by name (ncclDevKernel_…): a one-rank
+# NCCL all-reduce in place launches none (NVIDIA H100, NCCL 2.28.9: the
+# profiler sees no kernel of it), so here the all-reduce is counted by
+# engine.ALL_REDUCES uncaptured, and its kernel on several cards by
+# scripts/chip_sharded_check_torch.py
+NCCL_KERNELS = ("nccl",)
+
+
+def nccl_window(evts, rounds: int):
+    """The all-reduce's kernels of a profiled window: launches a round,
+    device µs a round, names."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    hit = [e for e in evts if dev_us(e) > 0
+           and any(k in e.key.lower() for k in NCCL_KERNELS)]
+    return (sum(e.count for e in hit) / rounds,
+            sum(dev_us(e) for e in hit) / rounds,
+            sorted({e.key[:60] for e in hit}))
+
+
+def sharded_phase(torch, port, sp, clients, test, base):
+    """Phase 3k; ``base`` is phase 3b's summary.  Returns its numbers and
+    the in-graph launches of the main-path kernels under the mesh."""
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    camp, eng = port.campaign, port.engine
+    kl_ops, rg_ops = port.kl_ops, port.rg_ops
+    S, n_test = len(CAMPAIGN_SEEDS), len(test[1])
+    kw = dict(rounds=CAMPAIGN_ROUNDS, seeds=CAMPAIGN_SEEDS, test_data=test,
+              device="cuda", eval_every=CAMPAIGN_EVAL_EVERY,
+              eval_gamma=CMP_EVAL_GAMMA)
+    label = "sharded campaign (1-shard NCCL mesh)"
+    evals = [r for r in range(CAMPAIGN_ROUNDS)
+             if not (r + 1) % CAMPAIGN_EVAL_EVERY or r == CAMPAIGN_ROUNDS - 1]
+
+    def run(**more):
+        return camp.run_campaign("splitme", port.DNN10, sp, clients,
+                                 **dict(kw, **more))
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/pg",
+                                world_size=1, rank=0)
+        try:
+            mesh = port.meshes.make_client_mesh(1)
+            kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+            camp.HOST_TRANSFERS = 0
+            res, call_ms = timed(torch, lambda: run(mesh=mesh,
+                                                    strict_transfers=True))
+            counters = {"kl_mutual": kl_ops.launches,
+                        "kl_mutual (backward)": kl_ops.launches_bwd,
+                        "ridge_gram": rg_ops.launches}
+            check(camp.HOST_TRANSFERS == 1,
+                  f"{label}: {camp.HOST_TRANSFERS} host transfers")
+            check(all(v > 0 for v in counters.values()),
+                  f"{label}: a kernel of the path never launched "
+                  f"{counters}")
+            shapes = res.graphs["shapes"]
+            check(res.graphs["graphs"] == len(shapes) + 1,
+                  f"{label}: one graph per shape + eval")
+            check(all(kb == sp.M for kb, _ in shapes),
+                  f"{label}: shapes {sorted(shapes)} do not train the "
+                  f"full masked M {sp.M}")
+            a0 = eng.ALL_REDUCES
+            unc = run(mesh=mesh, _graphs=False)
+            n_ar = eng.ALL_REDUCES - a0
+            check(n_ar == CAMPAIGN_ROUNDS + 8 * len(evals),
+                  f"{label}: {n_ar} all-reduces uncaptured, want one a "
+                  f"round and one a server layer an evaluation")
+            graphed_vs_eager(torch, port, res, unc, label, "uncaptured")
+            gathered = run()
+            perr, lerr = campaign_max_diff(res, gathered)
+            acc_a, acc_b = res.accuracy_per_round, gathered.accuracy_per_round
+            ok = np.isfinite(acc_b)
+            check(bool((np.isfinite(acc_a) == ok).all()),
+                  f"{label}: evaluates other rounds than 3b's campaign")
+            aerr = float(np.abs(acc_a[ok] - acc_b[ok]).max()) * n_test
+            print(f"{label}: {len(shapes)} round shapes "
+                  + ", ".join(f"({kb}, {eb}) x{len(rs)}"
+                              for (kb, eb), rs in shapes.items())
+                  + f"; {res.graphs['graphs']} graphs, capture "
+                  f"{res.graphs['capture_s']:.3f} s; call {call_ms:.1f} ms; "
+                  f"HOST_TRANSFERS 1 under strict_transfers; launch counters "
+                  f"(warm-ups and captures) {counters}; all-reduces "
+                  f"uncaptured {n_ar} ({CAMPAIGN_ROUNDS} rounds + 8 x "
+                  f"{len(evals)} evaluations); vs 3b's gathered campaign: "
+                  f"params {perr:.3e}, losses {lerr:.3e} (tol "
+                  f"{CARD_CPU_TOL}), accuracy {aerr:.2f} of {n_test} test "
+                  f"samples (tol {CMP_ACC_SAMPLES}, gamma {CMP_EVAL_GAMMA})")
+            check(perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL
+                  and aerr <= CMP_ACC_SAMPLES + 1e-6,
+                  f"{label}: the sharded and the gathered campaigns "
+                  f"disagree")
+            # the steady rounds and an evaluating round under the profiler,
+            # the mesh's and the gathered campaign's
+            _, window = steady_window(shapes, CAMPAIGN_ROUNDS,
+                                      CAMPAIGN_EVAL_EVERY)
+            eval_round = evals[1]
+            check(len(window) >= 3, f"{label}: steady window {window}")
+            g_ms = statistics.median(res.round_ms[window])
+            win = profiled_windows(torch, lambda **m: run(mesh=mesh, **m),
+                                   {"steady": window, "eval": [eval_round]})
+        finally:
+            dist.destroy_process_group()
+    evts, wall = win["steady"]
+    busy, n_ops, per = campaign_window(torch, evts, len(window))
+    wall /= len(window)
+    n_nccl, nccl_us, names = nccl_window(evts, len(window))
+    per_e = campaign_window(torch, win["eval"][0], 1)[2]
+    e_nccl = nccl_window(win["eval"][0], 1)[0]
+    eb = max(shapes, key=lambda s: len(shapes[s]))[1]
+    print(f"{label}: steady (50, {eb}) round graphed {g_ms:.3f} ms "
+          f"(rounds {window[0]}-{window[-1]}), profiled wall {wall:.3f} ms, "
+          f"busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+          f"{n_ops:.1f} operations a round (3b's gathered steady (32, 6), "
+          f"the same rounds: {base['round_ms']:.3f} ms, "
+          f"{base['ops_per_round']:.1f}); all-reduce kernels {n_nccl:.2f} a "
+          f"round ({nccl_us:.2f} us; {names}), {e_nccl:.0f} at the "
+          f"evaluating round {eval_round}; in-graph launches "
+          f"{ {k: v[0] for k, v in per.items()} } a round, at the "
+          f"evaluating round { {k: v[0] for k, v in per_e.items()} }")
+    # one all-reduce a round and one a server layer an evaluation, each at
+    # most one kernel (none with one rank: NCCL_KERNELS)
+    check(n_nccl in (0.0, 1.0) and e_nccl == (1 + 8) * n_nccl,
+          f"{label}: {n_nccl} all-reduce kernels a steady round, {e_nccl} "
+          f"at an evaluating round")
+    check(per["kl_mutual"][0] == 2 * eb
+          and per["kl_mutual (backward)"][0] == 2 * eb
+          and per["ridge_gram"][0] == 0 and per_e["ridge_gram"][0] == 8 * S,
+          f"{label}: in-graph launches {per} / {per_e}")
+    out.update(round_ms=g_ms, ops_per_round=n_ops, idle_share=1 - busy / wall,
+               all_reduce_kernels=n_nccl,
+               all_reduce_us=nccl_us, all_reduce_kernel_names=names,
+               vs_gathered_param_diff=perr, vs_gathered_loss_diff=lerr,
+               vs_gathered_acc_samples=aerr, capture_s=res.graphs["capture_s"],
+               graphs=res.graphs["graphs"])
+    del res, unc, gathered
+    torch.cuda.empty_cache()
+
+    # the gloo job on this card
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(SHARDED_RANKS),
+             str(ROOT / "scripts" / "chip_sharded_check_torch.py"),
+             "--backend", "gloo", "--quick", "--out", f"{d}/gloo.json"],
+            capture_output=True, text=True, timeout=SHARDED_TIMEOUT_S,
+            cwd=ROOT)
+        secs = time.perf_counter() - t0
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("[")]
+        for line in lines:
+            print(f"  gloo job: {line}")
+        check(proc.returncode == 0,
+              f"gloo job of {SHARDED_RANKS} ranks on one card exited "
+              f"{proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        gloo = json.loads(Path(f"{d}/gloo.json").read_text())["sharded"]
+    worst = max([v["param_diff"] for v in gloo["rounds"].values()]
+                + [gloo["campaign"]["param_diff"]])
+    print(f"sharded rounds and campaign, {SHARDED_RANKS} gloo ranks on one "
+          f"card (uncaptured) vs the single-device port: max param diff "
+          f"{worst:.3e} (tol {CARD_CPU_TOL}), {secs:.1f} s")
+    out.update(gloo_ranks=SHARDED_RANKS, gloo_max_param_diff=worst,
+               gloo_seconds=secs)
+    graph_launches = {
+        name: {"sharded_launches_per_round": per[name][0],
+               "sharded_device_us_per_launch": per[name][1]}
+        for name in ("kl_mutual", "kl_mutual (backward)")}
+    graph_launches["ridge_gram"] = {
+        "sharded_launches_per_eval_round": per_e["ridge_gram"][0],
+        "sharded_device_us_per_launch": per_e["ridge_gram"][1]}
+    return out, graph_launches
+
+
 # the README's four command lines (README.md, Quickstart) through the port's
 # example on the card (phase 3j): "{dir}" is a temporary directory; the
 # resumable line runs twice, the rerun resuming from its last checkpoint.
 # The serial line's five eager baseline trainers run README_BASELINE_ROUNDS
 # of their 60 rounds (the script's time; each round is an eager trainer
-# round, 3d's graphed campaigns run all 60)
-README_BASELINE_ROUNDS = 10
+# round; 5 since phase 3k, 10 before)
+README_BASELINE_ROUNDS = 5
 README_LINES = (
     ("serial", ["--rounds", "30", "--baselines", "--baseline-rounds",
                 str(README_BASELINE_ROUNDS), "--ckpt-dir", "{dir}"]),
@@ -3411,7 +3632,7 @@ def import_port():
     from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
-    from repro_torch.launch import campaign, resilience
+    from repro_torch.launch import campaign, mesh as meshes, resilience
     from repro_torch.models.transformer import build_model
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     return types.SimpleNamespace(**locals())
@@ -3690,6 +3911,11 @@ def main() -> int:
     phase("3i. the config sweep")
     sweep, sweep_launches = sweep_phase(torch, port, clients, test, base)
 
+    # -- 3k. the sharded campaign --------------------------------------------
+    phase("3k. the sharded campaign")
+    sharded, sharded_launches = sharded_phase(torch, port, sp, clients, test,
+                                              base)
+
     # -- 3j. the port's entry points -----------------------------------------
     phase("3j. the README's command lines through the port's example")
     readme = readme_phase(port)
@@ -3720,7 +3946,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
          "replaces": "src/repro/kernels/kl_mutual/kl_mutual.py:38",
          "launches": kl_n, **kl["fwd"], **graphed["kl_mutual"],
-         **pop_launches["kl_mutual"], **sweep_launches["kl_mutual"]},
+         **pop_launches["kl_mutual"], **sweep_launches["kl_mutual"],
+         **sharded_launches["kl_mutual"]},
         # the closed-form backward beside the Pallas kernel (plain jnp in
         # the JAX package), one kernel here
         {"name": "kl_mutual (backward)", "route": "cuda",
@@ -3729,7 +3956,8 @@ def main() -> int:
          "launches": kl_bwd_n, **kl["bwd"],
          **graphed["kl_mutual (backward)"],
          **pop_launches["kl_mutual (backward)"],
-         **sweep_launches["kl_mutual (backward)"]},
+         **sweep_launches["kl_mutual (backward)"],
+         **sharded_launches["kl_mutual (backward)"]},
         {"name": "ridge_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
          "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:40",
@@ -3741,7 +3969,7 @@ def main() -> int:
          "bound_fp32_ms": g_bound_fp32, "max_rel_err": gram_rel,
          "shape": "16 Grams of one evaluation, 8 gram_pair calls",
          **graphed["ridge_gram"], **pop_launches["ridge_gram"],
-         **sweep_launches["ridge_gram"]},
+         **sweep_launches["ridge_gram"], **sharded_launches["ridge_gram"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},
@@ -3776,6 +4004,7 @@ def main() -> int:
           + json.dumps(faults))
     print("population mode (phase 3h): " + json.dumps(population))
     print("config sweep (phase 3i): " + json.dumps(sweep))
+    print("sharded campaign (phase 3k): " + json.dumps(sharded))
     print("README command lines (phase 3j), seconds: " + json.dumps(readme))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -31,6 +31,43 @@ def params_to_numpy(layers: Sequence[dict]) -> List[dict]:
 
 
 # ---------------------------------------------------------------------------
+# The sharded error-feedback state
+# ---------------------------------------------------------------------------
+
+def _zip_map(fn, *trees):
+    """``fn`` over the matching leaves of trees of one structure (dicts,
+    lists, tuples)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_zip_map(fn, *vs) for vs in zip(*trees))
+    return fn(*trees)
+
+
+def qstate_shard_from_numpy(tree, shard: int, device: DeviceLike = None,
+                            axis: int = 1):
+    """The reference's sharded int8 error-feedback state, a tree of numpy
+    leaves with the shard axis at ``axis`` (its mesh campaign's (S,
+    n_shards, …), or ``axis=0`` for one round's (n_shards, …); ``{param
+    index: layers}``), -> client shard ``shard``'s residual as the port's
+    rank keeps it: f32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return _zip_map(lambda a: torch.tensor(np.take(np.asarray(a), shard,
+                                                   axis=axis),
+                                           dtype=torch.float32, device=dev),
+                    tree)
+
+
+def qstate_shards_to_numpy(per_rank: Sequence, axis: int = 1):
+    """The ranks' residuals (rank order, each a tree of tensors) -> the
+    reference's gathered layout, numpy leaves stacked on ``axis`` ((S,
+    n_shards, …) for the campaign's seed-stacked state)."""
+    return _zip_map(lambda *leaves: np.stack(
+        [t.detach().cpu().numpy() for t in leaves], axis=axis), *per_rank)
+
+
+# ---------------------------------------------------------------------------
 # Model-zoo parameter trees
 # ---------------------------------------------------------------------------
 

@@ -49,7 +49,13 @@ uploaded per-client deltas and on the aggregate, inside the round: the
 wire-gain and NaN-poison channels of a ``faults:p`` trace, a per-client norm
 clip, the non-finite rollback and the quorum hold (``_round_core``).
 
-Not ported in this slice: the sharded round.
+The sharded round (``build_sharded_round_fn``, and the campaign's rounds
+under ``mesh=``) shards the clients over a ``torch.distributed`` device mesh
+(``repro_torch.launch.mesh``): each rank trains its contiguous slab of the
+clients and the masked-FedAvg payload crosses the mesh as ONE all-reduce a
+round (``all_reduce_bundle``), the paper's "one communication per round".
+int8 quantizes each rank's partial sums with that rank's residual and
+uniforms before it; bf16 narrows the all-reduce itself.
 """
 from __future__ import annotations
 
@@ -59,13 +65,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.splitme_dnn import DNNConfig
 from repro_torch.core import dnn, quantcomm
 from repro_torch.core.allocation import solve_bandwidth, solve_p2
 from repro_torch.core.cost import SystemParams, uplink_time
-from repro_torch.core.inversion import invert_inverse_model
+from repro_torch.core.inversion import (invert_inverse_model,
+                                        invert_inverse_models)
 from repro_torch.core.quantcomm import CommQuant
 from repro_torch.core.selection import (SelectionState, initial_state,
                                         select_trainers, update_state)
@@ -75,8 +83,10 @@ from repro_torch.kernels.dispatch import KernelPolicy, PolicyLike
 Params = List[dict]                 # [{"w", "b"}] per layer
 ParamsTuple = Tuple[Params, ...]
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"later slice: {what} is not ported yet")
+# the bundled all-reduces of the sharded rounds and of Step 4 on a mesh:
+# ``all_reduce_bundle`` adds one where it calls ``dist.all_reduce`` (a CUDA
+# graph's replays do not move it, as they do not move the kernels' counters)
+ALL_REDUCES = 0
 
 
 @dataclass(frozen=True)
@@ -176,6 +186,92 @@ class FrameworkSpec:
     quant: CommQuant = quantcomm.NONE
 
 
+# ---------------------------------------------------------------------------
+# The client mesh: one shard a rank, one bundled all-reduce a round
+# ---------------------------------------------------------------------------
+
+def client_axes(mesh) -> Tuple[str, ...]:
+    """The mesh dims the client axis shards over: ``("pod", "data")`` on a
+    mesh with a ``pod`` dim, else ``("data",)`` (the sharded rounds and
+    Step 4 on the mesh agree on this)."""
+    return ("pod", "data") if "pod" in _dim_names(mesh) else ("data",)
+
+
+def _dim_names(mesh) -> Tuple[str, ...]:
+    from torch.distributed.device_mesh import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(launch.mesh.make_client_mesh), got "
+                        f"{type(mesh).__name__}")
+    names = tuple(mesh.mesh_dim_names or ())
+    if names not in (("data",), ("pod", "data")):
+        raise ValueError(f"mesh dims must be ('data',) or ('pod', 'data'), "
+                         f"got {names}")
+    return names
+
+
+def _mesh_ranks(mesh) -> List[int]:
+    """The mesh's ranks, row-major: shard i is rank ``_mesh_ranks[i]``.  The
+    mesh must hold every rank of the process group in order, so that its
+    flattened client group is the default group."""
+    _dim_names(mesh)
+    ranks = mesh.mesh.flatten().tolist()
+    if ranks != list(range(dist.get_world_size())):
+        raise ValueError(f"the client mesh must hold the process group's "
+                         f"ranks 0..{dist.get_world_size() - 1} in order, "
+                         f"got {ranks}")
+    return ranks
+
+
+def n_client_shards(mesh) -> int:
+    """Number of client shards on ``mesh``: the product of its client dims
+    (the leading axis of the gathered error-feedback layout,
+    ``init_quant_state(n_shards=)``)."""
+    _dim_names(mesh)
+    return int(mesh.mesh.numel())
+
+
+def shard_index(mesh) -> int:
+    """This rank's client shard: its row-major position on the mesh, pod
+    major (the reference's ``shard_index()`` inside ``shard_map``)."""
+    return _mesh_ranks(mesh).index(dist.get_rank())
+
+
+def shard_slice(mesh, n_clients: int) -> slice:
+    """This rank's contiguous slab of ``n_clients`` clients (the
+    reference's ``P(client_axes)`` placement); raises when the shards do
+    not divide the clients."""
+    n = n_client_shards(mesh)
+    if n_clients % n:
+        raise ValueError(f"n_clients={n_clients} not divisible by the {n} "
+                         f"client shards of mesh axes {client_axes(mesh)}")
+    m = n_clients // n
+    i = shard_index(mesh)
+    return slice(i * m, (i + 1) * m)
+
+
+def all_reduce_bundle(tree, mesh, wire_dtype: Optional[torch.dtype] = None):
+    """Sum a whole tree over the mesh's client shards as ONE all-reduce:
+    ravel and concatenate the leaves, one ``dist.all_reduce`` over the
+    mesh's ranks, split back (port of ``psum_bundle``).  ``wire_dtype``
+    (bf16) rounds the bundle to it before the all-reduce and widens it back
+    after: NCCL and gloo then sum in that type.  Counts the call in
+    ``ALL_REDUCES``."""
+    global ALL_REDUCES
+    _mesh_ranks(mesh)
+    leaves = quantcomm.tree_leaves(tree)
+    out_dtype = leaves[0].dtype
+    vec = torch.cat([l.reshape(-1) for l in leaves])
+    if wire_dtype is not None:
+        vec = vec.to(wire_dtype)
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM)
+    ALL_REDUCES += 1
+    vec = vec.to(out_dtype)
+    parts = torch.split(vec, [l.numel() for l in leaves])
+    return quantcomm._unflatten_like(
+        tree, [p.reshape(l.shape) for p, l in zip(parts, leaves)])
+
+
 def replicate(params: Params, m: int) -> Params:
     """Broadcast global params onto the client axis (a view, no copy)."""
     return [{k: v.expand(m, *v.shape) for k, v in p.items()} for p in params]
@@ -237,19 +333,26 @@ def _step_mask(e_max: int, e_steps, device) -> torch.Tensor:
 
 
 def _aggregate(spec: FrameworkSpec, params: ParamsTuple, weighted, msum,
-               loss_sums, qstate, uniforms, lead: int):
+               loss_sums, qstate, uniforms, lead: int, mesh=None):
     """The masked-FedAvg payload through the spec's wire format, in the
     reference's order: int8 quantizes the numerators ``weighted`` ({param
     index: layers}) with error feedback, bf16 rounds (weighted, |A_t|, the
     loss sums); then |A_t| is clamped to ≥ 1 and divides.  ``lead``: 1 for
     seed- or pair-stacked payloads (a scale and a residual per seed or
-    pair; ``msum`` is 0-d, or (P,) for pairs of their own cohorts).
-    Returns (new params, losses, new qstate, |A_t| as it crossed the
-    wire)."""
+    pair; ``msum`` is 0-d, or (P,) for pairs of their own cohorts).  On a
+    ``mesh`` the payload holds this rank's partial sums: int8 quantizes
+    them with this rank's residual and uniforms, then (weighted, |A_t|,
+    the loss sums) cross the mesh in one all-reduce, in bf16 under the
+    bf16 wire.  Returns (new params, losses, new qstate, |A_t| as it
+    crossed the wire)."""
     quant = spec.quant
     if quant.stochastic:
         weighted, qstate = quantcomm.fake_quant_int8(weighted, qstate,
                                                      uniforms, quant, lead)
+    if mesh is not None:
+        weighted, msum, loss_sums = all_reduce_bundle(
+            (weighted, msum, loss_sums), mesh,
+            wire_dtype=torch.bfloat16 if quant.mode == "bf16" else None)
     elif quant.mode == "bf16":
         weighted, msum, loss_sums = quantcomm.simulate_cast(
             (weighted, msum, loss_sums), torch.bfloat16)
@@ -316,11 +419,13 @@ def _guard(guards: RoundGuards, trained, params: ParamsTuple, new_params,
 
 
 def _finish(spec, params, updated, weighted, msum, loss_sums, qstate,
-            uniforms, guards, lead):
+            uniforms, guards, lead, mesh=None):
     """Aggregate, then the guards if armed: the 3-tuple, or with guards the
-    4-tuple ending in the flags."""
+    4-tuple ending in the flags.  The guards read the values after the
+    all-reduce, so on a mesh every rank takes the same decision."""
     new_params, losses, new_q, msum = _aggregate(
-        spec, params, weighted, msum, loss_sums, qstate, uniforms, lead)
+        spec, params, weighted, msum, loss_sums, qstate, uniforms, lead,
+        mesh)
     if guards is None:
         return new_params, losses, new_q
     new_params, new_q, flags = _guard(guards, updated, params, new_params,
@@ -331,11 +436,11 @@ def _finish(spec, params, updated, weighted, msum, loss_sums, qstate,
 def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                 a_mask: torch.Tensor, e_steps: int, idx: torch.Tensor,
                 qstate=(), uniforms=None, faults=None,
-                guards: Optional[RoundGuards] = None):
-    """One masked round over the full client axis.  ``faults`` ({"poison",
-    "wire_gain"}: (M,) each) corrupts the uploaded updates; ``guards`` arms
-    the clip, the rollback and the quorum hold and adds the flags to the
-    return."""
+                guards: Optional[RoundGuards] = None, mesh=None):
+    """One masked round over the full client axis (on a ``mesh``: this
+    rank's slab of it).  ``faults`` ({"poison", "wire_gain"}: (M,) each)
+    corrupts the uploaded updates; ``guards`` arms the clip, the rollback
+    and the quorum hold and adds the flags to the return."""
     m, e_max = ctx["x"].shape[0], idx.shape[2]
     do = _step_mask(e_max, e_steps, ctx["x"].device)
     updated: Dict[int, Params] = {}
@@ -357,7 +462,7 @@ def _round_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                 for i, u in updated.items()}
     loss_sums = tuple((l * a_mask).sum() for l in phase_losses)
     return _finish(spec, params, updated, weighted, a_mask.sum(), loss_sums,
-                   qstate, uniforms, guards, 0)
+                   qstate, uniforms, guards, 0, mesh)
 
 
 def _train_slots(spec: FrameworkSpec, runners, folded, ctx_c, do,
@@ -381,7 +486,7 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                    sel_idx: torch.Tensor, sel_mask: torch.Tensor, e_steps,
                    idx: torch.Tensor, qstate=(), uniforms=None, faults=None,
                    guards: Optional[RoundGuards] = None,
-                   ctx_gathered: bool = False):
+                   ctx_gathered: bool = False, mesh=None):
     """One masked round over the gathered cohort ``sel_idx`` (kb,) of every
     seed: ``params`` leaves are seed-stacked (S, ...), ``idx`` is the
     full-M draw (S, n_phases, M, e_max, B).  The (seed, slot) pairs form
@@ -391,14 +496,16 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     guards' decisions.  ``faults`` are the cohort's slices, (kb,) each,
     shared by the seeds.  ``ctx_gathered``: the context's rows are already
     the cohort's kb slots (population mode's per-round data), not the M
-    clients ``sel_idx`` indexes.
+    clients ``sel_idx`` indexes.  On a ``mesh`` the context is this
+    rank's slab of the clients and the cohort its slots.
 
     With ``sel_idx`` and ``sel_mask`` (P, kb) and ``e_steps`` (P,), each of
     P pairs has its own cohort and E (the config sweep's (variant, seed)
-    pairs, variant-major): ``params`` are pair-stacked (P, ...) and pair p
-    draws from seed p % S's ``idx`` (and int8 ``uniforms``, (S, U)), so the
-    variants of a seed share its batches; FedAvg, |A_t|, the loss sums,
-    and the wire format run per pair."""
+    pairs, variant-major): ``params`` are pair-stacked (P, ...), pair p
+    reads ``idx[p % len(idx)]`` (its own draw, (P, n_phases, M, e_max, B),
+    or its seed's, (S, ...)) and int8 ``uniforms[p % S]`` ((S, U): the
+    variants of a seed share them); FedAvg, |A_t|, the loss sums, and the
+    wire format run per pair."""
     if sel_idx.dim() == 2:
         return _paired_core(spec, runners, params, ctx, sel_idx, sel_mask,
                             e_steps, idx, qstate, uniforms)
@@ -429,7 +536,7 @@ def _gathered_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
                 for i, u in updated.items()}
     loss_sums = tuple((l * sel_mask).sum(1) for l in phase_losses)
     return _finish(spec, params, updated, weighted, sel_mask.sum(), loss_sums,
-                   qstate, uniforms, guards, 1)
+                   qstate, uniforms, guards, 1, mesh)
 
 
 def _paired_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
@@ -437,14 +544,15 @@ def _paired_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     """``_gathered_core`` for P pairs of their own cohorts (P, kb) and E
     (P,): the (pair, slot) pairs form one client axis of P·kb, pair-major,
     each slot stepping under its pair's E mask."""
-    S, e_max, B = idx.shape[0], idx.shape[3], idx.shape[4]
+    e_max, B = idx.shape[3], idx.shape[4]
     P, kb = sel_idx.shape
-    seed_of = torch.arange(P, device=sel_idx.device) % S
+    lane = torch.arange(P, device=sel_idx.device)
     ctx_c = {k: v[sel_idx.reshape(-1)] for k, v in ctx.items()}
     folded = tuple(_fold(p, kb) for p in params)
     do = _step_mask(e_max, e_steps, sel_idx.device).repeat_interleave(kb, 0)
-    # pair p's slots read seed p % S's full-M streams at its cohort
-    cohort_idx = idx.transpose(0, 1)[:, seed_of[:, None], sel_idx].reshape(
+    # pair p's slots read its draw's full-M streams at its cohort
+    cohort_idx = idx.transpose(0, 1)[:, (lane % idx.shape[0])[:, None],
+                                     sel_idx].reshape(
         len(spec.phases), P * kb, e_max, B)
     updated, phase_losses = _train_slots(spec, runners, folded, ctx_c, do,
                                          cohort_idx, P)
@@ -455,7 +563,8 @@ def _paired_core(spec: FrameworkSpec, runners, params: ParamsTuple, ctx,
     loss_sums = tuple((l * sel_mask).sum(1) for l in phase_losses)
     return _finish(spec, params, updated, weighted, sel_mask.sum(1),
                    loss_sums, qstate,
-                   None if uniforms is None else uniforms[seed_of], None, 1)
+                   None if uniforms is None
+                   else uniforms[lane % uniforms.shape[0]], None, 1)
 
 
 def _check_on(device, **tensors) -> None:
@@ -524,7 +633,7 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
                    gather: bool = False,
                    policy: PolicyLike = None,
                    guards: Optional[RoundGuards] = None,
-                   with_faults: bool = False):
+                   with_faults: bool = False, mesh=None):
     """One federated round for `spec` over the fixed client dataset
     ``x`` (M, n, d) and ``y`` (M, n) int labels, on their device.
 
@@ -552,10 +661,12 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     and the masked update.  The gathered round checks no index values
     (that would wait on the card); its callers check them on the host.
     With ``sel_idx`` / ``sel_mask`` (P, kb) and ``e_steps`` a (P,) tensor,
-    P pairs (a multiple of S, variant-major) train their own cohorts for
-    their own E: the params, losses and qstate are pair-stacked, pair p
-    draws seed p % S's ``idx`` and uniforms (``_paired_core``); such a
-    round takes no fault channels and no guards.
+    P pairs (variant-major) train their own cohorts for their own E: the
+    params, losses and qstate are pair-stacked, ``idx`` is (P, …), a draw
+    a pair, or (S, …) with P a multiple of S, and pair p reads ``idx[p %
+    len(idx)]`` and the uniforms ``uniforms[p % S]`` of its seed
+    (``_paired_core``); such a round takes no fault channels, no guards
+    and no mesh.
 
     ``guards`` (a ``RoundGuards``) arms the in-round guards: the round then
     returns ``(params, losses, qstate, flags)`` with ``flags = {"skipped",
@@ -564,8 +675,19 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
     "wire_gain"}`` f32 per client: (M,) each for the full round, the
     cohort's (kb,) slices (shared by the seeds; pads poison 0 and gain 1)
     for the gathered one.  Both default off, leaving the round as it
-    was."""
+    was.
+
+    ``mesh`` (a client mesh, ``gather=True`` with a shared cohort only):
+    ``x`` and ``y`` are this rank's slab of the clients, the cohort and
+    ``idx`` index that slab, ``qstate`` and ``uniforms`` are this rank's,
+    and the payload of the seeds crosses the mesh in one all-reduce
+    (``_aggregate``): the campaign's sharded round."""
     _check_spec_policy(spec, policy, x.device)
+    if mesh is not None:
+        _dim_names(mesh)
+        if not gather:
+            raise ValueError("a round over a mesh slab is gather=True; the "
+                             "full-M sharded round is build_sharded_round_fn")
     _check_guards(guards)
     prec = spec.policy.precision
     if x.dtype != torch.float32 and not (prec.is_mixed
@@ -601,16 +723,23 @@ def build_round_fn(spec: FrameworkSpec, cfg: DNNConfig,
             _check_idx(idx, tuple(idx.shape[:1]) + idx_shape)
             _check_sel(sel_idx, sel_mask, e_steps, params, idx.shape[0])
             _check_on(x.device, idx=idx, sel_idx=sel_idx, sel_mask=sel_mask)
-            _check_quant(spec, params, qstate, uniforms,
-                         tuple(idx.shape[:1]), x.device)
+            lead = tuple(idx.shape[:1])
+            if sel_idx.dim() == 2 and uniforms is not None:
+                lead = tuple(uniforms.shape[:1])     # a seed's, shared
+                if sel_idx.shape[0] % max(1, lead[0]):
+                    raise ValueError(f"{sel_idx.shape[0]} pairs need "
+                                     f"uniforms a seed, got {lead[0]}")
+            _check_quant(spec, params, qstate, uniforms, lead, x.device)
             if sel_idx.dim() == 2 and (with_faults or guards is not None):
                 raise ValueError("pairs of their own cohorts take no fault "
                                  "channels and no guards")
+            if sel_idx.dim() == 2 and mesh is not None:
+                raise ValueError("pairs of their own cohorts take no mesh")
             faults = check_faults(faults, sel_idx.shape[0])
             with torch.no_grad():
                 return _gathered_core(spec, runners, params, ctx, sel_idx,
                                       sel_mask, e_steps, idx, qstate,
-                                      uniforms, faults, guards)
+                                      uniforms, faults, guards, mesh=mesh)
 
         return round_fn
 
@@ -715,19 +844,94 @@ def build_cohort_round_fn(spec: FrameworkSpec, cfg: DNNConfig, *,
     return round_fn
 
 
+def build_sharded_round_fn(spec: FrameworkSpec, cfg: DNNConfig, mesh, *,
+                           n_clients: int, e_max: int,
+                           policy: PolicyLike = None,
+                           guards: Optional[RoundGuards] = None,
+                           with_faults: bool = False):
+    """One federated round for `spec` with the client axis sharded over the
+    ranks of ``mesh`` (port of the reference's ``shard_map`` round).
+
+    Returns ``round_fn(params_tuple, x, y, a_mask, e_steps, idx, qstate=(),
+    uniforms=None, faults=None) -> (params_tuple, per_phase_losses,
+    qstate)`` over the reference's full-M operands, on every rank: ``x``
+    (M, n, d), ``y`` (M, n), ``a_mask`` (M,), ``idx`` (n_phases, M, e_max,
+    B) int64 and, with ``with_faults``, ``faults`` {"poison", "wire_gain"}
+    (M,) f32 each.  Each rank trains only its contiguous slab of M / N
+    clients (``shard_slice``; N not dividing M raises); ``qstate`` and
+    ``uniforms`` are this rank's own (``init_quant_state(spec, params)``,
+    and its int8 stream: ``uniform_generator(seed, shard)``), since each
+    rank quantizes its own partial sums.  The round is ``_round_core``
+    over the slab; its masked-FedAvg numerators, |A_t| and loss sums cross
+    the mesh in one all-reduce, so every rank returns the same params and
+    losses.  ``guards`` returns the flags as ``build_round_fn``'s, decided
+    on the reduced values (the same on every rank)."""
+    _check_guards(guards)
+    sl = shard_slice(mesh, int(n_clients))
+    M = int(n_clients)
+    prec = spec.policy.precision
+    runners = [_phase_runner(ph, e_max) for ph in spec.phases]
+    n_ph = len(spec.phases)
+
+    def round_fn(params: ParamsTuple, x, y, a_mask, e_steps, idx, qstate=(),
+                 uniforms=None, faults=None):
+        _check_spec_policy(spec, policy, x.device)
+        if x.shape[0] != M or tuple(y.shape) != tuple(x.shape[:2]) \
+                or tuple(a_mask.shape) != (M,):
+            raise ValueError(f"the sharded round takes the full-M operands: "
+                             f"x ({M}, n, d), y ({M}, n), a_mask ({M},); got "
+                             f"{tuple(x.shape)}, {tuple(y.shape)}, "
+                             f"{tuple(a_mask.shape)}")
+        _check_idx(idx, (n_ph, M, e_max, spec.batch_size))
+        _check_on(x.device, y=y, idx=idx, a_mask=a_mask)
+        _check_quant(spec, params, qstate, uniforms, (), x.device)
+        if with_faults != (faults is not None):
+            raise ValueError("faults are given exactly when the round is "
+                             "built with_faults=True")
+        xs = x[sl]
+        if prec.is_mixed and xs.dtype == torch.float32:
+            xs = xs.to(prec.compute_dtype)
+        ys = y[sl].long()
+        ctx = {"x": xs, "y": ys, "y1": F.one_hot(ys, cfg.n_classes).float()}
+        faults_s = None if faults is None else {
+            k: v[sl] for k, v in faults.items()}
+        with torch.no_grad():
+            return _round_core(spec, runners, params, ctx, a_mask[sl],
+                               int(e_steps), idx[:, sl], qstate, uniforms,
+                               faults_s, guards, mesh=mesh)
+
+    return round_fn
+
+
 def trained_params(spec: FrameworkSpec, params: ParamsTuple) -> dict:
     """The trained part of ``params`` ({param index: layers}): the shape of
     the aggregation payload, its error-feedback state and its uniforms."""
     return {ph.param_idx: params[ph.param_idx] for ph in spec.phases}
 
 
-def init_quant_state(spec: FrameworkSpec, params: ParamsTuple):
+def init_quant_state(spec: FrameworkSpec, params: ParamsTuple,
+                     n_shards: Optional[int] = None, lead: int = 0):
     """Fresh error-feedback accumulator for ``spec``'s rounds: zeros shaped
     like each trained param index (seed-stacked params give the per-seed
-    state); ``()`` when the wire format carries no state."""
+    state; a rank of a sharded round keeps its own); ``()`` when the wire
+    format carries no state.  ``n_shards`` gives the gathered layout of
+    every shard's residual, a shard axis after the ``lead`` seed dims:
+    (n_shards, …) for one params tuple (the reference's
+    ``init_quant_state(n_shards=)``), (S, n_shards, …) for seed-stacked
+    params with ``lead=1`` (its mesh campaign's)."""
     if not spec.quant.stateful:
         return ()
-    return quantcomm.tree_map(torch.zeros_like, trained_params(spec, params))
+    state = quantcomm.tree_map(torch.zeros_like, trained_params(spec, params))
+    return state if n_shards is None else shard_layout(state, n_shards, lead)
+
+
+def shard_layout(tree, n_shards: int, lead: int = 0):
+    """Zeros shaped like ``tree`` with a shard axis of ``n_shards`` after
+    the ``lead`` leading dims of every leaf: the gathered layout of the
+    shards' error-feedback residuals."""
+    return quantcomm.tree_map(lambda z: z.new_zeros(
+        tuple(z.shape[:lead]) + (int(n_shards),) + tuple(z.shape[lead:])),
+        tree)
 
 
 # offset of the int8 uniforms' generator seed from a run's seed (the
@@ -735,10 +939,14 @@ def init_quant_state(spec: FrameworkSpec, params: ParamsTuple):
 UNIFORM_SEED_OFFSET = 0x5157 << 32
 
 
-def uniform_generator(seed: int) -> torch.Generator:
+def uniform_generator(seed: int, shard: int = 0) -> torch.Generator:
     """The CPU generator of a run's int8 uniforms, seeded from ``seed``
-    apart from the run's batch-index generator."""
-    return torch.Generator().manual_seed(UNIFORM_SEED_OFFSET + int(seed))
+    apart from the run's batch-index generator; client shard ``shard`` of
+    a sharded run draws its own stream (shard 0's is the single device's,
+    as the reference's ``fold_in(qkey, 0)`` makes a 1-shard mesh the
+    single-device round)."""
+    return torch.Generator().manual_seed(UNIFORM_SEED_OFFSET + int(seed)
+                                         + (int(shard) << 48))
 
 
 def quant_uniforms(spec: FrameworkSpec, params: ParamsTuple,
@@ -1114,7 +1322,8 @@ def make_spec(name: str, cfg: DNNConfig, *, policy: PolicyLike = None,
 
 def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
                   client_data: Optional[Dict[str, torch.Tensor]] = None,
-                  gamma: float = 1e-3, policy: PolicyLike = None):
+                  gamma: float = 1e-3, policy: PolicyLike = None,
+                  mesh=None):
     """Build ``accuracy(params_tuple) -> 0-d tensor`` for `spec`.
 
     The full-model frameworks evaluate their aggregated MLP on the test
@@ -1122,8 +1331,17 @@ def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
     inversion over all client samples (``client_data``; the Gram products
     through the ridge_gram kernel), then runs the stitched forward.  The
     forwards run in the policy's precision; the Grams, the ridge solve and
-    the accuracy stay f32."""
+    the accuracy stay f32.
+
+    With a client ``mesh`` the function evaluates a list of params tuples
+    (the campaign's seeds) at once, ``accuracy(params_list) -> (S,)``:
+    SplitMe's ``client_data`` is this rank's slab of the clients, and its
+    Step 4 all-reduces each server layer's Grams of every seed in one
+    call (``inversion.invert_inverse_models``), so every rank gets the same
+    accuracies; the baselines' evaluation needs no collective."""
     y_test = y_test.long()
+    if mesh is not None:
+        _dim_names(mesh)
     if spec.name != "splitme":
         pol = dispatch.get_policy(policy if policy is not None
                                   else spec.policy).resolved(x_test.device)
@@ -1135,6 +1353,9 @@ def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
                                          precision=pol.precision)
                 return (logits.argmax(-1) == y_test).float().mean()
 
+        if mesh is not None:
+            return lambda params_list: torch.stack(
+                [accuracy_full(p) for p in params_list])
         return accuracy_full
     if client_data is None:
         raise ValueError("splitme evaluation needs client_data for the "
@@ -1156,4 +1377,17 @@ def build_eval_fn(spec: FrameworkSpec, cfg: DNNConfig, x_test, y_test, *,
             logits = dnn.full_forward(w_c, w_s, x_test, cfg, precision=prec)
             return (logits.argmax(-1) == y_test).float().mean()
 
-    return accuracy
+    def accuracy_mesh(params_list) -> torch.Tensor:
+        with torch.no_grad():
+            smashed = [dnn.client_forward(w_c, x, cfg, precision=prec)
+                       for w_c, _ in params_list]
+            w_s = invert_inverse_models(
+                [w_s_inv for _, w_s_inv in params_list],
+                [s.reshape(-1, s.shape[-1]) for s in smashed], flat_y, cfg,
+                gamma=gamma, policy=pol, mesh=mesh)
+            return torch.stack([
+                (dnn.full_forward(w_c, w, x_test, cfg, precision=prec)
+                 .argmax(-1) == y_test).float().mean()
+                for (w_c, _), w in zip(params_list, w_s)])
+
+    return accuracy if mesh is None else accuracy_mesh

@@ -12,10 +12,16 @@ with the labels.  The Gram products go through the kernel dispatch layer
 solve (``torch.linalg.solve_ex``).  Smashed data in bf16 (the mixed
 policy) are widened to f32 where they meet f32: in the Grams and in the
 first layer's ``o @ w + b`` (bf16 × f32 promotes to f32 in the reference).
+
+On a client mesh (``mesh=``) each rank holds its slab of the samples: it
+makes its Gram partials with the same kernel, and per layer ONE all-reduce
+carries the concatenated [A0 | A1] of every seed inverted together (eq. 9's
+sums are exact elementwise), after which every rank solves the same
+systems.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 
@@ -41,33 +47,58 @@ def invert_inverse_model(inverse_params: List[dict],
                          labels_onehot: torch.Tensor,
                          cfg: DNNConfig,
                          gamma: float = 1e-3,
-                         policy: PolicyLike = None) -> List[dict]:
+                         policy: PolicyLike = None,
+                         mesh=None) -> List[dict]:
     """Recover the server-side model s(·) from the trained s⁻¹(·).
 
     smashed: c(X) for all client samples, (n, d_split), f32 or bf16.
     labels_onehot: (n, n_classes).
     ``policy`` picks the Gram path, e.g. ``KernelPolicy(ridge_gram=False)``.
+    ``mesh``: a client mesh; ``smashed`` and the labels are then this
+    rank's samples, and each layer's Grams are all-reduced before the
+    solve.
     """
+    return invert_inverse_models([inverse_params], [smashed], labels_onehot,
+                                 cfg, gamma, policy, mesh)[0]
+
+
+def invert_inverse_models(inverse_params: Sequence[List[dict]],
+                          smashed: Sequence[torch.Tensor],
+                          labels_onehot: torch.Tensor, cfg: DNNConfig,
+                          gamma: float = 1e-3, policy: PolicyLike = None,
+                          mesh=None) -> List[List[dict]]:
+    """``invert_inverse_model`` for several seeds' models (each with its
+    smashed data, on the same samples and labels) layer by layer: on a
+    ``mesh`` one all-reduce a layer carries every seed's [A0 | A1]."""
     pol = dispatch.get_policy(policy)
     act = dnn.activation_fn(cfg.activation)
+    L = len(inverse_params[0])
     # supervised targets: activations of s⁻¹ on the labels, deepest first;
     # target for s's layer l (1-based) is a_{L-l}, the last layer the labels
-    inv_acts = dnn.mlp_activations(inverse_params, labels_onehot,
-                                   cfg.activation)
-    L = len(inverse_params)
-    targets = [inv_acts[L - 1 - l] for l in range(1, L)] + [labels_onehot]
-
-    server_params: List[dict] = []
-    o = smashed
-    for l, z in enumerate(targets):
-        a0, a1 = _gram(_augment(o), z, pol)
-        eye = torch.eye(a0.shape[0], dtype=a0.dtype, device=a0.device)
-        # like jnp.linalg.solve: an exactly singular pivot gives inf/nan
-        # rather than an exception (and on the card, no host sync)
-        w_aug = torch.linalg.solve_ex(a0 + gamma * eye, a1).result
-        w, b = w_aug[:-1], w_aug[-1]
-        server_params.append({"w": w, "b": b})
-        o = o.float() @ w + b
-        if l < len(targets) - 1:
-            o = act(o)
-    return server_params
+    targets = []
+    for w_inv in inverse_params:
+        inv_acts = dnn.mlp_activations(w_inv, labels_onehot, cfg.activation)
+        targets.append([inv_acts[L - 1 - l] for l in range(1, L)]
+                       + [labels_onehot])
+    server = [[] for _ in inverse_params]
+    o = list(smashed)
+    for l in range(L):
+        grams = [_gram(_augment(o[s]), targets[s][l], pol)
+                 for s in range(len(o))]
+        if mesh is not None:
+            from repro_torch.core.engine import all_reduce_bundle
+            both = all_reduce_bundle(
+                [torch.cat(g, 1) for g in grams], mesh)
+            d = grams[0][0].shape[1]
+            grams = [(b[:, :d], b[:, d:]) for b in both]
+        for s, (a0, a1) in enumerate(grams):
+            eye = torch.eye(a0.shape[0], dtype=a0.dtype, device=a0.device)
+            # like jnp.linalg.solve: an exactly singular pivot gives inf/nan
+            # rather than an exception (and on the card, no host sync)
+            w_aug = torch.linalg.solve_ex(a0 + gamma * eye, a1).result
+            w, b = w_aug[:-1], w_aug[-1]
+            server[s].append({"w": w, "b": b})
+            o[s] = o[s].float() @ w + b
+            if l < L - 1:
+                o[s] = act(o[s])
+    return server

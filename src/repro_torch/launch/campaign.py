@@ -85,7 +85,17 @@ count train all their (variant, seed) pairs through the same scan, each
 pair with its own cohort and E in one gathered round a round shape, and
 one host transfer for the whole sweep.
 
-Not ported in this slice: ``mesh=`` (sharded rounds; raises).
+Sharded campaigns (``mesh=``, a ``launch.mesh.make_client_mesh`` client
+mesh over a ``torch.distributed`` process group, one rank a shard): every
+rank runs the same call with the full client data and keeps its contiguous
+slab of the clients on its device; each round trains the full masked slab
+(the reference's sharded rounds train the full masked M, never a gathered
+cohort), the S seeds folded as above, and the masked-FedAvg payload of
+every seed crosses the mesh in one all-reduce a round inside the round's
+CUDA graph (NCCL, captured on the side stream after the eager warm-up that
+starts the communicator).  Step 4 all-reduces each server layer's Grams
+once an evaluation.  Params, losses, accuracy and guard flags come out the
+same on every rank; the error-feedback state is each rank's own.
 """
 from __future__ import annotations
 
@@ -102,7 +112,7 @@ from repro_torch.configs.splitme_dnn import DNNConfig
 from repro_torch.core import engine, population as popn, quantcomm
 from repro_torch.core import scenario as scen
 from repro_torch.core.cost import SystemParams, schedule_metrics
-from repro_torch.core.engine import RoundGuards, RoundMetrics, _later
+from repro_torch.core.engine import RoundGuards, RoundMetrics
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.checkpoint import io
 from repro_torch.launch import resilience
@@ -113,8 +123,9 @@ HOST_TRANSFERS = 0
 
 # index_source(seed position, round, E bucket) -> (n_phases, M, E bucket, B)
 IndexSource = Callable[[int, int, int], Any]
-# uniform_source(seed position, round) -> (U,) f32 int8 uniforms
-UniformSource = Callable[[int, int], Any]
+# uniform_source(seed position, round) -> (U,) f32 int8 uniforms; on a
+# mesh uniform_source(seed position, round, client shard)
+UniformSource = Callable[..., Any]
 
 
 def _host_fetch(tree):
@@ -166,7 +177,8 @@ class CampaignResult:
     round_ms: Optional[np.ndarray] = None
     graphs: Optional[dict] = None
     # the final int8 error-feedback state, {param index: layers} with each
-    # leaf stacked over seeds (() for the stateless wire formats)
+    # leaf stacked over seeds (() for the stateless wire formats); under
+    # mesh= this rank's own
     qstate: Any = ()
     # a guarded campaign's accounting (None without guards): (R, S) 0/1
     # non-finite rollbacks and quorum holds, and the (R,) server crashes
@@ -348,12 +360,25 @@ def _cohort(a_r: np.ndarray, kb: int):
 
 
 def _initial_state(spec, seeds, params, index_source, uniform_source, eb_r,
-                   M: int, n: int, device: torch.device):
+                   M: int, n: int, device: torch.device, own_eb=None,
+                   shard: Optional[int] = None):
     """Seed-stacked initial params and error-feedback state on ``device``,
     every round's (S, n_phases, M, E bucket, B) int64 batch indices on the
     host, checked to lie in [0, n), and (under int8; else None) every
-    round's (S, U) f32 uniforms on the host."""
+    round's (S, U) f32 uniforms on the host.
+
+    ``own_eb`` (the config sweep's default draws): one list of E buckets
+    per variant; every (variant, seed) pair, variant-major, then draws its
+    own indices, (P, n_phases, M, E bucket, B) a round, from a generator
+    seeded as ``run_campaign``'s seed and at its variant's own buckets (so
+    it reads its variant's campaign's batches), cut or zero-padded to the
+    sweep's bucket: the steps it executes, E_t ≤ the bucket, are all
+    drawn, and the rest are masked.  ``shard`` (a sharded campaign): the
+    int8 uniforms are that client shard's stream
+    (``engine.uniform_generator(seed, shard)``, ``uniform_source(i, r,
+    shard)``)."""
     gens = [torch.Generator().manual_seed(int(s)) for s in seeds]
+    drawn_init = params is None
     if params is None:
         params = [spec.init_fn(g, torch.device("cpu")) for g in gens]
     if len(params) != len(seeds):
@@ -376,9 +401,27 @@ def _initial_state(spec, seeds, params, index_source, uniform_source, eb_r,
             return torch.as_tensor(index_source(i, r, eb), dtype=torch.int64)
         return torch.randint(0, n, shape + (eb, B), generator=gens[i])
 
+    lanes = [(i, None) for i in range(len(seeds))]
+    if own_eb is not None and index_source is None:
+        lanes, gens = [], []
+        for buckets in own_eb:
+            for s in seeds:
+                g = torch.Generator().manual_seed(int(s))
+                if drawn_init:              # the campaign's first draws
+                    spec.init_fn(g, torch.device("cpu"))
+                gens.append(g)
+                lanes.append((len(gens) - 1, buckets))
+
+    def lane_draw(lane, r, eb):
+        i, buckets = lane
+        if buckets is None:
+            return draw(i, r, eb)
+        got = draw(i, r, buckets[r])[..., :eb, :]
+        return torch.nn.functional.pad(got, (0, 0, 0, eb - got.shape[-2]))
+
     indices = []
     for r, eb in enumerate(eb_r):
-        idx = torch.stack([draw(i, r, eb) for i in range(len(seeds))])
+        idx = torch.stack([lane_draw(lane, r, eb) for lane in lanes])
         if tuple(idx.shape[1:]) != shape + (eb, B):
             raise ValueError(f"round {r}: batch indices must be "
                              f"{shape + (eb, B)}, got {tuple(idx.shape[1:])}")
@@ -387,13 +430,14 @@ def _initial_state(spec, seeds, params, index_source, uniform_source, eb_r,
         indices.append(idx)
     uniforms = None
     if spec.quant.stochastic:
-        ugens = [engine.uniform_generator(s) for s in seeds]
+        ugens = [engine.uniform_generator(s, shard or 0) for s in seeds]
         one = _seed_params(stacked, 0)
 
         def udraw(i, r):
             if uniform_source is not None:
-                return torch.as_tensor(uniform_source(i, r),
-                                       dtype=torch.float32)
+                return torch.as_tensor(
+                    uniform_source(i, r) if shard is None
+                    else uniform_source(i, r, shard), dtype=torch.float32)
             return engine.quant_uniforms(spec, one, ugens[i])
 
         U = quantcomm.n_elements(engine.trained_params(spec, one))
@@ -488,19 +532,36 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     of ``"kernel_bf16"`` resolved for ``device``); ``quant`` also scales
     the host plan's payloads, as in the reference.
 
-    Raises as a later slice of the port: ``mesh``.
+    ``mesh`` (a client mesh, ``launch.mesh.make_client_mesh``; needs
+    ``scan=True``) shards the clients over the ranks of the process group:
+    every rank makes this same call, with the full ``client_data``, and
+    trains its slab of ``sp.M / n_shards`` clients (module docstring);
+    ``device`` is this rank's (an NCCL mesh: its card; a gloo mesh: the
+    CPU, or a card uncaptured, ``_graphs=False``, since gloo cannot be
+    captured).  Its default draws are the single-device campaign's; its
+    int8 uniforms are each shard's own (``engine.uniform_generator(seed,
+    shard)``, or ``uniform_source(i, r, shard)``).  Checkpoints: rank 0
+    gathers the shards' error-feedback residuals into the reference's (S,
+    n_shards, …) layout and writes, and a resume gives every rank its own
+    slice.
     """
-    if mesh is not None:
-        raise _later("the sharded campaign (mesh=)")
     if guards not in (None, False) and not isinstance(guards, RoundGuards):
         raise TypeError(f"guards must be None, False or a RoundGuards, got "
                         f"{type(guards).__name__}")
     dev = resolve_device(device)
-    x = torch.as_tensor(client_data["x"], dtype=torch.float32, device=dev)
-    y = torch.as_tensor(client_data["y"], dtype=torch.int64, device=dev)
-    if x.shape[0] != sp.M:
-        raise ValueError(f"client_data has {x.shape[0]} clients but "
+    x_all = np.asarray(client_data["x"])
+    if x_all.shape[0] != sp.M:
+        raise ValueError(f"client_data has {x_all.shape[0]} clients but "
                          f"SystemParams.M={sp.M}")
+    slab = slice(None)
+    if mesh is not None:
+        if not scan:
+            raise ValueError("mesh (sharded rounds) requires scan=True")
+        slab = engine.shard_slice(mesh, int(sp.M))
+        _check_mesh_device(mesh, dev, _graphs)
+    x = torch.as_tensor(x_all[slab], dtype=torch.float32, device=dev)
+    y = torch.as_tensor(np.asarray(client_data["y"])[slab],
+                        dtype=torch.int64, device=dev)
     n_m = int(x.shape[1])
     if policy_seed is None:
         policy_seed = min(seeds)
@@ -535,11 +596,22 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     kb_r, eb_r = _round_shapes(sched, sp)
     params, qstate, indices, uniforms = _initial_state(
         spec, seeds, params, index_source, uniform_source, eb_r, int(sp.M),
-        n_m, dev)
+        n_m, dev, shard=None if mesh is None else engine.shard_index(mesh))
     faults = _fault_plan(trace, guards, rounds, int(sp.M))
+    local = sched
+    if mesh is not None:
+        # the rank's slab: the full masked slab a round (its cohort lists
+        # the slab's selected clients first, the rest as masked slots)
+        kb_r = [x.shape[0]] * rounds
+        indices = [i[:, :, slab] for i in indices]
+        local = RoundSchedule(a=sched.a[:, slab], b=sched.b[:, slab],
+                              E=sched.E, trace=trace)
+        if faults is not None:
+            faults = dict(faults, poison=faults["poison"][:, slab],
+                          wire=faults["wire"][:, slab])
     fns = {s: engine.build_round_fn(
         spec, cfg, x, y, e_max=s[1], gather=True, guards=guards,
-        with_faults=faults is not None and faults["with_faults"])
+        with_faults=faults is not None and faults["with_faults"], mesh=mesh)
         for s in dict.fromkeys(zip(kb_r, eb_r))}
 
     if not scan:
@@ -565,7 +637,8 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
         y_test = torch.as_tensor(test_data[1], dtype=torch.int64, device=dev)
         eval_fn = engine.build_eval_fn(
             spec, cfg, x_test, y_test, gamma=eval_gamma,
-            client_data={"x": x, "y": y} if framework == "splitme" else None)
+            client_data={"x": x, "y": y} if framework == "splitme" else None,
+            mesh=mesh)
         if eval_every:
             do_eval[eval_every - 1::eval_every] = True
         do_eval[rounds - 1] = True
@@ -574,9 +647,9 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
                             checkpoint_every, checkpoint_dir, resume,
                             _checkpoint_hook)
     params, buffers, clock, graphs = _run_rounds_scan(
-        fns, sched, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
+        fns, local, kb_r, eb_r, params, qstate, indices, uniforms, do_eval,
         eval_fn, strict=strict_transfers, round_hook=_round_hook,
-        guards=guards, faults=faults, ckpt=ckpt, capture=_graphs)
+        guards=guards, faults=faults, ckpt=ckpt, capture=_graphs, mesh=mesh)
     host = _host_fetch(buffers)            # THE per-campaign transfer
     round_ms = clock.round_ms()
     losses = np.transpose(host["loss"], (1, 0, 2))        # (S, R, n_ph)
@@ -596,6 +669,19 @@ def run_campaign(framework: str, cfg: DNNConfig, sp: SystemParams,
     if test_data is not None:
         result.accuracy = acc_rounds[rounds - 1]
     return result
+
+
+def _check_mesh_device(mesh, dev: torch.device, graphs: bool) -> None:
+    """The campaign's device against the mesh's backend: an NCCL mesh
+    carries card tensors only; a gloo mesh carries CPU tensors, or card
+    tensors outside CUDA graphs (gloo's all-reduce waits on the host)."""
+    backend = str(torch.distributed.get_backend()).lower()
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("an NCCL mesh needs device='cuda'")
+    if backend != "nccl" and dev.type == "cuda" and graphs:
+        raise ValueError(f"a {backend!r} mesh's all-reduce cannot be "
+                         f"captured in a CUDA graph: run its card rounds "
+                         f"uncaptured (_graphs=False) or use an NCCL mesh")
 
 
 def run_config_sweep(framework: str, cfg: DNNConfig,
@@ -624,24 +710,26 @@ def run_config_sweep(framework: str, cfg: DNNConfig,
     largest variant's cohort and of its largest E, and each pair trains its
     own variant's cohort for its own E inside it (masked slots and steps are
     exact no-ops).  The variants of a seed start from the same params and
-    share its batches and int8 uniforms, as the reference's variant-free key
-    chain does; each pair keeps its own error-feedback state.  The
+    share its int8 uniforms, as the reference's variant-free key chain
+    does; each pair keeps its own error-feedback state.  The
     evaluation (every ``eval_every`` rounds and the last) is one graph over
     the pairs, and the metrics of the whole sweep come back in one host
     transfer.  Every variant must have the sweep's client count M, and a
     fault scenario or ``mesh`` raise ``ValueError`` here.
-    ``vmap_configs=False`` runs one ``run_campaign`` a variant (``mesh``
-    then reaches its error).
+    ``vmap_configs=False`` runs one ``run_campaign`` a variant, sharded
+    over ``mesh`` when one is given.
 
     The port's keywords are ``run_campaign``'s: ``device``, ``params`` (one
     tuple a seed, shared by the variants), ``index_source(i, r, e_bucket)``
     (seed i's batch indices of round r at the sweep's E bucket),
     ``uniform_source(i, r)``, ``_round_hook`` and ``_graphs``.  By default
-    each seed's generator draws its weights and then, round by round, its
-    indices at the sweep's E buckets, so a variant's batches are not those
-    of its own ``run_campaign``, which draws at its own buckets; an
-    ``index_source`` whose E-bucket draws are prefixes of one another (the
-    reference's key chains are) gives both the same batches."""
+    each (variant, seed) pair draws its batches as its variant's own
+    ``run_campaign`` does (its seed's generator, after the weights, at the
+    variant's own E buckets; ``_initial_state(own_eb=)``), so the two
+    modes read the same batches; an ``index_source`` is read a seed at the
+    sweep's buckets and shared by the variants, which gives both modes the
+    same batches when its E-bucket draws are prefixes of one another (the
+    reference's key chains are)."""
     if not vmap_configs:
         return [run_campaign(framework, cfg, sp, client_data, rounds=rounds,
                              seeds=seeds, test_data=test_data, K=K, E=E,
@@ -692,7 +780,8 @@ def run_config_sweep(framework: str, cfg: DNNConfig,
                                       S, 1),
                           E=np.repeat(e_v, S, 1))
     params, _, indices, uniforms = _initial_state(
-        spec, seeds, params, index_source, uniform_source, eb_r, M, n_m, dev)
+        spec, seeds, params, index_source, uniform_source, eb_r, M, n_m, dev,
+        own_eb=[_round_shapes(sch, sp_d)[1] for sp_d, sch in planned])
     params = quantcomm.tree_map(
         lambda v: v.repeat((V,) + (1,) * (v.dim() - 1)), params)
     qstate = engine.init_quant_state(spec, params)
@@ -853,7 +942,7 @@ def _run_rounds_loop(fns, sched, kb_r, eb_r, params, qstate, indices,
 def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
                      uniforms, do_eval, eval_fn, *, strict: bool,
                      round_hook, guards=None, faults=None, ckpt=None,
-                     capture: bool = True, data=None):
+                     capture: bool = True, data=None, mesh=None):
     """All rounds, one graph replay each on CUDA (the same bodies without
     capture on the CPU, or with ``capture=False``); returns (params, device
     metric buffers, the rounds' ``_RoundClock``, graph stats).  ``params``
@@ -865,7 +954,10 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
     one f32 operand a shape, and the rounds are ``build_cohort_round_fn(
     gather=True)``'s, which take them first.  A ``sched`` whose ``a`` is
     (R, P, M) and ``E`` (R, P) gives P pairs their own cohorts and E (the
-    config sweep; ``params`` pair-stacked, ``indices`` per seed)."""
+    config sweep; ``params`` pair-stacked, ``indices`` per pair or per
+    seed).  ``mesh`` (a sharded campaign): ``sched``, ``indices`` and the
+    fault rows are this rank's slab's, ``eval_fn`` evaluates every seed in
+    one call, and checkpoints gather the ranks' error-feedback state."""
     dev = params[0][0]["w"].device
     R = sched.rounds
     S, n_ph, M, _, B = indices[0].shape
@@ -884,7 +976,7 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
         buffers["skipped"] = torch.zeros((R, L), device=dev)
         buffers["quorum"] = torch.zeros((R, L), device=dev)
     r_slot = torch.zeros(1, dtype=torch.int64, device=dev)
-    start = _restore(ckpt, params, qstate, buffers)
+    start = _restore(ckpt, params, qstate, buffers, mesh)
 
     # one int64 operand row a round: [r, E, |A_t|, cohort (kb), indices,
     # and in population mode the cohort's labels (kb·n)], for pairs [r, E
@@ -984,8 +1076,9 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
         return body
 
     def eval_body():
-        acc = torch.stack([eval_fn(_seed_params(params, i))
-                           for i in range(L)])
+        seeds = [_seed_params(params, i) for i in range(L)]
+        acc = (eval_fn(seeds) if mesh is not None
+               else torch.stack([eval_fn(p) for p in seeds]))
         buffers["acc"].index_copy_(0, r_slot, acc[None])
 
     bodies = {s: round_body(s) for s in shapes}
@@ -1026,7 +1119,7 @@ def _run_rounds_scan(fns, sched, kb_r, eb_r, params, qstate, indices,
                 round_hook(r)
             if ckpt is not None and ((r + 1) % ckpt["every"] == 0
                                      or r + 1 == R):
-                _save(ckpt, r + 1, R, params, qstate, buffers)
+                _save(ckpt, r + 1, R, params, qstate, buffers, mesh)
     clock.skipped = start
     if not cuda:
         return params, buffers, clock, None
@@ -1051,27 +1144,60 @@ def _side_stream(dev: torch.device):
     return _SIDE_STREAMS[index]
 
 
-def _save(ckpt, cursor: int, R: int, params, qstate, buffers) -> None:
+def _gather_shards(qstate, mesh):
+    """Every rank's error-feedback state in the reference's gathered layout,
+    (S, n_shards, …) a leaf, on every rank: each rank writes its slice of a
+    zero tensor and one all-reduce sums them (exact: the other slices add
+    zeros), which every backend carries for card and CPU tensors alike."""
+    full = engine.shard_layout(qstate, engine.n_client_shards(mesh), 1)
+    leaves = quantcomm.tree_leaves(full)
+    for f, l in zip(leaves, quantcomm.tree_leaves(qstate)):
+        f[:, engine.shard_index(mesh)] = l
+    if leaves:
+        vec = torch.cat([f.reshape(-1) for f in leaves])
+        torch.distributed.all_reduce(vec)
+        for f, p in zip(leaves, torch.split(vec, [f.numel()
+                                                  for f in leaves])):
+            f.copy_(p.reshape(f.shape))
+    return full
+
+
+def _save(ckpt, cursor: int, R: int, params, qstate, buffers,
+          mesh=None) -> None:
     """Commit the carry after round ``cursor`` − 1 (the device→host pull
-    waits for the rounds queued on the current stream), then run the
-    hook."""
-    resilience.save_checkpoint(
-        ckpt["dir"], cursor, {"params": params, "qstate": qstate},
-        {k: v[:cursor] for k, v in buffers.items()},
-        fingerprint=ckpt["fingerprint"], rounds=R,
-        framework=ckpt["framework"], n_seeds=ckpt["n_seeds"])
+    waits for the rounds queued on the current stream), then run the hook.
+    On a mesh rank 0 writes, with the ranks' error-feedback state gathered,
+    and every rank waits for the commit before its hook."""
+    if mesh is not None:
+        qstate = _gather_shards(qstate, mesh)
+    if mesh is None or torch.distributed.get_rank() == 0:
+        resilience.save_checkpoint(
+            ckpt["dir"], cursor, {"params": params, "qstate": qstate},
+            {k: v[:cursor] for k, v in buffers.items()},
+            fingerprint=ckpt["fingerprint"], rounds=R,
+            framework=ckpt["framework"], n_seeds=ckpt["n_seeds"])
+    if mesh is not None:
+        torch.distributed.barrier()
     if ckpt["hook"] is not None:
         ckpt["hook"](cursor)
 
 
-def _restore(ckpt, params, qstate, buffers) -> int:
+def _restore(ckpt, params, qstate, buffers, mesh=None) -> int:
     """Copy a resumed campaign's checkpoint into the state tensors and the
     buffers' first rows, in place; the round cursor to go on from (0 when
-    there is nothing to resume)."""
+    there is nothing to resume).  On a mesh each rank takes its own slice
+    of the gathered error-feedback state."""
     if ckpt is None or ckpt["resume_from"] is None:
         return 0
     path = Path(ckpt["resume_from"])
-    io.restore(path, {"params": params, "qstate": qstate})
+    if mesh is not None and qstate != ():
+        full = engine.shard_layout(qstate, engine.n_client_shards(mesh), 1)
+        io.restore(path, {"params": params, "qstate": full})
+        for t, f in zip(quantcomm.tree_leaves(qstate),
+                        quantcomm.tree_leaves(full)):
+            t.copy_(f[:, engine.shard_index(mesh)])
+    else:
+        io.restore(path, {"params": params, "qstate": qstate})
     saved = io.load_arrays(path.with_name(path.name + "-buffers"))
     if set(saved) != set(buffers):
         raise ValueError(f"checkpoint {path} holds the buffers "

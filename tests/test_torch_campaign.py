@@ -443,17 +443,18 @@ def test_default_campaign_is_seeded(campaign_data):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mesh=object()), NotImplementedError, "later slice"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
     (dict(scenario="faults:0.2", scan=False), ValueError, "scan=True"),
     (dict(guards=engine.RoundGuards(), scan=False), ValueError, "scan=True"),
     (dict(checkpoint_every=2), ValueError, "BOTH"),
     (dict(resume=True), ValueError, "BOTH"),
 ])
 def test_unported_campaign_options_raise(campaign_data, kw, err, match):
-    """``mesh=`` is the one option still to be ported; the fault and
-    checkpoint options raise the reference's own ValueErrors: faults or
-    guards without the scan, checkpoints without a directory, a resume
-    alone."""
+    """``mesh=`` takes a torch.distributed DeviceMesh (the sharded
+    campaign, tests/test_torch_sharded.py) and refuses anything else; the
+    fault and checkpoint options raise the reference's own ValueErrors:
+    faults or guards without the scan, checkpoints without a directory, a
+    resume alone."""
     cd, _ = campaign_data
     with pytest.raises(err, match=match):
         campaign.run_campaign("splitme", DNN10, SystemParams(M=M_C, seed=0),

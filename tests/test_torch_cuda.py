@@ -1158,3 +1158,85 @@ def test_int8_sweep_on_card_matches_cpu(cuda):
         for a, b in zip(quantcomm.tree_leaves(g.params),
                         quantcomm.tree_leaves(c.params)):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=6e-2)
+
+
+# ---------------------------------------------------------------------------
+# the sharded campaign on one card: a process group of this process alone
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def process_group(tmp_path):
+    """``init(backend)`` starts a process group of this process alone (its
+    store a file under ``tmp_path``); it is destroyed after the test."""
+    import torch.distributed as dist
+
+    def init(backend):
+        dist.init_process_group(backend, init_method=f"file://{tmp_path}/pg",
+                                world_size=1, rank=0)
+    yield init
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("splitme", {}), ("fedavg", dict(K=4, E=3, quant="int8")),
+    ("splitme", dict(quant="bf16")),
+    ("splitme", dict(scenario="faults:0.3", scenario_seed=1))],
+    ids=["splitme", "fedavg-int8", "splitme-bf16wire", "splitme-faults"])
+def test_sharded_campaign_graphed_on_nccl(cuda, process_group, name, kw):
+    """A 1-shard NCCL mesh: the campaign's rounds with their all-reduce
+    captured in the graphs (strict transfers, one host transfer) equal the
+    same bodies uncaptured bit for bit (params, losses, error-feedback
+    state, flags, accuracy), the uncaptured run makes one all-reduce a
+    round and one a server layer an evaluation, and the campaign equals
+    the gathered one at 1e-5, its accuracy within 1e-6."""
+    from repro_torch.launch import mesh as meshes
+    process_group("nccl")
+    mesh = meshes.make_client_mesh(1)
+    cd, test = _campaign_data()
+    kw = dict(kw, test_data=test, eval_every=2, eval_gamma=10.0)
+    run = lambda **more: campaign.run_campaign(  # noqa: E731
+        name, DNN10, SystemParams(M=12, seed=0), cd, rounds=3, seeds=(0, 1),
+        device=cuda, **kw, **more)
+    campaign.HOST_TRANSFERS = 0
+    g = run(mesh=mesh, strict_transfers=True)
+    assert campaign.HOST_TRANSFERS == 1
+    assert all(kb == 12 for kb, _ in g.graphs["shapes"])
+    before = engine.ALL_REDUCES
+    u = run(mesh=mesh, _graphs=False)
+    # 3 rounds; SplitMe's Step 4 after rounds 1 and 2, 8 server layers
+    assert engine.ALL_REDUCES - before == 3 + (2 * 8 if name == "splitme"
+                                               else 0)
+    _same_guarded(g, u)
+    np.testing.assert_array_equal(g.accuracy_per_round, u.accuracy_per_round)
+    gathered = run()
+    tol = 1e-5 if "quant" not in kw else {"bf16": 2e-2, "int8": 6e-2}[
+        kw["quant"]]
+    np.testing.assert_allclose(g.losses, gathered.losses, rtol=0, atol=tol)
+    for a, b in zip(quantcomm.tree_leaves(g.params),
+                    quantcomm.tree_leaves(gathered.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+
+
+def test_gloo_mesh_on_the_card_runs_uncaptured_only(cuda, process_group):
+    """A gloo mesh carries card tensors, but its all-reduce waits on the
+    host: a graphed campaign on it raises, an uncaptured one equals the
+    gathered campaign at 1e-5; a ``cuda`` mesh on a gloo group raises."""
+    from repro_torch.launch import mesh as meshes
+    process_group("gloo")
+    with pytest.raises(RuntimeError, match="nccl"):
+        meshes.make_client_mesh(1)
+    mesh = meshes.make_client_mesh(1, device_type="cpu")
+    cd, test = _campaign_data()
+    run = lambda **more: campaign.run_campaign(  # noqa: E731
+        "splitme", DNN10, SystemParams(M=12, seed=0), cd, rounds=3,
+        seeds=(0, 1), device=cuda, test_data=test, eval_gamma=10.0, **more)
+    with pytest.raises(ValueError, match="cannot be captured"):
+        run(mesh=mesh)
+    u = run(mesh=mesh, _graphs=False)
+    g = run()
+    np.testing.assert_allclose(u.losses, g.losses, rtol=0, atol=1e-5)
+    for a, b in zip(quantcomm.tree_leaves(u.params),
+                    quantcomm.tree_leaves(g.params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(u.accuracy, g.accuracy, rtol=0, atol=1e-6)

@@ -30,7 +30,8 @@ def _imported_roots(path: Path):
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py",
-        ROOT / "scripts" / "crash_resume_check_torch.py"]
+        ROOT / "scripts" / "crash_resume_check_torch.py",
+        ROOT / "scripts" / "chip_sharded_check_torch.py"]
 
 
 def test_port_files_exist():
@@ -52,7 +53,8 @@ def test_port_files_exist():
                  "core/quantcomm.py", "core/baselines.py",
                  "core/scenario.py", "checkpoint/io.py",
                  "launch/resilience.py", "core/population.py",
-                 "examples/oran_splitfl_campaign.py", "examples/quickstart.py"):
+                 "examples/oran_splitfl_campaign.py", "examples/quickstart.py",
+                 "launch/mesh.py", "core/distributed.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",

@@ -212,6 +212,34 @@ def test_sweep_matches_its_per_variant_campaigns(data, fw):
                                                    atol=2e-3)
 
 
+@pytest.mark.parametrize("fw,quant", [("splitme", None), ("oranfed", None),
+                                      ("fedavg", "int8")])
+def test_sweep_matches_its_per_variant_campaigns_on_default_draws(data, fw,
+                                                                  quant):
+    """The same on the default draws (each seed's generator, no
+    ``index_source``, no ``params``): every (variant, seed) pair draws as
+    its variant's ``run_campaign`` does, at the variant's own E buckets,
+    so the two modes read the same batches, as the reference's do
+    (tests/test_campaign.py's bounds: losses 1e-5, accuracy 1e-6, comm_bits
+    exactly, params 2e-3)."""
+    cd, test = data
+    runs = [campaign.run_config_sweep(
+        fw, CFG, _variants(SystemParams), cd, test_data=test, device="cpu",
+        quant=quant, vmap_configs=vmap, **SWEEP) for vmap in (True, False)]
+    sweep, serial = runs
+    if fw == "splitme":        # the variants' E buckets differ
+        assert len({tuple(r.schedule.E) for r in serial}) > 1
+    for s, c in zip(sweep, serial):
+        np.testing.assert_allclose(s.losses, c.losses, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(s.accuracy_per_round,
+                                   c.accuracy_per_round, atol=1e-6)
+        assert [m.comm_bits for m in s.metrics] == [m.comm_bits
+                                                    for m in c.metrics]
+        for a, b in zip(quantcomm.tree_leaves((s.params, s.qstate)),
+                        quantcomm.tree_leaves((c.params, c.qstate))):
+            torch.testing.assert_close(a, b, rtol=0, atol=2e-3)
+
+
 @pytest.mark.parametrize("fw,quant", [("splitme", None), ("fedavg", "int8")])
 def test_one_variant_sweep_equals_run_campaign(data, fw, quant):
     """A sweep of one variant is that variant's campaign: the same round
@@ -251,13 +279,14 @@ def test_one_host_fetch_per_sweep(data, monkeypatch):
     ("unequal_m", {}, ValueError, "M=12"),
     ("same", dict(scenario="faults:0.3"), ValueError, "fault"),
     ("same", dict(mesh=object()), ValueError, "vmap_configs=False"),
-    ("same", dict(mesh=object(), vmap_configs=False), NotImplementedError,
-     "later slice"),
+    ("same", dict(mesh=object(), vmap_configs=False), TypeError,
+     "DeviceMesh"),
 ])
 def test_sweep_raises_as_the_reference(data, variants, kw, err, match):
     """Unequal M, a fault scenario and ``mesh=`` under the vmapped sweep
     raise the reference's ValueErrors; ``mesh=`` on the per-variant path
-    reaches ``run_campaign``'s own error."""
+    reaches ``run_campaign``, which takes a DeviceMesh only (its sharded
+    campaigns: tests/test_torch_sharded.py)."""
     cd, _ = data
     sps = _variants(SystemParams)
     if variants == "unequal_m":

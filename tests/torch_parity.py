@@ -141,16 +141,17 @@ class CampaignIndexTable:
 QSALT = 0x5157
 
 
-def replay_round_uniforms(key, trained) -> np.ndarray:
+def replay_round_uniforms(key, trained, shard: int = 0) -> np.ndarray:
     """The int8 uniforms of one ``repro.core.engine`` round: the round key's
-    quantization stream ``fold_in(fold_in(key, QSALT), 0)``, split once per
+    quantization stream ``fold_in(fold_in(key, QSALT), shard)`` (client
+    shard ``shard`` of the sharded round; 0 for one device), split once per
     leaf of the payload in ``jax.tree.flatten`` order (dict keys sorted: a
     layer's ``"b"`` before its ``"w"``), ``uniform(k, leaf.shape)`` each.
     ``trained``: ``{param index: layers}`` of the trained params (arrays or
     shape-carrying numpy).  Returns them flat, f32, in that order (the
     port's ``quantcomm.tree_leaves`` order)."""
     leaves = jax.tree.leaves(trained)
-    qkey = jax.random.fold_in(jax.random.fold_in(key, QSALT), 0)
+    qkey = jax.random.fold_in(jax.random.fold_in(key, QSALT), shard)
     keys = jax.random.split(qkey, len(leaves))
     return np.concatenate([
         np.asarray(jax.random.uniform(k, np.shape(l), dtype=np.float32))

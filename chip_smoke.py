@@ -142,9 +142,20 @@ failure ends the run with a non-zero exit code:
    served bf16 model: prefill through ``make_prefill_step`` at 4 × 2048 and
    ``repro_torch.serve``'s replay + greedy decode of 4 requests, with the
    launch counters set to 0 just before and read just after, and a
-   profiled prefill and decode;
+   profiled prefill and decode.  Then the decoder and enc-dec families,
+   which run no kernel: Qwen3-14B, Granite-MoE-3B-A800M, InternVL2-1B
+   (with its 256-patch prefix) and Seamless-M4T-medium (512 frames of
+   memory) at full width and depth, DeepSeek-V3 at its published widths
+   with one layer and the MTP block (prefilled 1 × 2048): the same
+   prefill and serving runs in bf16 with every kernel counter held at 0,
+   the MoE capacity drops, MLA's cache bytes a token, a profiled prefill
+   and decode (the enc-dec's from its encoder's memory), and in f32 at
+   full width the prefill against a decode replay (Qwen3-14B, InternVL2
+   on tokens, Seamless with one memory, Granite-MoE at capacity_factor
+   n_experts / top_k);
 5. the card against the CPU: the same 2 SplitMe rounds from one seed on
-   both, and the two reduced zoo models' forward and 8 decode steps;
+   both, and every zoo config reduced: forward (and MTP) logits and 8
+   decode steps;
 6. a ``kernels`` JSON line, the nvidia-smi line, and last the result line.
 
 Without a card, or outside the repository, it exits non-zero and prints no
@@ -244,6 +255,26 @@ def host_us(torch, fn, calls: int = 100) -> float:
     return t
 
 
+def key_averages(torch, prof):
+    """The device's operations of a finished ``torch.profiler`` run, one
+    row a name as ``prof.key_averages()`` gives them (``key``, ``count``,
+    ``self_device_time_total`` and ``device_time_total`` in µs), read from
+    the trace's own events: ``key_averages()`` builds a Python object an
+    event, seconds for a few decode steps of a 40-layer model."""
+    import types
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            row = rows.setdefault(e.name(), types.SimpleNamespace(
+                key=e.name(), count=0, self_device_time_total=0.0))
+            row.count += 1
+            row.self_device_time_total += e.duration_ns() / 1e3
+    for row in rows.values():
+        row.device_time_total = row.self_device_time_total
+    return list(rows.values())
+
+
 def device_ms(torch, fns, names, calls: int = 20, tries: int = 3):
     """Device time per call of each callable in ``fns`` from torch.profiler:
     the summed time of the kernels whose names contain one of ``names``, or
@@ -262,7 +293,7 @@ def device_ms(torch, fns, names, calls: int = 20, tries: int = 3):
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-            evts = prof.key_averages()
+            evts = key_averages(torch, prof)
             total = (device_busy_ms(evts) * 1e3 if names is None else
                      sum(getattr(e, "device_time_total",
                                  getattr(e, "cuda_time_total", 0.0))
@@ -351,7 +382,7 @@ def round_profile(torch, trainer, top: int = 6):
         m = trainer.run_round()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    evts = prof.key_averages()
+    evts = key_averages(torch, prof)
     busy_ms = sum(dev_us(e) for e in evts) / 1e3
     n_ops = sum(e.count for e in evts if dev_us(e) > 0)
     heavy = sorted(evts, key=dev_us, reverse=True)[:top]
@@ -527,7 +558,8 @@ def profiled_windows(torch, run, windows):
     def hook(r):
         if "prof" in win and r == win["last"]:
             wall = close_window(torch, win["prof"], win["t0"])
-            out[win.pop("name")] = (win.pop("prof").key_averages(), wall)
+            out[win.pop("name")] = (key_averages(torch, win.pop("prof")),
+                                    wall)
         for name, rounds in order:
             if r == rounds[0] - 1:
                 win["name"], win["last"] = name, rounds[-1]
@@ -770,7 +802,7 @@ def profiled_campaign(torch, camp, window, run):
         elif r == window[-1]:
             win["wall"] = close_window(torch, win["prof"], win["t0"])
     run(_round_hook=hook)
-    evts = win["prof"].key_averages()
+    evts = key_averages(torch, win["prof"])
     n = len(window)
 
     def dev_us(e):
@@ -2597,7 +2629,7 @@ def profile_ops(torch, fn, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    evts = prof.key_averages()
+    evts = key_averages(torch, prof)
     ops = sum(e.count for e in evts if device_busy_ms([e]) > 0)
     return device_busy_ms(evts) / calls, ops / calls
 
@@ -3483,7 +3515,6 @@ def zoo_serve(torch, port, arch, dev, smi):
     replay + greedy decode of SERVE_B requests; the launch counters are set
     to 0 just before and read just after.  Then one profiled prefill and
     eight profiled decode steps."""
-    from torch.profiler import ProfilerActivity, profile
     cfg = port.get_config(arch)
     model = port.build_model(cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -3533,44 +3564,11 @@ def zoo_serve(torch, port, arch, dev, smi):
 
     # one profiled prefill: device busy time and the heaviest kernels
     with torch.no_grad():
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            prefill({"tokens": long})
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        evts = prof.key_averages()
-        busy = device_busy_ms(evts)
-        ops = sum(e.count for e in evts if device_busy_ms([e]) > 0)
-        print(f"{arch} profiled prefill: wall {wall:.2f} ms, device busy "
-              f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}, {ops} "
-              f"device operations")
-        heavy = sorted(evts, key=lambda e: device_busy_ms([e]),
-                       reverse=True)[:8]
-        for e in heavy:
-            print(f"  {device_busy_ms([e]):9.3f} ms {e.count:6d} calls  "
-                  f"{e.key[:80]}")
+        profiled(torch, lambda: prefill({"tokens": long}),
+                 f"{arch} profiled prefill")
         # eight profiled decode steps after an 8-token replay
-        serve_step = port.make_serve_step(model)
-        cache = model.init_cache(SERVE_B)
-        for t in range(8):
-            logits, cache = model.decode_step(prompts[:, t:t + 1], cache,
-                                              position=t)
-        tok = torch.argmax(logits[:, -1:], -1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(8):
-                logits, cache = serve_step(tok, cache)
-                tok = torch.argmax(logits, -1)[:, None]
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        evts = prof.key_averages()
-        busy = device_busy_ms(evts)
-        ops = sum(e.count for e in evts if device_busy_ms([e]) > 0)
-        print(f"{arch} profiled decode, 8 steps of {SERVE_B} requests: wall "
-              f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
-              f"{1 - busy / wall:.4f}, {ops / 8:.0f} device operations "
-              f"per step")
+        _, _, cache = profiled_decode(torch, port, model, prompts,
+                                      model.init_cache(SERVE_B), arch, top=0)
     del model, cache
     torch.cuda.empty_cache()
     return launches[own], prefill_ms, step_ms
@@ -3578,21 +3576,34 @@ def zoo_serve(torch, port, arch, dev, smi):
 
 def zoo_card_vs_cpu(torch, port, arch):
     """The reduced f32 model on the card (scan kernels) and on the CPU
-    (plain scans), same weights and tokens: forward logits and 8 decode
-    steps, largest difference relative to max|logits|."""
+    (plain scans), same weights, tokens and frontend embeddings: forward
+    logits (and MTP logits) and 8 decode steps (an enc-dec's from its own
+    encoder's memory), largest difference relative to max|logits|."""
     cfg = port.get_config(arch).reduced()
     mc = port.build_model(cfg, device="cuda")
     mp = port.build_model(cfg, device="cpu")
     mp.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
-    tok = torch.randint(0, cfg.vocab_size, (2, 16),
-                        generator=torch.Generator().manual_seed(2))
+    cpu_gen = torch.Generator().manual_seed(2)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), generator=cpu_gen)
+    batch = {"tokens": tok}
+    if cfg.frontend:
+        batch["embeds"] = torch.randn(2, cfg.frontend_positions, cfg.d_model,
+                                      generator=cpu_gen)
+    on_card = {k: v.cuda() for k, v in batch.items()}
     with torch.no_grad():
-        lc, _ = mc.forward({"tokens": tok.cuda()})
-        lp, _ = mp.forward({"tokens": tok})
+        lc, xc = mc.forward(on_card)
+        lp, xp = mp.forward(batch)
         scale = lp.abs().max().item()
         e_fwd = (lc.cpu() - lp).abs().max().item() / scale
+        if "mtp_logits" in xp:
+            e_fwd = max(e_fwd, (xc["mtp_logits"].cpu() - xp["mtp_logits"])
+                        .abs().max().item() / scale)
         e_dec = 0.0
-        cc, cp = mc.init_cache(2), mp.init_cache(2)
+        if cfg.is_enc_dec:
+            cc = mc.init_cache(2, memory=mc.encode(on_card["embeds"]))
+            cp = mp.init_cache(2, memory=mp.encode(batch["embeds"]))
+        else:
+            cc, cp = mc.init_cache(2), mp.init_cache(2)
         for t in range(8):
             a, cc = mc.decode_step(tok[:, t:t + 1].cuda(), cc)
             b, cp = mp.decode_step(tok[:, t:t + 1], cp)
@@ -3601,6 +3612,291 @@ def zoo_card_vs_cpu(torch, port, arch):
           f"steps {e_dec:.3e} x max|logits| (tol {ZOO_CARD_CPU_TOL})")
     check(e_fwd <= ZOO_CARD_CPU_TOL and e_dec <= ZOO_CARD_CPU_TOL,
           f"{arch}: card and CPU disagree")
+    return e_fwd, e_dec
+
+
+# the decoder and enc-dec families (phase 4), bf16 with weights from seed
+# 0, at full width and depth: (arch, config cuts, prefill requests).
+# DeepSeek-V3 keeps its published widths and MTP block with n_layers cut
+# from 61 to 1 (~25 B parameters, ~50 GB in bf16) and prefills 1 request of
+# PREFILL_LEN (the f32 scores of its 128 heads take 2.1 GB a request at
+# each of its 3 softmax stages)
+DECODER_ARCHS = (("qwen3-14b", {}, PREFILL_B),
+                 ("granite-moe-3b-a800m", {}, PREFILL_B),
+                 ("internvl2-1b", {}, PREFILL_B),
+                 ("seamless-m4t-medium", {}, PREFILL_B),
+                 ("deepseek-v3-671b", {"n_layers": 1}, 1))
+DECODER_PREFILL_RUNS = 2    # a warm-up and a timed run
+# the f32 prefill-vs-replay gate (REPLAY_TOL) at full width and depth:
+# Qwen3-14B (59 GB in f32), InternVL2-1B on tokens alone (the replay
+# carries no prefix, as in the JAX example), Seamless with one memory on
+# both sides, Granite-MoE at capacity_factor = n_experts / top_k (a prefill
+# routes 4 x DECODER_CONSIST_LEN tokens together and a decode step 4: their
+# capacities, and so the tokens they drop, differ otherwise)
+DECODER_GATES = ("qwen3-14b", "internvl2-1b", "seamless-m4t-medium",
+                 "granite-moe-3b-a800m")
+DECODER_CONSIST_LEN = 48    # replayed tokens (~65 ms a step at 40 layers)
+# phase 5's reduced card-vs-CPU check: every zoo config
+CARD_CPU_ARCHS = ZOO_ARCHS + tuple(a for a, _, _ in DECODER_ARCHS) + (
+    "smollm-135m", "granite-20b", "nemotron-4-15b")
+
+
+def scan_and_flash_launches(port) -> dict:
+    return {"flash_attention (mma)": port.fa_ops.launches_mma,
+            "flash_attention (tf32x3)": port.fa_ops.launches_tf32x3,
+            "rwkv6_wkv": port.wkv_ops.launches,
+            "mamba2_scan": port.ssd_ops.launches}
+
+
+def zero_launches(port) -> None:
+    port.fa_ops.launches = port.fa_ops.launches_mma = 0
+    port.fa_ops.launches_tf32x3 = 0
+    port.wkv_ops.launches = port.ssd_ops.launches = 0
+
+
+@contextlib.contextmanager
+def counting_drops(port):
+    """Counts, on the device, the (token, expert) pairs that an expert's
+    capacity dropped in each MoE dispatch while the block runs, and the
+    fullest expert's load: a list of (dropped, pairs, most pairs an expert
+    was routed, experts), one a dispatch."""
+    plain = port.moe.dispatch_slots
+    counts = []
+
+    def counted(flat_e, n_experts, cap):
+        order, slot, keep = plain(flat_e, n_experts, cap)
+        load = flat_e.new_zeros(n_experts).scatter_add_(
+            0, flat_e, flat_e.new_ones(flat_e.shape))
+        counts.append(((~keep).sum(), keep.numel(), load.max(), n_experts))
+        return order, slot, keep
+    port.moe.dispatch_slots = counted
+    try:
+        yield counts
+    finally:
+        port.moe.dispatch_slots = plain
+
+
+def drops(counts) -> tuple:
+    """(pairs dropped, pairs routed, the largest load of an expert over its
+    dispatch's mean, at most)."""
+    return (int(sum(int(c[0]) for c in counts)),
+            int(sum(c[1] for c in counts)),
+            max((int(c[2]) * c[3] / c[1] for c in counts), default=0.0))
+
+
+def frontend_batch(torch, cfg, tokens, gen):
+    """The tokens and, for a vlm or an enc-dec, the stub frontend's
+    embeddings (one request's frontend_positions x d_model from ``gen``)."""
+    batch = {"tokens": tokens}
+    if cfg.frontend:
+        batch["embeds"] = torch.randn(
+            tokens.shape[0], cfg.frontend_positions, cfg.d_model,
+            generator=gen, device=tokens.device).to(getattr(torch, cfg.dtype))
+    return batch
+
+
+def profiled(torch, fn, label: str, steps: int = 1, top: int = 8):
+    """fn under the profiler: wall and device-busy ms, idle share, device
+    operations (a step) and the ``top`` heaviest operations, printed."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evts = key_averages(torch, prof)
+    busy = device_busy_ms(evts)
+    ops = sum(e.count for e in evts)
+    print(f"{label}: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"share {1 - busy / wall:.4f}, {ops / steps:.0f} device operations"
+          f"{' per step' if steps > 1 else ''}")
+    for e in sorted(evts, key=lambda e: device_busy_ms([e]),
+                    reverse=True)[:top]:
+        print(f"  {device_busy_ms([e]):9.3f} ms {e.count:6d} calls  "
+              f"{e.key[:80]}")
+    return wall, busy
+
+
+def profiled_decode(torch, port, model, prompts, cache, label: str,
+                    top: int = 8):
+    """Eight profiled serve steps of the prompts' requests after an 8-token
+    replay into ``cache``: (wall ms, busy ms, the cache)."""
+    for t in range(8):
+        logits, cache = model.decode_step(prompts[:, t:t + 1], cache,
+                                          position=t)
+    serve_step = port.make_serve_step(model)
+    state = {"tok": torch.argmax(logits[:, -1:], -1), "cache": cache}
+
+    def steps():
+        for _ in range(8):
+            lg, state["cache"] = serve_step(state["tok"], state["cache"])
+            state["tok"] = torch.argmax(lg, -1)[:, None]
+    wall, busy = profiled(torch, steps, f"{label} profiled decode, 8 steps "
+                          f"of {prompts.shape[0]} requests", steps=8, top=top)
+    return wall, busy, state["cache"]
+
+
+def decoder_serve(torch, port, arch, cuts, prefill_b, dev, smi):
+    """The served bf16 model of a decoder or enc-dec family: prefills
+    through make_prefill_step at prefill_b x PREFILL_LEN (with the vision
+    prefix or the encoder's frames), then repro_torch.serve's replay +
+    greedy decode of SERVE_B requests, with the kernels' counters set to 0
+    just before and read just after (no kernel lies on these paths: each
+    must stay 0); then one profiled prefill and eight profiled decode
+    steps (an enc-dec's from the memory of its encoder)."""
+    cfg = dataclasses.replace(port.get_config(arch), **cuts)
+    torch.cuda.empty_cache()    # the last model's blocks
+    t0 = time.perf_counter()
+    model = port.build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    long = frontend_batch(torch, cfg, torch.randint(
+        0, cfg.vocab_size, (prefill_b, PREFILL_LEN), generator=gen,
+        device=dev), gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    prefill = port.make_prefill_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), counting_drops(port) as moe_counts:
+        torch.cuda.synchronize()
+        zero_launches(port)
+        times = []
+        for _ in range(DECODER_PREFILL_RUNS):
+            t0 = time.perf_counter()
+            last = prefill(long)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        n_prefill = len(moe_counts)
+        served = port.serve.generate(model, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        launches = scan_and_flash_launches(port)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(launches.values()),
+          f"{arch}: a kernel launched on a path that has none: {launches}")
+    check(bool(torch.isfinite(last).all()) and last.shape == (
+        prefill_b, cfg.vocab_size), f"{arch}: prefill logits {last.shape}")
+    toks = served.tokens
+    check(toks.shape == (SERVE_B, SERVE_NEW) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"{arch}: served {toks}")
+    prefill_ms = times[-1]
+    seq = PREFILL_LEN + (cfg.frontend_positions
+                         if cfg.frontend and not cfg.is_enc_dec else 0)
+    decode_steps = SERVE_NEW - 1
+    step_ms = served.decode_s * 1e3 / decode_steps
+    out = {"params": n_params, "build_s": build_s, "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": prefill_b * PREFILL_LEN / prefill_ms * 1e3,
+           "decode_ms_per_step": step_ms, "peak_gb": peak_gb,
+           "launches": launches}
+    extra = ""
+    if cfg.frontend:
+        extra = (f" (+ {cfg.frontend_positions} frontend positions a request"
+                 f"{', the encoder memory' if cfg.is_enc_dec else ''})")
+    print(f"{arch} bf16 served{' ' + str(cuts) if cuts else ''} | {smi}: "
+          f"{n_params / 1e9:.3f} B params built in {build_s:.1f} s; prefill "
+          f"{prefill_b} x {PREFILL_LEN}{extra} through make_prefill_step "
+          f"{prefill_ms:.2f} ms (after a warm-up {times[0]:.2f} ms) = "
+          f"{out['prefill_tokens_per_s']:.0f} tokens/s ({seq} positions a "
+          f"request); serve: replay of {SERVE_B} x {SERVE_PROMPT} prompt "
+          f"tokens {served.prefill_s * 1e3:.1f} ms, {decode_steps} decode "
+          f"steps {step_ms:.2f} ms/step = {SERVE_B / step_ms * 1e3:.1f} "
+          f"tokens/s; kernel launches {launches}; peak memory {peak_gb:.2f} "
+          f"GB; request 0 tokens {toks[0, :8].tolist()}")
+    if cfg.moe:
+        out["dropped_prefill"] = drops(moe_counts[:n_prefill])
+        out["dropped_decode"] = drops(moe_counts[n_prefill:])
+        dp, dd = out["dropped_prefill"], out["dropped_decode"]
+        print(f"{arch} capacity drops ((token, expert) pairs dropped / "
+              f"routed; capacity_factor {cfg.moe.capacity_factor}): "
+              f"{DECODER_PREFILL_RUNS} prefills {dp[0]} / {dp[1]} "
+              f"({dp[0] / dp[1]:.4f}) in {n_prefill} dispatches (capacity "
+              f"{port.moe.capacity(prefill_b * seq, cfg.moe)} at T "
+              f"{prefill_b * seq}; the fullest expert up to {dp[2]:.2f}x the "
+              f"mean load), serve {dd[0]} / {dd[1]} ({dd[0] / dd[1]:.4f}; "
+              f"capacity {port.moe.capacity(SERVE_B, cfg.moe)} at T "
+              f"{SERVE_B}; up to {dd[2]:.2f}x)")
+
+    with torch.no_grad():
+        wall, busy = profiled(torch, lambda: prefill(long),
+                              f"{arch} profiled prefill")
+        out["prefill_idle_share"] = 1 - busy / wall
+        if cfg.is_enc_dec:
+            cache = model.init_cache(
+                SERVE_B, memory=model.encode(long["embeds"][:SERVE_B]))
+        else:
+            cache = model.init_cache(SERVE_B)
+        wall, busy, cache = profiled_decode(
+            torch, port, model, prompts, cache,
+            arch + (" (from the encoder memory)" if cfg.is_enc_dec else ""))
+        out["decode_idle_share"] = 1 - busy / wall
+    if cfg.attention_kind == "mla":
+        c = cache[0]
+        W = c.c_kv.shape[1]
+        per_token = (c.c_kv[0, 0].numel() * c.c_kv.element_size()
+                     + c.k_rope[0, 0].numel() * c.k_rope.element_size())
+        # 2 · heads · head_dim (tests/test_models_extra.py's claim)
+        gqa = (2 * cfg.n_kv_heads * cfg.mla.qk_nope_head_dim
+               * c.c_kv.element_size())
+        out["mla_cache_bytes_per_token"] = per_token
+        print(f"{arch} MLA cache: {per_token} bytes a token and layer (the "
+              f"latent {cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}"
+              f" in {cfg.dtype}; {SERVE_B} x {W} slots); a GQA cache of "
+              f"{cfg.n_kv_heads} K and V heads of {cfg.mla.qk_nope_head_dim} "
+              f"would hold {gqa} ({gqa / per_token:.1f}x)")
+    return out
+
+
+def decoder_consistency(torch, port, arch, dev):
+    """Full width and depth in f32: the prefill's last logits against a
+    decode_step replay of the same DECODER_CONSIST_LEN-token prompts (an
+    enc-dec's from the memory of the prefill's frames), and the plain
+    network's own floor: the first two prompts' prefill against the
+    four's."""
+    cfg = dataclasses.replace(port.get_config(arch), dtype="float32")
+    torch.cuda.empty_cache()    # the bf16 model's blocks
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    model = port.build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (4, DECODER_CONSIST_LEN),
+                            generator=gen, device=dev)
+    batch = {"tokens": prompts}
+    if cfg.is_enc_dec:
+        batch = frontend_batch(torch, cfg, prompts, gen)
+    prefill = port.make_prefill_step(model)
+    with torch.no_grad(), counting_drops(port) as moe_counts:
+        zero_launches(port)
+        got = prefill(batch)
+        two = prefill({k: v[:2] for k, v in batch.items()})
+        cache = (model.init_cache(4, memory=model.encode(batch["embeds"]))
+                 if cfg.is_enc_dec else model.init_cache(4))
+        for t in range(DECODER_CONSIST_LEN):
+            logits, cache = model.decode_step(prompts[:, t:t + 1], cache,
+                                              position=t)
+        replay = logits[:, -1]
+        torch.cuda.synchronize()
+        launches = scan_and_flash_launches(port)
+    scale = got.abs().max().item()
+    e_replay = (got - replay).abs().max().item() / scale
+    floor = (got[:2] - two).abs().max().item() / scale
+    dropped = drops(moe_counts)
+    print(f"{arch} f32 full width, 4 x {DECODER_CONSIST_LEN} tokens"
+          f"{' (+ the memory of ' + str(cfg.frontend_positions) + ' frames)' if cfg.is_enc_dec else ''}: "
+          f"prefill vs replay {e_replay:.3e} x max|logits| (tol "
+          f"{REPLAY_TOL}), max|logits| {scale:.3f}; plain network alone: "
+          f"batch 2 vs 4 {floor:.3e}"
+          + (f"; capacity_factor {cfg.moe.capacity_factor}, pairs dropped "
+             f"{dropped[0]} / {dropped[1]}" if cfg.moe else ""))
+    check(all(bool(torch.isfinite(a).all()) for a in (got, replay)),
+          f"{arch}: non-finite logits")
+    check(not any(launches.values()),
+          f"{arch}: a kernel launched on a path that has none: {launches}")
+    check(dropped[0] == 0, f"{arch}: capacity dropped {dropped[0]} pairs")
+    check(e_replay <= REPLAY_TOL, f"{arch}: prefill and replay disagree")
+    return e_replay
 
 
 def import_port():
@@ -3633,6 +3929,7 @@ def import_port():
     from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
     from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
     from repro_torch.launch import campaign, mesh as meshes, resilience
+    from repro_torch.models import moe
     from repro_torch.models.transformer import build_model
     from repro_torch.runtime.steps import make_prefill_step, make_serve_step
     return types.SimpleNamespace(**locals())
@@ -3928,6 +4225,13 @@ def main() -> int:
               for arch in ZOO_ARCHS}
     wkv["launches"] = served["rwkv6-1.6b"][0]
     ssd["launches"] = served["zamba2-2.7b"][0]
+    # the decoder and enc-dec families: served in bf16, then the f32 gate
+    decoders = {}
+    for arch, cuts, b in DECODER_ARCHS:
+        decoders[arch] = decoder_serve(torch, port, arch, cuts, b, dev, smi)
+        if arch in DECODER_GATES:
+            decoders[arch]["f32_replay_err"] = decoder_consistency(
+                torch, port, arch, dev)
 
     # -- 5. card vs CPU ------------------------------------------------------
     phase("5. card vs CPU")
@@ -3936,8 +4240,12 @@ def main() -> int:
           f"loss diff {lerr:.3e} (tol {CARD_CPU_TOL})")
     check(perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL,
           "card and CPU runs disagree")
-    for arch in ZOO_ARCHS:
+    for arch in CARD_CPU_ARCHS:
+        zero_launches(port)
         zoo_card_vs_cpu(torch, port, arch)
+        if arch not in ZOO_ARCHS:
+            check(not any(scan_and_flash_launches(port).values()),
+                  f"{arch}: a kernel launched on a path that has none")
 
     # -- 6. result -----------------------------------------------------------
     phase("6. result")
@@ -4006,6 +4314,8 @@ def main() -> int:
     print("config sweep (phase 3i): " + json.dumps(sweep))
     print("sharded campaign (phase 3k): " + json.dumps(sharded))
     print("README command lines (phase 3j), seconds: " + json.dumps(readme))
+    print("decoder and enc-dec families served (phase 4): "
+          + json.dumps(decoders))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

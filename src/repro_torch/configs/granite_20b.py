@@ -1,0 +1,16 @@
+"""granite-20b — llama-arch code model, MQA kv=1 [arXiv:2405.04324]."""
+from repro_torch.configs.base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="granite-20b",
+    family="dense",
+    n_layers=52,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=1,
+    d_ff=24576,
+    vocab_size=49152,
+    activation="gelu",
+    sliding_window=8192,
+    source="arXiv:2405.04324",
+))

@@ -3,10 +3,12 @@
 Paper §V-A: a ten-layer DNN (as in [38]) solves slice traffic classification
 (eMBB / mMTC / URLLC). 20% of layers (two) stay on the near-RT-RIC (client),
 the rest go to the non-RT-RIC (server): split_index = 2, ω = 1/5.
-Copy of ``repro.configs.splitme_dnn.DNNConfig`` without the arch registry.
+Copy of ``repro.configs.splitme_dnn``.
 """
 from dataclasses import dataclass
 from typing import Tuple
+
+from repro_torch.configs.base import ArchConfig, register
 
 
 @dataclass(frozen=True)
@@ -28,3 +30,20 @@ class DNNConfig:
 
 
 DNN10 = DNNConfig()
+
+# A transformer-family alias so the paper's model also flows through the
+# generic --arch machinery (the paper experiments use DNN10 directly; the
+# zoo's build_model refuses its family, as the JAX package's does).
+CONFIG = register(ArchConfig(
+    name="splitme-dnn10",
+    family="mlp",
+    n_layers=10,
+    d_model=256,
+    n_heads=1,
+    n_kv_heads=1,
+    d_ff=256,
+    vocab_size=3,
+    attention_kind="none",
+    source="paper §V-A / [38]",
+    dtype="float32",
+))

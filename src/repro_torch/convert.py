@@ -73,14 +73,20 @@ def qstate_shards_to_numpy(per_rank: Sequence, axis: int = 1):
 
 def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
     """The JAX tree's stacked subtrees and their leading dims: the layers of
-    ``lax.scan``, which the port keeps as a list of modules."""
-    if cfg.family == "ssm":
+    ``lax.scan``, which the port keeps as a list of modules.  What lies
+    inside a layer keeps its dims (an MoE layer's ``(E, …)`` expert
+    stacks), and the single blocks (``mtp_block``, Zamba2's ``shared``)
+    are not stacked."""
+    if cfg.family in ("dense", "vlm", "moe", "ssm"):
         return {"layers": (cfg.n_layers,)}
     if cfg.family == "hybrid":
         group = cfg.shared_attn_every or cfg.n_layers
         return {"mamba": (cfg.n_layers // group, group)}
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                              f"(ROADMAP queue A, item 13)")
+    if cfg.family == "audio":
+        return {"enc_layers": (cfg.enc_layers,),
+                "dec_layers": (cfg.n_layers,)}
+    raise ValueError(f"unsupported family {cfg.family!r} for the transformer "
+                     f"zoo")
 
 
 def _leaves(tree: dict, prefix: Tuple[str, ...] = ()

@@ -4,8 +4,9 @@ ring-buffer KV cache for decode; twin of ``repro.models.attention``.
 Shapes: activations are (batch, seq, d_model); caches are
 (batch, window, n_kv_heads, head_dim) ring buffers.  ``_sdpa`` is the JAX
 package's plain float32 einsum-softmax; no fused attention kernel is called
-(the JAX models call none either).  Cross-attention comes with the
-encoder-decoder slice of the port.
+(the JAX models call none either).  ``memory=`` turns ``attention`` into the
+encoder-decoder's cross-attention, whose decode path reads K/V computed
+once from the memory (``cross_attention_kv``).
 """
 from __future__ import annotations
 
@@ -57,28 +58,37 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               head_dim: int, theta: float, qk_norm: bool = False,
               causal: bool = True, window: Optional[int] = None,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill)."""
+              positions: Optional[torch.Tensor] = None,
+              memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (training / prefill).  ``memory`` switches to
+    cross-attention (no RoPE and no causal mask on the memory; the enc-dec
+    decoder's)."""
     b, s, _ = x.shape
     q = _split_heads(x @ params["wq"], n_heads, head_dim)
-    k = _split_heads(x @ params["wk"], n_kv_heads, head_dim)
-    v = _split_heads(x @ params["wv"], n_kv_heads, head_dim)
+    src = memory if memory is not None else x
+    t = src.shape[1]
+    k = _split_heads(src @ params["wk"], n_kv_heads, head_dim)
+    v = _split_heads(src @ params["wv"], n_kv_heads, head_dim)
     if qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
-    qi = positions[:, :, None]          # (b,s,1)
-    ki = positions[:, None, :]          # (b,1,t)
-    if causal:
-        mask = ki <= qi
+    if memory is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+        qi = positions[:, :, None]          # (b,s,1)
+        ki = positions[:, None, :]          # (b,1,t)
+        if causal:
+            mask = ki <= qi
+        else:
+            mask = torch.ones((1, s, t), dtype=torch.bool, device=x.device)
+        if window is not None:
+            mask = mask & (ki > qi - window)
+        mask = mask[:, None]                 # (b,1,s,t)
     else:
-        mask = torch.ones((1, s, s), dtype=torch.bool, device=x.device)
-    if window is not None:
-        mask = mask & (ki > qi - window)
-    out = _sdpa(q, k, v, mask[:, None])  # mask (b,1,s,t)
+        mask = torch.ones((1, 1, s, t), dtype=torch.bool, device=x.device)
+    out = _sdpa(q, k, v, mask)
     return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
 
 
@@ -147,3 +157,23 @@ def decode_attention(params, x: torch.Tensor, cache: KVCache, *,
     y = out.reshape(b, 1, n_heads * head_dim) @ params["wo"]
     return y, cache._replace(index=cache.index + 1,
                              last=max(cache.last, position))
+
+
+def cross_attention_kv(params, memory: torch.Tensor, *, n_kv_heads: int,
+                       head_dim: int):
+    """Cross-attention K/V of the encoder memory, computed once for the
+    enc-dec decode."""
+    k = _split_heads(memory @ params["wk"], n_kv_heads, head_dim)
+    v = _split_heads(memory @ params["wv"], n_kv_heads, head_dim)
+    return k, v
+
+
+def decode_cross_attention(params, x: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, n_heads: int,
+                           head_dim: int) -> torch.Tensor:
+    b = x.shape[0]
+    q = _split_heads(x @ params["wq"], n_heads, head_dim)
+    mask = torch.ones((1, 1, 1, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(q, k, v, mask)
+    return out.reshape(b, 1, n_heads * head_dim) @ params["wo"]

@@ -55,6 +55,11 @@ def activation_fn(name: str):
         raise ValueError("swiglu is handled by the gated FFN path")
     if name == "squared_relu":
         return lambda x: torch.square(torch.relu(x))
+    if name == "gelu":
+        # jax.nn.gelu is the tanh approximation by default
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "relu":
+        return torch.relu
     raise ValueError(name)
 
 

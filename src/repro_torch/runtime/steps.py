@@ -11,9 +11,10 @@ from typing import Callable
 import torch
 
 
-
 def make_prefill_step(model: torch.nn.Module) -> Callable:
-    """(batch) -> next-token logits (b, vocab) after the whole prompt."""
+    """(batch) -> next-token logits (b, vocab) after the whole prompt.  The
+    batch goes to ``forward`` whole: a vlm's or an enc-dec's ``embeds``
+    with its ``tokens``."""
     def prefill_step(batch):
         logits, _ = model.forward(batch)
         return logits[:, -1]

@@ -1,13 +1,15 @@
 """Batched serving: prefill + greedy decode with the ring-buffer KV cache;
 twin of ``examples/serve_decode.py``.
 
-    python -m repro_torch.serve --arch rwkv6-1.6b --requests 4 \\
+    python -m repro_torch.serve --arch smollm-135m --requests 4 \\
         --prompt-len 32 --new-tokens 16 [--window W] [--full] [--device cpu]
 
 The prompt is replayed through ``decode_step`` (cache warm-up), then the
-requests decode greedily through ``make_serve_step``.  The reduced config
-runs unless ``--full`` is given; the card is used unless ``--device cpu``.
-Weights are random, from seed 0; prompts from seed 1.
+requests decode greedily through ``make_serve_step``.  Every zoo config
+serves; the replay carries tokens only, as the JAX package's example does
+(no vision prefix, and the enc-dec's default memory of zeros).  The reduced
+config runs unless ``--full`` is given; the card is used unless
+``--device cpu``.  Weights are random, from seed 0; prompts from seed 1.
 """
 from __future__ import annotations
 
@@ -59,7 +61,7 @@ def generate(model, prompts: torch.Tensor, new_tokens: int) -> Served:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="rwkv6-1.6b", choices=list_configs())
+    ap.add_argument("--arch", default="smollm-135m", choices=list_configs())
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

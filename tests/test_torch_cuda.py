@@ -384,6 +384,67 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
             assert (a.cpu() - b).abs().max().item() <= tol
 
 
+_DECODER_ARCHS = ["smollm-135m", "qwen3-14b", "granite-20b", "nemotron-4-15b",
+                  "internvl2-1b", "granite-moe-3b-a800m", "deepseek-v3-671b",
+                  "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("arch", _DECODER_ARCHS)
+def test_reduced_decoder_on_card_matches_cpu(cuda, arch):
+    """The decoder and enc-dec families, reduced, in f32: forward logits
+    (with the frontend's embeddings, and MTP logits), and 8 decode steps
+    (an enc-dec's from its encoder's memory) agree with the CPU within
+    1e-5 of max|logits|; no kernel launches on these paths."""
+    cfg = get_config(arch).reduced()
+    mc = build_model(cfg, device=cuda)
+    mp = build_model(cfg, device="cpu")
+    mp.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size,
+                                                 (2, 16)))}
+    if cfg.frontend:
+        batch["embeds"] = torch.tensor(rng.normal(
+            size=(2, cfg.frontend_positions, cfg.d_model)),
+            dtype=torch.float32)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    counters = (fa_ops.launches, wkv_ops.launches, ssd_ops.launches)
+    with torch.no_grad():
+        lc, xc = mc.forward(on_card)
+        lp, xp = mp.forward(batch)
+        tol = 1e-5 * lp.abs().max().item()
+        assert (lc.cpu() - lp).abs().max().item() <= tol
+        assert set(xc) == set(xp)
+        if cfg.mtp:
+            assert (xc["mtp_logits"].cpu() - xp["mtp_logits"]).abs().max() \
+                .item() <= tol
+        if cfg.is_enc_dec:
+            cc = mc.init_cache(2, memory=mc.encode(on_card["embeds"]))
+            cp = mp.init_cache(2, memory=mp.encode(batch["embeds"]))
+        else:
+            cc, cp = mc.init_cache(2), mp.init_cache(2)
+        tok = batch["tokens"]
+        for t in range(8):
+            a, cc = mc.decode_step(tok[:, t:t + 1].to(cuda), cc)
+            b, cp = mp.decode_step(tok[:, t:t + 1], cp)
+            assert (a.cpu() - b).abs().max().item() <= tol
+    assert counters == (fa_ops.launches, wkv_ops.launches, ssd_ops.launches)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v3-671b"])
+def test_moe_on_card_is_deterministic(cuda, arch):
+    """The MoE layer sums each token's experts in a fixed order (no
+    atomics): two bf16 forward passes on the card agree bit for bit."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    model = build_model(cfg, device=cuda)
+    tok = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 64)), device=cuda)
+    with torch.no_grad():
+        a, xa = model.forward({"tokens": tok})
+        b, xb = model.forward({"tokens": tok})
+    assert torch.equal(a, b) and torch.equal(xa["aux"], xb["aux"])
+
+
 # the flash-attention kernel against its plain version, (rtol, atol) per
 # element: in f32 the JAX package's own bound (tests/test_kernels.py), sums
 # in another order; in bf16 one bf16 unit in the last place of the plain

@@ -54,7 +54,13 @@ def test_port_files_exist():
                  "core/scenario.py", "checkpoint/io.py",
                  "launch/resilience.py", "core/population.py",
                  "examples/oran_splitfl_campaign.py", "examples/quickstart.py",
-                 "launch/mesh.py", "core/distributed.py"):
+                 "launch/mesh.py", "core/distributed.py", "models/moe.py",
+                 "models/mla.py", "configs/smollm_135m.py",
+                 "configs/qwen3_14b.py", "configs/granite_20b.py",
+                 "configs/nemotron_4_15b.py", "configs/internvl2_1b.py",
+                 "configs/granite_moe_3b_a800m.py",
+                 "configs/deepseek_v3_671b.py",
+                 "configs/seamless_m4t_medium.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",

@@ -455,8 +455,8 @@ def step4_vs_plain(torch, port, trainer, gamma):
 # well-conditioned CMP_EVAL_GAMMA (at the default 1e-3 the f32 ridge is
 # ill-conditioned: its accuracy difference is printed, not checked)
 CAMPAIGN_ROUNDS, CAMPAIGN_SEEDS, CAMPAIGN_EVAL_EVERY = 30, (0, 1, 2, 3), 10
-# 2 turns since phase 3k (3 before): the script's time
-CAMPAIGN_TURNS = 2
+# 1 turn since phase 6 (2 since phase 3k, 3 before): the script's time
+CAMPAIGN_TURNS = 1
 PROFILE_STEADY, PROFILE_EVAL = range(10, 19), 19
 CMP_EVAL_GAMMA, CMP_ACC_SAMPLES = 10.0, 1
 CAMPAIGN_KERNELS = {"kl_mutual": ("kl_rows_kernel", "kl_rows_online_kernel"),
@@ -754,8 +754,10 @@ def campaign_phase(torch, port, sp, clients, test):
 # (stochastic rounding with error feedback) and the bf16 wire.  Each
 # variant: graphed (strict transfers, one transfer) against eager bit for
 # bit (params, losses, error-feedback state); the card against the CPU over
-# all 30 rounds and 4 seeds (the CPU forcing the bf16 precision the preset
-# resolves to on the card), params and losses within the CPU parity bounds
+# the first PRECISION_CMP_ROUNDS rounds (an evaluation included) of 4 seeds
+# (the CPU forcing the bf16 precision the preset resolves to on the card;
+# all 30 rounds until phase 6 came, the script's time), each side its own
+# campaign of those rounds, params and losses within the CPU parity bounds
 # of tests/test_torch_{precision,quantcomm}.py (1e-3 bf16 policy, 6e-2
 # int8, 2e-2 bf16 wire) and accuracy per evaluated round at γ = 10 within
 # CMP_ACC_SAMPLES_MIXED of 1200 test samples (1 %: bf16 roundings of
@@ -767,6 +769,7 @@ PRECISION_VARIANTS = (
     ("bf16 wire", dict(quant="bf16"), 2e-2),
 )
 CMP_ACC_SAMPLES_MIXED = 12
+PRECISION_CMP_ROUNDS = 10
 PROFILE_WINDOW = 9
 
 
@@ -925,30 +928,39 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
                   f"kernel_bf16 steady round KL launches "
                   f"{[out[(tx, ty, k)] for tx, ty in KL_PAIRS[:2] for k in ('fwd', 'bwd')]} "
                   f"!= E {shape[1]} each")
-        # the card against the CPU over the whole campaign
+        # the card against the CPU over the first PRECISION_CMP_ROUNDS
         cpu_opts = dict(opts, policy=forced) if "policy" in opts else opts
+        short = dict(kw, rounds=PRECISION_CMP_ROUNDS)
+        card = camp.run_campaign(
+            "splitme", port.DNN10, sp, clients, test_data=test,
+            eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
+            device="cuda", **short, **opts)
         cpu = camp.run_campaign(
             "splitme", port.DNN10, sp, clients, test_data=test,
             eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
-            device="cpu", **kw, **cpu_opts)
-        check(cpu.schedule.E.tolist() == res.schedule.E.tolist()
-              and bool((cpu.schedule.a == res.schedule.a).all()),
+            device="cpu", **short, **cpu_opts)
+        check(cpu.schedule.E.tolist() == card.schedule.E.tolist()
+              and bool((cpu.schedule.a == card.schedule.a).all())
+              and card.schedule.E.tolist()
+              == res.schedule.E[:PRECISION_CMP_ROUNDS].tolist(),
               f"{name}: card and CPU schedules differ")
-        perr, lerr = campaign_max_diff(res, cpu)
-        acc_a, acc_b = res.accuracy_per_round, cpu.accuracy_per_round
+        perr, lerr = campaign_max_diff(card, cpu)
+        acc_a, acc_b = card.accuracy_per_round, cpu.accuracy_per_round
         evaluated = np.isfinite(acc_b).all(axis=1)
         check(bool((np.isfinite(acc_a) == np.isfinite(acc_b)).all()),
               f"{name}: card and CPU evaluate different rounds")
         aerr = float(abs(acc_a[evaluated] - acc_b[evaluated]).max()) * n_test
         v.update(card_cpu_param_diff=perr, card_cpu_loss_diff=lerr,
                  card_cpu_acc_samples=aerr,
-                 final_accuracy=[float(a) for a in acc_a[-1]])
-        print(f"{name}: card (graphed) vs CPU, {S} seeds, {CAMPAIGN_ROUNDS} "
-              f"rounds: max param diff {perr:.3e}, loss {lerr:.3e} (tol "
+                 final_accuracy=[float(a) for a in res.accuracy_per_round[-1]])
+        print(f"{name}: card (graphed) vs CPU, {S} seeds, the first "
+              f"{PRECISION_CMP_ROUNDS} rounds: max param diff {perr:.3e}, loss "
+              f"{lerr:.3e} (tol "
               f"{tol}); accuracy at rounds "
               f"{np.nonzero(evaluated)[0].tolist()}, gamma {CMP_EVAL_GAMMA}: "
               f"max diff {aerr:.0f} of {n_test} test samples (tol "
-              f"{CMP_ACC_SAMPLES_MIXED}); final {acc_a[-1].round(4).tolist()}"
+              f"{CMP_ACC_SAMPLES_MIXED}); at round {PRECISION_CMP_ROUNDS - 1} "
+              f"{acc_a[-1].round(4).tolist()}"
               f" vs {acc_b[-1].round(4).tolist()}")
         check(perr <= tol and lerr <= tol,
               f"{name}: campaign on the card and on the CPU disagree")
@@ -1023,8 +1035,11 @@ BASELINE_VARIANTS = (("kernel_bf16", dict(policy="kernel_bf16"), 1e-3, 1),
 BF16_RULE_SEEDS = tuple(range(8))
 BF16_RULE_SHARE = 0.5
 # a time-varying RAN (phase 3e): (framework, scenario, rounds, K / E); the
-# card against the CPU over the whole campaign for SplitMe, over the first
-# BASELINE_CMP_ROUNDS rounds for FedORA (phase 3d's reason)
+# card against the CPU over the first SCENARIO_CMP_ROUNDS rounds for
+# SplitMe (its whole 30 until phase 6 came, the script's time; each side
+# its own campaign of those rounds), over the first BASELINE_CMP_ROUNDS
+# for FedORA (phase 3d's reason)
+SCENARIO_CMP_ROUNDS = 10
 SCENARIO_RUNS = (("splitme", "straggler:0.4", CAMPAIGN_ROUNDS, {}),
                  ("fedora", "fading", BASELINE_ROUNDS, {"E": 10}))
 
@@ -1443,13 +1458,10 @@ def scenario_phase(torch, port, clients, test):
               and not res.schedule.trace.is_static(), f"{label}: no trace")
         eager, e_call = timed(torch, lambda: run(scan=False))
         graphed_vs_eager(torch, port, res, eager, label)
-        cmp_rounds = rounds if name == "splitme" else BASELINE_CMP_ROUNDS
-        if cmp_rounds == rounds:
-            cpu = run(device="cpu", eval_every=CAMPAIGN_EVAL_EVERY)
-            perr, lerr, aerr, units = card_vs_cpu_campaign(torch, res, cpu,
-                                                           n_test)
-        else:
-            perr, lerr, aerr, units = short_card_vs_cpu(torch, run, n_test)
+        cmp_rounds = (SCENARIO_CMP_ROUNDS if name == "splitme"
+                      else BASELINE_CMP_ROUNDS)
+        perr, lerr, aerr, units = short_card_vs_cpu(torch, run, n_test,
+                                                    rounds=cmp_rounds)
         v = out[label] = {
             "rounds": rounds, "shapes": len(shapes),
             "graphs": res.graphs["graphs"],
@@ -3635,7 +3647,9 @@ DECODER_PREFILL_RUNS = 2    # a warm-up and a timed run
 # capacities, and so the tokens they drop, differ otherwise)
 DECODER_GATES = ("qwen3-14b", "internvl2-1b", "seamless-m4t-medium",
                  "granite-moe-3b-a800m")
-DECODER_CONSIST_LEN = 48    # replayed tokens (~65 ms a step at 40 layers)
+# replayed tokens (~65 ms a step at 40 layers; 48 until phase 6 came, the
+# script's time)
+DECODER_CONSIST_LEN = 32
 # phase 5's reduced card-vs-CPU check: every zoo config
 CARD_CPU_ARCHS = ZOO_ARCHS + tuple(a for a, _, _ in DECODER_ARCHS) + (
     "smollm-135m", "granite-20b", "nemotron-4-15b")
@@ -3899,6 +3913,381 @@ def decoder_consistency(torch, port, arch, dev):
     return e_replay
 
 
+# zoo training (phase 6).  The CPU tests' bounds (tests/test_torch_train.py,
+# each with its reason there): losses at TRAIN_LOSS_TOL; AdamW's first-step
+# moments at TRAIN_MOMENT_TOL of their leaf's max and its parameters within
+# 2 lr a step (Adam's first steps are about -lr sign(g), so an element of
+# |g| near eps may move either way); Adafactor's state at FACTOR_TOL and its
+# parameters at FACTOR_PARAM_TOL of their leaf's move plus an f32 ulp a
+# step; bf16 at BF16_TRAIN_TOL plus a bf16 ulp.  6a: the README line of the
+# example at full size (SmolLM-135M, f32, AdamW) and its first
+# TRAIN_CMP_STEPS steps on the card and the CPU from the same weights and
+# tokens; 6b: SmolLM-135M at phase 4's prefill shape without remat, with it
+# and with the "dots" policy (their loss and gradients at the same weights
+# within REMAT_TOL of no remat's, relative: the embedding backward's atomics
+# keep the card from bit equality); 6c: Granite-MoE-3B-A800M at full width
+# and depth in bf16 with remat, MOE_TRAIN_STEPS AdamW steps on one
+# memorisable batch of MOE_TRAIN_B x MOE_TRAIN_S (the last loss below the
+# first, the JAX package's MoE rule); 6d: every reduced config card vs
+# CPU; 6e: the DNN10 SplitMe campaign under gelu and squared ReLU
+TRAIN_LR = 3e-4
+TRAIN_CMP_STEPS = 3
+TRAIN_README = ["--arch", "smollm-135m", "--steps", "20", "--batch", "2",
+                "--seq", "64"]
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_MOMENT_TOL = 1e-5
+FACTOR_TOL, FACTOR_PARAM_TOL = 1e-5, 1e-4
+BF16_TRAIN_TOL = 1e-3
+REMAT_TOL = 1e-6
+REMAT_MODES = (("no remat", False, None), ("remat", True, None),
+               ("remat dots", True, "dots"))
+REMAT_TIMED = 2
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TRAIN_STEPS = 4, 512, 5
+TRAIN_CARD_CPU_STEPS = 2
+# the rates of tests/test_torch_activations.py: squared ReLU diverges at
+# the default ones in both packages, and its DNN10 weights can reach the
+# edge of f32 overflow (its CPU test's campaign is NaN from round 0's server
+# phase on), so the card and the CPU are held on the losses: finite ones at
+# CARD_CPU_TOL relative, NaN where NaN
+A14_RUNS = (("gelu", {}), ("squared_relu", {"lr_c": 1e-3, "lr_s": 5e-4}))
+
+
+def flat_leaves(tree, prefix=""):
+    """{dotted path: numpy array} of a nested dict of numpy leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def bf16_ulp_of(torch, w):
+    """One bf16 unit in the last place of each |w| (f32's spacing x 2^16:
+    bf16 keeps 7 of f32's 23 mantissa bits)."""
+    import numpy as np
+    return torch.from_numpy(np.spacing(w.abs().numpy()) * 2.0 ** 16)
+
+
+def named_params(model) -> dict:
+    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def train_run(torch, port, model, batches, optimizer="adamw", lr=TRAIN_LR,
+              grad_dtype=None, keep_first=True):
+    """Steps of make_train_step on ``batches``: (losses, the optimizer
+    state after the first step in the reference's layout on the host if
+    ``keep_first``, wall ms a step)."""
+    init_state, train_step = port.make_train_step(
+        model, optimizer=optimizer, lr=lr, grad_dtype=grad_dtype)
+    state, step = init_state()
+    losses, first, ms = [], None, []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, step, m = train_step(state, step, b)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if keep_first and first is None:
+            first = flat_leaves(port.opt_state_to_numpy(model.cfg, optimizer,
+                                                        state))
+    return losses, first, ms
+
+
+def train_card_vs_cpu(torch, port, cfg, batches, optimizer="adamw",
+                      grad_dtype=None, card=None):
+    """The same weights and batches through make_train_step on the card and
+    on the CPU: the largest loss difference, the largest parameter
+    difference over its bound, the largest first-step state difference
+    over its leaf's max, and the card's losses and ms a step."""
+    import numpy as np
+    card = card or port.build_model(cfg, device="cuda", policy="reference")
+    cpu = port.build_model(cfg, device="cpu", policy="reference")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    init = named_params(card)
+    out = {}
+    for name, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        out[name] = train_run(
+            torch, port, model,
+            [{k: v.to(dev) for k, v in b.items()} for b in batches],
+            optimizer, grad_dtype=grad_dtype) + (named_params(model),)
+    (lc, sc, ms, pc), (lp, sp, _, pp) = out["card"], out["cpu"]
+    n = len(batches)
+    lerr = max(abs(a - b) for a, b in zip(lc, lp))
+    worst = 0.0      # parameter difference over its bound, largest
+    for k, w in pp.items():
+        err = (pc[k] - w).abs()
+        if optimizer == "adafactor":
+            bound = (FACTOR_PARAM_TOL * (w - init[k]).abs().max()
+                     + n * torch.from_numpy(np.spacing(w.abs().numpy())))
+        else:
+            bound = 2 * TRAIN_LR * n + (
+                0.0 if grad_dtype is None and cfg.dtype == "float32"
+                else bf16_ulp_of(torch, w))
+        worst = max(worst, (err / bound).max().item())
+    serr = float(max(np.abs(sc[k] - v).max() / max(np.abs(v).max(), 1e-30)
+                     for k, v in sp.items()))
+    return lerr, worst, serr, lc, ms
+
+
+def train_batches(torch, cfg, n, B=2, S=32, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        b = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen)}
+        if cfg.frontend:
+            b["embeds"] = torch.randn(B, cfg.frontend_positions, cfg.d_model,
+                                      generator=gen)
+        out.append(b)
+    return out
+
+
+def pretrain_phase(torch, port, smi):
+    """6a: the README line of the port's lm_pretrain example at full size
+    on the card, then its first TRAIN_CMP_STEPS steps from the same seed-0
+    weights and tokens on the card and the CPU."""
+    import io
+    import re
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = port.lm_pretrain.main(TRAIN_README)
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"  lm_pretrain {' '.join(TRAIN_README)}: {line}")
+    check(len(losses) == 20 and all(abs(v) < float("inf") for v in losses),
+          f"lm_pretrain losses {losses}")
+    check(lines[0].startswith("arch=smollm-135m params=134.5M "
+                              "optimizer=adamw"), lines[0])
+    cfg = dataclasses.replace(port.get_config("smollm-135m"),
+                              dtype="float32")
+    stream = port.lm_pretrain.token_stream(cfg.vocab_size, 2, 64)
+    batches = [{"tokens": torch.from_numpy(next(stream))}
+               for _ in range(TRAIN_CMP_STEPS)]
+    card = port.build_model(cfg, remat=False, device="cuda",
+                            policy="reference")
+    lerr, worst, serr, lc, ms = train_card_vs_cpu(torch, port, cfg, batches,
+                                                  card=card)
+    same = max(abs(a - b) for a, b in zip(lc, losses))
+    print(f"6a lm_pretrain README line: 20 steps in {wall:.2f} s (build "
+          f"included), printed {re.findall(r'[0-9.]+s/step', lines[-1])}; "
+          f"card vs CPU over {TRAIN_CMP_STEPS} steps (TF32 off): loss "
+          f"{lerr:.3e} (tol {TRAIN_LOSS_TOL}), params {worst:.3f} of 2 lr a "
+          f"step, first-step moments {serr:.3e} of their max (tol "
+          f"{TRAIN_MOMENT_TOL}); the example's losses vs this run's "
+          f"{same:.3e}; card ms a step {[round(v, 3) for v in ms]} | {smi}")
+    check(lerr <= TRAIN_LOSS_TOL and worst <= 1.0 and serr <= TRAIN_MOMENT_TOL
+          and same <= TRAIN_LOSS_TOL, "6a: card and CPU training disagree")
+    del card
+    torch.cuda.empty_cache()
+    return {"losses": losses, "wall_s": wall, "card_cpu_loss": lerr,
+            "card_cpu_param_of_bound": worst, "card_cpu_moments": serr,
+            "card_ms_per_step": ms}
+
+
+def remat_phase(torch, port, smi):
+    """6b: SmolLM-135M (f32) at PREFILL_B x PREFILL_LEN: the loss and
+    gradients with remat and "dots" against no remat at the same weights,
+    then each mode's train step: ms a step, tokens/s, peak memory, idle
+    share and its heaviest device operations."""
+    cfg = dataclasses.replace(port.get_config("smollm-135m"),
+                              dtype="float32")
+    model = port.build_model(cfg, remat=False, device="cuda",
+                             policy="reference")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (PREFILL_B, PREFILL_LEN), generator=gen,
+                                     device="cuda")}
+    tokens = PREFILL_B * PREFILL_LEN
+    for p in model.parameters():
+        p.requires_grad_(True)
+    ref, out = None, {}
+    for label, remat, policy in REMAT_MODES:
+        model.remat, model.remat_policy = remat, policy
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        logits, extras = model.forward(batch)
+        loss = port.lm_loss(cfg, logits, batch["tokens"], extras)
+        del logits, extras
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        if ref is None:
+            ref = (loss.item(), grads)
+            lerr = gerr = 0.0
+        else:
+            lerr = abs(loss.item() - ref[0]) / abs(ref[0])
+            gerr = max(((g - ref[1][n]).abs().max()
+                        / ref[1][n].abs().max()).item()
+                       for n, g in grads.items())
+        del grads
+        out[label] = {"loss_rel_err": lerr, "grad_rel_err": gerr,
+                      "fwd_bwd_peak_gb": peak}
+    for p in model.parameters():
+        p.grad = None
+    init_state, train_step = port.make_train_step(model, "adamw")
+    state, step = init_state()
+    for label, remat, policy in REMAT_MODES:
+        model.remat, model.remat_policy = remat, policy
+        state, step, _ = train_step(state, step, batch)      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(REMAT_TIMED + 1)]
+        ev[0].record()
+        for i in range(REMAT_TIMED):
+            state, step, m = train_step(state, step, batch)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(REMAT_TIMED)]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        box = {"s": (state, step)}
+
+        def one():
+            box["s"] = train_step(*box["s"], batch)[:2]
+        wall, busy = profiled(torch, one, f"6b SmolLM-135M f32 train step "
+                              f"{PREFILL_B} x {PREFILL_LEN}, {label}", top=6)
+        state, step = box["s"]
+        o = out[label]
+        o.update(ms_per_step=statistics.median(ms), ms=ms,
+                 tokens_per_s=tokens / statistics.median(ms) * 1e3,
+                 peak_gb=peak, peak_above_held_gb=peak - held / 1e9,
+                 idle_share=1 - busy / wall, loss=m["loss"].item())
+        print(f"6b {label}: {o['ms_per_step']:.2f} ms a step "
+              f"({[round(v, 2) for v in ms]}), {o['tokens_per_s']:.0f} "
+              f"tokens/s, peak {peak:.2f} GB (a train step; "
+              f"{o['peak_above_held_gb']:.2f} GB above the {held / 1e9:.2f} "
+              f"GB held), forward+backward {o['fwd_bwd_peak_gb']:.2f} GB "
+              f"above what it held; idle share {o['idle_share']:.4f}; loss "
+              f"{o['loss_rel_err']:.3e} and gradients {o['grad_rel_err']:.3e}"
+              f" of no remat's (relative, tol {REMAT_TOL}) | {smi}")
+        check(o["loss_rel_err"] <= REMAT_TOL and o["grad_rel_err"]
+              <= REMAT_TOL, f"6b: {label} departs from no remat")
+    check(out["remat"]["fwd_bwd_peak_gb"]
+          < out["no remat"]["fwd_bwd_peak_gb"],
+          "6b: remat did not lower the peak")
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase(torch, port, smi):
+    """6c: Granite-MoE-3B-A800M at full width and depth, bf16, remat,
+    default_optimizer, MOE_TRAIN_STEPS steps on one memorisable batch: the
+    loss falls; ms a step, tokens/s, peak memory, the aux term and the
+    capacity drops of the batch's forward pass after the steps."""
+    cfg = port.get_config("granite-moe-3b-a800m")
+    torch.cuda.empty_cache()
+    model, build_ms = timed(torch, lambda: port.build_model(
+        cfg, remat=True, device="cuda"))
+    n = sum(p.numel() for p in model.parameters())
+    opt = port.default_optimizer(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (MOE_TRAIN_B, MOE_TRAIN_S),
+                                     generator=gen, device="cuda")}
+    torch.cuda.reset_peak_memory_stats()
+    losses, _, ms = train_run(torch, port, model,
+                              [batch] * MOE_TRAIN_STEPS, optimizer=opt,
+                              keep_first=False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad(), counting_drops(port) as counts:
+        _, extras = model.forward(batch)
+        aux = extras["aux"].item()
+    dropped, pairs, load = drops(counts)
+    tokens = MOE_TRAIN_B * MOE_TRAIN_S
+    steady = statistics.median(ms[1:])
+    print(f"6c {cfg.name} ({n / 1e9:.2f} B params, {cfg.dtype}, remat, "
+          f"{opt}, built in {build_ms / 1e3:.2f} s) {MOE_TRAIN_B} x "
+          f"{MOE_TRAIN_S}: losses "
+          f"{[round(v, 4) for v in losses]}; ms a step "
+          f"{[round(v, 1) for v in ms]} (steady {steady:.1f}, "
+          f"{tokens / steady * 1e3:.0f} tokens/s); peak {peak:.2f} GB; aux "
+          f"{aux:.4f}; capacity drops {dropped} of {pairs} (token, expert) "
+          f"pairs, fullest expert {load:.2f} x its mean | {smi}")
+    check(all(abs(v) < float("inf") for v in losses)
+          and losses[-1] < losses[0], f"6c: the MoE loss did not fall "
+          f"{losses}")
+    del model
+    torch.cuda.empty_cache()
+    return {"params": n, "losses": losses, "ms": ms,
+            "tokens_per_s": tokens / steady * 1e3, "peak_gb": peak,
+            "aux": aux, "dropped": dropped, "pairs": pairs}
+
+
+def train_reduced_phase(torch, port, smi):
+    """6d: every reduced config (f32, plain scans, remat on), AdamW; reduced
+    DeepSeek-V3 under Adafactor; SmolLM with bf16 gradients: card vs CPU."""
+    out = {}
+    runs = [(a, "adamw", None) for a in CARD_CPU_ARCHS] + [
+        ("deepseek-v3-671b", "adafactor", None),
+        ("smollm-135m", "adamw", "bfloat16")]
+    for arch, optimizer, gdt in runs:
+        cfg = port.get_config(arch).reduced()
+        lerr, worst, serr, _, _ = train_card_vs_cpu(
+            torch, port, cfg, train_batches(torch, cfg, TRAIN_CARD_CPU_STEPS),
+            optimizer, gdt)
+        ltol = BF16_TRAIN_TOL if gdt else TRAIN_LOSS_TOL
+        stol = FACTOR_TOL if optimizer == "adafactor" else TRAIN_MOMENT_TOL
+        label = f"{arch} {optimizer}{' grad bf16' if gdt else ''}"
+        print(f"6d {label}: card vs CPU over {TRAIN_CARD_CPU_STEPS} steps: "
+              f"loss {lerr:.3e} (tol {ltol}), params {worst:.3f} of their "
+              f"bound, first-step state {serr:.3e} of its max"
+              f"{'' if gdt else f' (tol {stol})'} | {smi}")
+        check(lerr <= ltol and worst <= 1.0 and (gdt or serr <= stol),
+              f"6d: {label}: card and CPU disagree")
+        out[label] = {"loss": lerr, "param_of_bound": worst, "state": serr}
+    return out
+
+
+def a14_phase(torch, port, sp, clients, test, smi):
+    """6e: the DNN10 SplitMe campaign (phase 3b's data, 3 rounds, seed 0,
+    graphed) under gelu and squared ReLU, card vs CPU; the KL and Gram
+    kernels launch."""
+    import numpy as np
+    out = {}
+    for act, lrs in A14_RUNS:
+        cfg = dataclasses.replace(port.DNN10, activation=act)
+        kl0, rg0 = port.kl_ops.launches, port.rg_ops.launches
+        kw = dict(rounds=3, seeds=(0,), test_data=test,
+                  eval_gamma=CMP_EVAL_GAMMA, **lrs)
+        card = port.campaign.run_campaign("splitme", cfg, sp, clients,
+                                          device="cuda", **kw)
+        kl_n, rg_n = port.kl_ops.launches - kl0, port.rg_ops.launches - rg0
+        cpu = port.campaign.run_campaign("splitme", cfg, sp, clients,
+                                         device="cpu", **kw)
+        if act == "gelu":
+            perr, lerr = campaign_max_diff(card, cpu)
+            ok = perr <= CARD_CPU_TOL and lerr <= CARD_CPU_TOL
+            what = f"params {perr:.3e}, losses {lerr:.3e}"
+        else:
+            a, b = card.losses, cpu.losses
+            fin = np.isfinite(b)
+            lerr = float((np.abs(a[fin] - b[fin])
+                          / np.maximum(np.abs(b[fin]), 1.0)).max(initial=0.0))
+            ok = np.array_equal(fin, np.isfinite(a)) and lerr <= CARD_CPU_TOL
+            perr = None
+            what = (f"losses {lerr:.3e} relative where finite, NaN where the "
+                    f"CPU's are ({int((~fin).sum())} of {fin.size})")
+        print(f"6e DNN10 {act} campaign (3 rounds, graphed, "
+              f"{card.graphs['graphs']} graphs): card vs CPU {what} (tol "
+              f"{CARD_CPU_TOL}); launches kl_mutual {kl_n}, ridge_gram "
+              f"{rg_n}; accuracy {card.accuracy} vs {cpu.accuracy} | {smi}")
+        check(ok and kl_n > 0 and rg_n > 0,
+              f"6e: the {act} campaign fails its gates")
+        out[act] = {"param_diff": perr, "loss_diff": lerr,
+                    "kl_mutual": kl_n, "ridge_gram": rg_n}
+    return out
+
+
 def import_port():
     """The port's modules, from ``src/`` beside this script."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3931,7 +4320,11 @@ def import_port():
     from repro_torch.launch import campaign, mesh as meshes, resilience
     from repro_torch.models import moe
     from repro_torch.models.transformer import build_model
-    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+    from repro_torch.convert import opt_state_to_numpy
+    from repro_torch.examples import lm_pretrain
+    from repro_torch.runtime.steps import (default_optimizer, lm_loss,
+                                           make_prefill_step, make_serve_step,
+                                           make_train_step)
     return types.SimpleNamespace(**locals())
 
 
@@ -4247,8 +4640,21 @@ def main() -> int:
             check(not any(scan_and_flash_launches(port).values()),
                   f"{arch}: a kernel launched on a path that has none")
 
-    # -- 6. result -----------------------------------------------------------
-    phase("6. result")
+    # -- 6. zoo training -----------------------------------------------------
+    phase("6. zoo training")
+    zero_launches(port)
+    training = {"6a": pretrain_phase(torch, port, smi),
+                "6b": remat_phase(torch, port, smi),
+                "6c": moe_train_phase(torch, port, smi),
+                "6d": train_reduced_phase(torch, port, smi)}
+    scans = scan_and_flash_launches(port)
+    print(f"6f flash / WKV / SSD launches through 6a-6d: {scans} | {smi}")
+    check(not any(scans.values()), "6f: training launched a kernel that "
+          "its path does not run")
+    training["6e"] = a14_phase(torch, port, sp, clients, test, smi)
+
+    # -- 7. result -----------------------------------------------------------
+    phase("7. result")
     kernels = [
         {"name": "kl_mutual", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
@@ -4316,6 +4722,7 @@ def main() -> int:
     print("README command lines (phase 3j), seconds: " + json.dumps(readme))
     print("decoder and enc-dec families served (phase 4): "
           + json.dumps(decoders))
+    print(f"zoo training (phase 6), {smi}: " + json.dumps(training))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

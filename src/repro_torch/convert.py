@@ -71,7 +71,7 @@ def qstate_shards_to_numpy(per_rank: Sequence, axis: int = 1):
 # Model-zoo parameter trees
 # ---------------------------------------------------------------------------
 
-def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
+def layer_stacks(cfg) -> Dict[str, Tuple[int, ...]]:
     """The JAX tree's stacked subtrees and their leading dims: the layers of
     ``lax.scan``, which the port keeps as a list of modules.  What lies
     inside a layer keeps its dims (an MoE layer's ``(E, …)`` expert
@@ -89,13 +89,14 @@ def _stacks(cfg) -> Dict[str, Tuple[int, ...]]:
                      f"zoo")
 
 
-def _leaves(tree: dict, prefix: Tuple[str, ...] = ()
+def _leaves(tree: dict, prefix: Tuple[str, ...] = (),
+            is_leaf=lambda v: not isinstance(v, dict)
             ) -> Iterator[Tuple[Tuple[str, ...], object]]:
     for name, value in tree.items():
-        if isinstance(value, dict):
-            yield from _leaves(value, prefix + (name,))
-        else:
+        if is_leaf(value):
             yield prefix + (name,), value
+        else:
+            yield from _leaves(value, prefix + (name,), is_leaf)
 
 
 def _tensor(leaf, device: torch.device) -> torch.Tensor:
@@ -109,14 +110,16 @@ def _tensor(leaf, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def model_params_from_numpy(cfg, tree: dict,
-                            device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """A JAX zoo model's parameter tree (numpy leaves) -> the port model's
-    state dict, for ``model.load_state_dict``.  Stacked layer leaves are
-    split on their leading dim (Zamba2's ``(n_groups, group, …)`` leaves
-    flattened first); each leaf keeps its dtype."""
-    dev = resolve_device(device)
-    stacks = _stacks(cfg)
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor as numpy; bf16 as float32 (numpy has no
+    bfloat16; exact)."""
+    t = t.detach().cpu()
+    return np.array((t.float() if t.dtype == torch.bfloat16 else t).numpy())
+
+
+def _split(cfg, tree: dict, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """A JAX tree of stacked leaves -> the port's per-layer names."""
+    stacks = layer_stacks(cfg)
     out = {}
     for path, leaf in _leaves(tree):
         t = _tensor(leaf, dev)
@@ -133,16 +136,14 @@ def model_params_from_numpy(cfg, tree: dict,
     return out
 
 
-def model_params_to_numpy(model) -> dict:
-    """The port model's parameters -> the JAX package's tree, stacked as
-    JAX stacks them.  bf16 leaves come back as float32 (numpy has no
-    bfloat16; the values are exact)."""
-    stacks = _stacks(model.cfg)
+def _stack(cfg, named) -> dict:
+    """The port's per-layer (name, tensor) pairs -> the JAX tree, stacked
+    as JAX stacks it (numpy leaves)."""
+    stacks = layer_stacks(cfg)
     tree: dict = {}
     stacked: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
-    for key, t in model.state_dict().items():
-        t = t.detach().cpu()
-        a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    for key, t in named:
+        a = _numpy(t)
         parts = key.split(".")
         if parts[0] in stacks:
             stacked.setdefault((parts[0], *parts[2:]), {})[int(parts[1])] = a
@@ -152,6 +153,64 @@ def model_params_to_numpy(model) -> dict:
         arr = np.stack([by_layer[i] for i in range(len(by_layer))])
         _put(tree, path, arr.reshape(stacks[path[0]] + arr.shape[1:]))
     return tree
+
+
+def model_params_from_numpy(cfg, tree: dict,
+                            device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A JAX zoo model's parameter tree (numpy leaves) -> the port model's
+    state dict, for ``model.load_state_dict``.  Stacked layer leaves are
+    split on their leading dim (Zamba2's ``(n_groups, group, …)`` leaves
+    flattened first); each leaf keeps its dtype."""
+    return _split(cfg, tree, resolve_device(device))
+
+
+def model_params_to_numpy(model) -> dict:
+    """The port model's parameters -> the JAX package's tree, stacked as
+    JAX stacks them.  bf16 leaves come back as float32 (numpy has no
+    bfloat16; the values are exact)."""
+    return _stack(model.cfg, model.state_dict().items())
+
+
+# ---------------------------------------------------------------------------
+# Optimizer states (repro_torch.optim.optimizers)
+# ---------------------------------------------------------------------------
+
+def _is_factored(v) -> bool:
+    return isinstance(v, dict) and ("v" in v or "vr" in v)
+
+
+def opt_state_from_numpy(cfg, optimizer: str, tree,
+                         device: DeviceLike = None) -> dict:
+    """The reference optimizer's state of a zoo model (numpy leaves, the
+    layers stacked) -> the port's: ``sgd``'s momentum tree (``()`` without
+    momentum) and ``adamw``'s ``{"m", "v"}`` trees split per layer like the
+    parameters, ``adafactor``'s ``{"vr", "vc"}`` / ``{"v"}`` leaves keyed by
+    the reference leaf path (``"layers.attn.wq"``) in the reference's
+    shapes.  All f32."""
+    dev = resolve_device(device)
+    if optimizer == "sgd":
+        return _split(cfg, tree, dev) if len(tree) else {}
+    if optimizer == "adamw":
+        return {k: _split(cfg, tree[k], dev) for k in ("m", "v")}
+    if optimizer == "adafactor":
+        return {".".join(path): {k: _tensor(a, dev) for k, a in s.items()}
+                for path, s in _leaves(tree, is_leaf=_is_factored)}
+    raise ValueError(optimizer)
+
+
+def opt_state_to_numpy(cfg, optimizer: str, state: dict):
+    """The port's optimizer state -> the reference's tree (numpy leaves),
+    the inverse of ``opt_state_from_numpy``."""
+    if optimizer == "sgd":
+        return _stack(cfg, state.items()) if state else ()
+    if optimizer == "adamw":
+        return {k: _stack(cfg, state[k].items()) for k in ("m", "v")}
+    if optimizer == "adafactor":
+        tree: dict = {}
+        for leaf, s in state.items():
+            _put(tree, leaf.split("."), {k: _numpy(t) for k, t in s.items()})
+        return tree
+    raise ValueError(optimizer)
 
 
 def _put(tree: dict, path: Sequence[str], value) -> None:

@@ -22,18 +22,9 @@ from typing import List, Sequence, Tuple
 import torch
 
 from repro_torch.configs.splitme_dnn import DNNConfig
+from repro_torch.models.common import activation_fn
 
 Layers = List[dict]
-
-
-def relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.relu(x)
-
-
-def activation_fn(name: str):
-    if name == "relu":
-        return relu
-    raise NotImplementedError(f"activation {name!r} is not ported yet")
 
 
 def init_mlp(generator: torch.Generator, dims: Sequence[int],

@@ -1229,7 +1229,7 @@ def _make_splitme(cfg: DNNConfig, *, lr_c: float = 0.05, lr_s: float = 0.02,
                   quant: CommQuant = quantcomm.NONE, **_) -> FrameworkSpec:
     """SplitMe spec.  Both mutual-KL phase losses go through
     ``dispatch.kl_loss`` (the CUDA kernel on the card): with temperature 2
-    the client phase's "logits" are the post-ReLU smashed activations and
+    the client phase's "logits" are the post-activation smashed data and
     the server phase's the linear output of s⁻¹.
     ``masked_loss_metric=False`` keeps the seed trainer's loss metric (the
     mean over all E_max steps); ``True`` averages over the executed steps

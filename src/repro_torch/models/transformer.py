@@ -5,6 +5,7 @@ One ``nn.Module`` facade per family, built by :func:`build_model`:
 
     model = build_model(cfg, device="cuda")        # weights from seed 0
     logits, aux = model.forward({"tokens": tokens})  # train / prefill
+    init_state, train_step = make_train_step(model)  # runtime.steps
     cache = model.init_cache(batch, prefill_len)     # decode
     logits, cache = model.decode_step(tokens, cache)
 
@@ -18,15 +19,28 @@ memory=)``).  The parameters keep the JAX package's tree and names
 (``model["layers"][3]["tm"]["w_r"]``, state-dict key ``layers.3.tm.w_r``,
 is the JAX leaf ``["layers"]["tm"]["w_r"][3]``); the layers, which JAX
 stacks on a leading dim for ``lax.scan``, are an ``nn.ModuleList`` looped
-over in Python.  They are held without gradients: this slice serves, and
-training comes with a later one.
+over in Python.  They are held without gradients until a train step's
+``init_state`` turns them on.
+
+Remat (``build_model(remat=True)``, the JAX package's default) recomputes
+the bodies the JAX package wraps in ``jax.checkpoint`` in the backward
+pass: each decoder, encoder and RWKV layer and each Zamba2 Mamba2 layer
+(not its shared attention block), through ``torch.utils.checkpoint``.
+``remat_policy="dots"`` (the decoder's only, as in the JAX package) keeps
+the weight GEMMs' outputs and recomputes the rest, the batched attention
+products among it: ``checkpoint_dots_with_no_batch_dims``.  Remat acts
+only under autograd with the parameters' gradients on, so serving runs as
+without it.  The JAX package's ``unroll=`` has no counterpart: the layers
+here are a Python loop already.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -58,6 +72,15 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._modules or name in self._parameters
+
+    def tree(self) -> dict:
+        """The parameters as a nested dict of tensors (layers as lists),
+        for ``repro_torch.checkpoint.io.save`` / ``restore``."""
+        out = dict(self._parameters)
+        for name, mod in self._modules.items():
+            out[name] = ([m.tree() for m in mod]
+                         if isinstance(mod, nn.ModuleList) else mod.tree())
+        return out
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -140,6 +163,14 @@ def _logits_out(p, x, tied: bool = False):
     return rms_norm(x, p["ln_f"]) @ w
 
 
+# remat_policy="dots": save what the weight GEMMs (x @ W, no batch dims)
+# return, recompute everything else
+_DOTS = functools.partial(_checkpoint.create_selective_checkpoint_contexts,
+                          [torch.ops.aten.mm.default,
+                           torch.ops.aten.addmm.default])
+REMAT_POLICIES = (None, "dots")
+
+
 def _window(prefill_len: int, decode_window: Optional[int]) -> int:
     """Slots of a decode ring buffer: the prefill + 128, or the window."""
     return min(decode_window or (prefill_len + 128), prefill_len + 128)
@@ -151,16 +182,30 @@ class _ZooModel(Params):
 
     def __init__(self, cfg: ArchConfig, tree: dict,
                  policy: dispatch.PolicyLike,
-                 decode_window: Optional[int]):
+                 decode_window: Optional[int], remat: bool = True,
+                 remat_policy: Optional[str] = None):
         super().__init__(tree)
         self.cfg = cfg
         self.policy = dispatch.get_policy(policy)
         self.decode_window = decode_window
         self.dtype = _dtype(cfg)
+        self.remat = remat
+        self.remat_policy = remat_policy
 
     @property
     def device(self) -> torch.device:
         return self["embed"].device
+
+    def _remat(self, fn, *args, policy: Optional[str] = None):
+        """fn(*args), recomputed in the backward pass when remat is on and
+        autograd records the parameters; ``policy="dots"`` saves the
+        weight GEMMs."""
+        if not (self.remat and torch.is_grad_enabled()
+                and self["embed"].requires_grad):
+            return fn(*args)
+        kw = {"context_fn": _DOTS} if policy == "dots" else {}
+        return _checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                      preserve_rng_state=False, **kw)
 
 
 # ----- dense / vlm / moe decoder ------------------------------------------
@@ -174,8 +219,8 @@ class DecoderModel(_ZooModel):
     ``"mtp_logits"``."""
 
     def __init__(self, cfg, tree, policy, decode_window,
-                 moe_local_dispatch: bool = False):
-        super().__init__(cfg, tree, policy, decode_window)
+                 moe_local_dispatch: bool = False, **remat):
+        super().__init__(cfg, tree, policy, decode_window, **remat)
         self.moe_local = moe_local_dispatch
 
     @staticmethod
@@ -211,7 +256,8 @@ class DecoderModel(_ZooModel):
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = x.new_zeros((), dtype=torch.float32)
         for lp in p["layers"]:
-            x, a = self._block(lp, x, positions)
+            x, a = self._remat(self._block, lp, x, positions,
+                               policy=self.remat_policy)
             if a is not None:
                 aux = aux + a
         logits = _logits_out(p, x, cfg.tie_embeddings)
@@ -285,17 +331,19 @@ class RWKVModel(_ZooModel):
                 "ln_f": torch.ones((cfg.d_model,), dtype=dt, device=gen.device),
                 "unembed": dense_init(gen, cfg.d_model, cfg.vocab_size, dt)}
 
+    def _block(self, lp, x):
+        h = rwkv6.rwkv6_time_mix(lp["tm"], layer_norm(x, lp["ln1"], lp["ln1b"]),
+                                 self.cfg.ssm, policy=self.policy)
+        x = x + h
+        h = rwkv6.rwkv6_channel_mix(lp["tm"],
+                                    layer_norm(x, lp["ln2"], lp["ln2b"]))
+        return x + h
+
     def forward(self, batch):
-        cfg, p = self.cfg, self
+        p = self
         x = p["embed"][batch["tokens"]]
         for lp in p["layers"]:
-            h = rwkv6.rwkv6_time_mix(lp["tm"],
-                                     layer_norm(x, lp["ln1"], lp["ln1b"]),
-                                     cfg.ssm, policy=self.policy)
-            x = x + h
-            h = rwkv6.rwkv6_channel_mix(lp["tm"],
-                                        layer_norm(x, lp["ln2"], lp["ln2b"]))
-            x = x + h
+            x = self._remat(self._block, lp, x)
         return _logits_out(p, x), {"aux": x.new_zeros((), dtype=torch.float32)}
 
     def init_cache(self, batch: int, prefill_len: int = 0):
@@ -327,8 +375,8 @@ class ZambaModel(_ZooModel):
     here ``mamba`` lists all ``n_layers`` and layer i belongs to group
     i // group."""
 
-    def __init__(self, cfg, tree, policy, decode_window):
-        super().__init__(cfg, tree, policy, decode_window)
+    def __init__(self, cfg, tree, policy, decode_window, **remat):
+        super().__init__(cfg, tree, policy, decode_window, **remat)
         self.group = cfg.shared_attn_every or cfg.n_layers
         self.n_groups = cfg.n_layers // self.group
         if self.n_groups * self.group != cfg.n_layers:
@@ -348,6 +396,10 @@ class ZambaModel(_ZooModel):
         """Indices of the Mamba2 layers of group g."""
         return range(g * self.group, (g + 1) * self.group)
 
+    def _mamba_body(self, lp, x):
+        return x + mamba2.mamba2_forward(lp["mix"], rms_norm(x, lp["ln"]),
+                                         self.cfg.ssm, policy=self.policy)
+
     def forward(self, batch):
         cfg, p = self.cfg, self
         x = p["embed"][batch["tokens"]]
@@ -355,9 +407,7 @@ class ZambaModel(_ZooModel):
         shared = p["shared"]
         for g in range(self.n_groups):
             for i in self._group(g):
-                lp = p["mamba"][i]
-                x = x + mamba2.mamba2_forward(lp["mix"], rms_norm(x, lp["ln"]),
-                                              cfg.ssm, policy=self.policy)
+                x = self._remat(self._mamba_body, p["mamba"][i], x)
             # shared attention block (same params every group)
             x = _apply_dense_block(shared, x, cfg, positions=positions,
                                    window=cfg.sliding_window)
@@ -445,23 +495,27 @@ class EncDecModel(_ZooModel):
         """Frame embeddings (b, frames, d_model) -> the memory."""
         x = embeds.to(self.dtype) @ self["frontend_proj"]
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        body = functools.partial(_apply_dense_block, cfg=self.cfg,
+                                 positions=pos, causal=False)
         for lp in self["enc_layers"]:
-            x = _apply_dense_block(lp, x, self.cfg, positions=pos,
-                                   causal=False)
+            x = self._remat(body, lp, x)
         return x
 
+    def _dec_body(self, lp, x, memory, pos):
+        x = x + attn.attention(lp["self"], rms_norm(x, lp["ln1"]),
+                               positions=pos, **self._attn_kw())
+        x = x + attn.attention(lp["cross"], rms_norm(x, lp["ln_x"]),
+                               memory=memory, **self._attn_kw())
+        return x + apply_ffn(lp["ffn"], rms_norm(x, lp["ln2"]),
+                             self.cfg.activation)
+
     def forward(self, batch):
-        cfg, p = self.cfg, self
+        p = self
         memory = self.encode(batch["embeds"])
         x = p["embed"][batch["tokens"]]
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         for lp in p["dec_layers"]:
-            x = x + attn.attention(lp["self"], rms_norm(x, lp["ln1"]),
-                                   positions=pos, **self._attn_kw())
-            x = x + attn.attention(lp["cross"], rms_norm(x, lp["ln_x"]),
-                                   memory=memory, **self._attn_kw())
-            x = x + apply_ffn(lp["ffn"], rms_norm(x, lp["ln2"]),
-                              cfg.activation)
+            x = self._remat(self._dec_body, lp, x, memory, pos)
         return _logits_out(p, x), {"aux": x.new_zeros((), dtype=torch.float32)}
 
     def init_cache(self, batch: int, prefill_len: int = 0,
@@ -506,23 +560,32 @@ _FAMILIES = {"dense": DecoderModel, "vlm": DecoderModel, "moe": DecoderModel,
              "ssm": RWKVModel, "hybrid": ZambaModel, "audio": EncDecModel}
 
 
-def build_model(cfg: ArchConfig, *, decode_window: Optional[int] = None,
+def build_model(cfg: ArchConfig, *, remat: bool = True,
+                remat_policy: Optional[str] = None,
+                decode_window: Optional[int] = None,
                 policy: dispatch.PolicyLike = None,
                 device: DeviceLike = None,
                 moe_local_dispatch: bool = False) -> _ZooModel:
     """The facade of ``cfg``'s family, with weights drawn from a generator
     seeded with 0 on ``device`` (the card unless ``device="cpu"``);
-    ``policy`` picks kernel or plain scans (``dispatch``);
-    ``decode_window`` caps the decode ring buffer (None: the prefill length
-    + 128); ``moe_local_dispatch`` routes each example of an MoE forward
-    pass on its own (``moe.apply_moe(local_dispatch=)``)."""
+    ``remat`` / ``remat_policy`` (None or ``"dots"``, the decoder's) set
+    the backward pass's recomputation (see the module); ``policy`` picks
+    kernel or plain scans (``dispatch``; training needs the plain ones,
+    ``policy="reference"``); ``decode_window`` caps the decode ring buffer
+    (None: the prefill length + 128); ``moe_local_dispatch`` routes each
+    example of an MoE forward pass on its own
+    (``moe.apply_moe(local_dispatch=)``)."""
     cls = _FAMILIES.get(cfg.family)
     if cls is None:
         raise ValueError(f"unsupported family {cfg.family!r} for the "
                          f"transformer zoo")
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; have "
+                         f"{REMAT_POLICIES}")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     tree = cls.init_tree(gen, cfg, _dtype(cfg))
+    kw = dict(remat=remat, remat_policy=remat_policy)
     if cls is DecoderModel:
-        return cls(cfg, tree, policy, decode_window, moe_local_dispatch)
-    return cls(cfg, tree, policy, decode_window)
+        return cls(cfg, tree, policy, decode_window, moe_local_dispatch, **kw)
+    return cls(cfg, tree, policy, decode_window, **kw)

@@ -1301,3 +1301,96 @@ def test_gloo_mesh_on_the_card_runs_uncaptured_only(cuda, process_group):
                     quantcomm.tree_leaves(g.params)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
     np.testing.assert_allclose(u.accuracy, g.accuracy, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# zoo training (the bounds of tests/test_torch_train.py, reasons there)
+# ---------------------------------------------------------------------------
+
+_TRAIN_ARCHS = ("smollm-135m", "deepseek-v3-671b", "granite-moe-3b-a800m",
+                "seamless-m4t-medium", "rwkv6-1.6b", "zamba2-2.7b")
+
+
+def _train_batches(cfg, n, device, B=2, S=32):
+    g = torch.Generator().manual_seed(5)
+    out = []
+    for _ in range(n):
+        b = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+        if cfg.frontend:
+            b["embeds"] = torch.randn(B, cfg.frontend_positions, cfg.d_model,
+                                      generator=g)
+        out.append({k: v.to(device) for k, v in b.items()})
+    return out
+
+
+def _trained(model, batches, optimizer="adamw", lr=3e-4):
+    from repro_torch.runtime.steps import make_train_step
+    init_state, train_step = make_train_step(model, optimizer, lr=lr)
+    state, step = init_state()
+    losses = []
+    for b in batches:
+        state, step, m = train_step(state, step, b)
+        losses.append(m["loss"].item())
+    return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", _TRAIN_ARCHS)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """Two AdamW steps of a reduced f32 model (plain scans, remat on) from
+    the same weights: losses at 1e-5, parameters within 2 lr a step; no
+    scan or attention kernel launches."""
+    cfg = get_config(arch).reduced()
+    card = build_model(cfg, device=cuda, policy="reference")
+    cpu = build_model(cfg, device="cpu", policy="reference")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    before = (fa_ops.launches, wkv_ops.launches, ssd_ops.launches)
+    lc, pc = _trained(card, _train_batches(cfg, 2, cuda))
+    assert before == (fa_ops.launches, wkv_ops.launches, ssd_ops.launches)
+    lp, pp = _trained(cpu, _train_batches(cfg, 2, "cpu"))
+    np.testing.assert_allclose(lc, lp, rtol=0, atol=1e-5)
+    for n, w in pp.items():
+        assert (pc[n] - w).abs().max().item() <= 2 * 3e-4 * 2, n
+
+
+def test_remat_on_card_matches_no_remat(cuda):
+    """remat and "dots" against no remat at the same weights: loss and
+    gradients within 1e-6 relative (the embedding backward's atomics keep
+    the card from bit equality)."""
+    from repro_torch.runtime.steps import lm_loss
+    cfg = get_config("qwen3-14b").reduced()
+    model = build_model(cfg, device=cuda, remat=False)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    batch = _train_batches(cfg, 1, cuda, B=4, S=64)[0]
+    ref = None
+    for remat, policy in ((False, None), (True, None), (True, "dots")):
+        model.remat, model.remat_policy = remat, policy
+        for p in model.parameters():
+            p.grad = None
+        logits, extras = model.forward(batch)
+        loss = lm_loss(cfg, logits, batch["tokens"], extras)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        if ref is None:
+            ref = (loss.item(), grads)
+            continue
+        assert abs(loss.item() - ref[0]) <= 1e-6 * abs(ref[0])
+        for n, g in grads.items():
+            scale = ref[1][n].abs().max().item()
+            assert (g - ref[1][n]).abs().max().item() <= 1e-6 * scale, n
+
+
+def test_train_step_refuses_kernel_scans_on_card(cuda):
+    """A model on the card whose policy routes a scan to its kernel is
+    refused; the kernel itself raises under autograd, and nothing runs on
+    past it."""
+    from repro_torch.runtime.steps import make_train_step
+    for arch in ("rwkv6-1.6b", "zamba2-2.7b"):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, device=cuda)
+        with pytest.raises(ValueError, match="no backward"):
+            make_train_step(model)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="has no backward"):
+            model.forward(_train_batches(cfg, 1, cuda)[0])

@@ -60,7 +60,8 @@ def test_port_files_exist():
                  "configs/nemotron_4_15b.py", "configs/internvl2_1b.py",
                  "configs/granite_moe_3b_a800m.py",
                  "configs/deepseek_v3_671b.py",
-                 "configs/seamless_m4t_medium.py"):
+                 "configs/seamless_m4t_medium.py", "optim/optimizers.py",
+                 "optim/schedules.py", "examples/lm_pretrain.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",
@@ -160,7 +161,8 @@ def test_examples_without_device_need_a_card():
         pytest.skip("a card is present: the default device is valid here")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     for name, argv in (("quickstart", ["--rounds", "1"]),
-                       ("oran_splitfl_campaign", ["--rounds", "1"])):
+                       ("oran_splitfl_campaign", ["--rounds", "1"]),
+                       ("lm_pretrain", ["--reduced", "--steps", "1"])):
         out = subprocess.run(
             [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
             env=env, capture_output=True, text=True, timeout=300)

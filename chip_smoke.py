@@ -156,7 +156,23 @@ failure ends the run with a non-zero exit code:
 5. the card against the CPU: the same 2 SplitMe rounds from one seed on
    both, and every zoo config reduced: forward (and MTP) logits and 8
    decode steps;
-6. a ``kernels`` JSON line, the nvidia-smi line, and last the result line.
+6. zoo training (6a-6e): the README's ``lm_pretrain`` line, SmolLM-135M
+   f32 at 4 × 2048 with and without remat, Granite-MoE-3B-A800M, the
+   reduced configs card against the CPU, and the DNN's gelu and squared
+   ReLU;
+7. the zoo's tooling, each part a process of its own (a process group is
+   process-global): (a) ``repro_torch.launch.fl_dryrun`` at the
+   reference's settings (512 clients, 64 samples, E 1 and 10) on the fake
+   16 × 16 and 2 × 16 × 16 worlds with the round's tensors on the card,
+   checked against the paper's claim (SplitMe one all-reduce a round,
+   its bytes constant in E; SFL 2E boundary permutes; Step 4 one
+   all-reduce a server layer; the bf16 and int8 wires half and a quarter
+   the bits) with the KL pair and the Gram launched; (b) the roofline
+   terms, counted on meta tensors on a one-rank mesh, of the steps that
+   6b and 4 time, beside their measured ms; (c) one dry-run combination
+   through its CLI, against what the sweep gave on a host.  (b) and (c)
+   need no card and run beside phases 2-6 at the lowest CPU priority;
+8. a ``kernels`` JSON line, the nvidia-smi line, and last the result line.
 
 Without a card, or outside the repository, it exits non-zero and prints no
 result.
@@ -174,15 +190,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, FP32
-# FLOP/s without tensor cores, and dense bf16 and TF32 FLOP/s of the tensor
-# cores.  f32-accurate products on the tensor cores take three TF32
-# products each (3xTF32), so the least time for f32 matrix work is its
-# operations at PEAK_TF32 / 3 (165 TFLOP/s, above PEAK_FP32)
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
-PEAK_BF16 = 989e12
-PEAK_TF32 = 495e12
-PEAK_F32_MMA = PEAK_TF32 / 3
+# FLOP/s without tensor cores, dense bf16 and TF32 FLOP/s of the tensor
+# cores, and PEAK_F32_MMA = PEAK_TF32 / 3, the 3xTF32 rate of f32-accurate
+# products.  Their one home is repro_torch.launch.mesh; import_port() binds
+# them here (this script imports nothing of the port before it has checked
+# for a card and a checkout)
+PEAK_BYTES = PEAK_FP32 = PEAK_BF16 = PEAK_TF32 = PEAK_F32_MMA = None
 
 KL_TOL = 1e-5            # |kernel − plain| on per-row KL values of O(1-10)
 GRAM_TOL = 1e-5          # relative to max(|X|ᵀ|Y|), the f32 summation scale
@@ -1523,6 +1536,10 @@ FAULT_SCENARIO, FAULT_SEED = "faults:0.3", 0
 FAULT_OFF = "faults:0.9"
 FAULT_CLIP = 1.0
 WIRE_FLIP_ROUND, WIRE_ROUNDS, QUORUM_ROUNDS = 2, 8, 4
+# the CPU sides of 3f (the flags of the unclipped campaign, the clipped
+# campaign card against CPU) over the first FAULT_CMP_ROUNDS rounds, each
+# side its own campaign of them (a depth cut: the script's time)
+FAULT_CMP_ROUNDS = 10
 # checkpoints (phase 3g): 3f's campaign saved every CKPT_EVERY rounds and
 # aborted by its checkpoint hook at cursor CKPT_ABORT, then resumed
 CKPT_EVERY, CKPT_ABORT = 10, 20
@@ -1625,29 +1642,33 @@ def fault_phase(torch, port, sp, clients, test, base):
     # it: a x2^12 update makes the trajectory chaotic, and the whole
     # campaign's difference is printed beside the card's own under a one-ulp
     # change of the initial weights, as phase 3d does for FedAvg)
-    cpu = run(device="cpu")
-    flags = all(np.array_equal(getattr(res, f), getattr(cpu, f))
+    R = FAULT_CMP_ROUNDS
+    cpu = run(device="cpu", rounds=R)
+    card_r = run(rounds=R)
+    flags = all(np.array_equal(getattr(card_r, f), getattr(cpu, f))
                 for f in GUARD_FLAGS)
-    nan_same = bool((np.isnan(res.losses) == np.isnan(cpu.losses)).all())
+    nan_same = bool((np.isnan(card_r.losses)
+                     == np.isnan(cpu.losses)).all())
     trace, a = res.schedule.trace, res.schedule.a
     flipped = (((trace.wire_gain != 1.0) & (a > 0)).any(axis=1)
                & (trace.crash <= 0))
     first = int(np.argmax(flipped)) if flipped.any() else CAMPAIGN_ROUNDS
-    wp, wl = campaign_max_diff(res, cpu)
+    wp, wl = campaign_max_diff(card_r, cpu)
     spread = ulp_spread(torch, port, run, "splitme")
-    print(f"{label}: card vs CPU over the whole {CAMPAIGN_ROUNDS} rounds: "
-          f"flags equal {flags}, NaN loss entries equal {nan_same}; max "
-          f"param diff {wp:.3e}, loss {wl:.3e} (not checked: the first "
-          f"wire flip lands in round {first}); on the card, every initial "
-          f"weight one ulp up: max param diff {spread:.3e}")
+    print(f"{label}: card vs CPU over the first {R} rounds: flags equal "
+          f"{flags}, NaN loss entries equal {nan_same}; max param diff "
+          f"{wp:.3e}, loss {wl:.3e} (not checked: the first wire flip "
+          f"lands in round {first}); on the card, every initial weight one "
+          f"ulp up: max param diff {spread:.3e}")
     check(flags and nan_same, f"{label}: card and CPU guard flags differ")
     check(first > 0, f"{label}: a wire flip lands in round 0")
     perr, lerr, aerr, units = short_card_vs_cpu(
         torch, functools.partial(run, scenario=trace), n_test, rounds=first)
     out.update(card_cpu_rounds=first, card_cpu_param_diff=perr,
                card_cpu_loss_diff=lerr, card_cpu_acc_samples=aerr,
-               card_cpu_flipped_units=units, whole_card_cpu_param_diff=wp,
-               whole_card_cpu_loss_diff=wl, card_ulp_spread=spread)
+               card_cpu_flipped_units=units, flags_card_cpu_rounds=R,
+               card_cpu_param_diff_r=wp, card_cpu_loss_diff_r=wl,
+               card_ulp_spread=spread)
     print(f"{label}: card (graphed) vs CPU over the first {first} rounds: "
           f"max param diff {perr:.3e} (beyond {CARD_CPU_TOL} in {units} "
           f"units of a seed at most; tol {FLIP_TOL} in at most "
@@ -1656,9 +1677,9 @@ def fault_phase(torch, port, sp, clients, test, base):
           f"{CMP_ACC_SAMPLES}, gamma {CMP_EVAL_GAMMA})")
     check_card_cpu_flips(label, perr, lerr, aerr, units)
 
-    # the clipped campaign, card against CPU over all its rounds
+    # the clipped campaign, card against CPU over its first R rounds
     clipped = functools.partial(
-        run, scenario=trace, eval_every=1,
+        run, scenario=trace, eval_every=1, rounds=R,
         guards=port.RoundGuards(clip_norm=FAULT_CLIP))
     card_c, cpu_c = clipped(), clipped(device="cpu")
     flags_c = all(np.array_equal(getattr(card_c, f), getattr(cpu_c, f))
@@ -1673,8 +1694,8 @@ def fault_phase(torch, port, sp, clients, test, base):
           f"run's: max diff {pre:.3e}, NaN rows equal {pre_nan}")
     check(pre_nan and pre <= CARD_CPU_TOL,
           f"{label_c}: the clip changed an update before the first flip")
-    print(f"{label_c}: card (graphed) vs CPU over the whole "
-          f"{CAMPAIGN_ROUNDS} rounds: flags equal {flags_c}; skipped_rounds "
+    print(f"{label_c}: card (graphed) vs CPU over the first {R} rounds: "
+          f"flags equal {flags_c}; skipped_rounds "
           f"{card_c.skipped_rounds}, crashed_rounds {card_c.crashed_rounds}; "
           f"max param diff {perr:.3e} (beyond {CARD_CPU_TOL} in {units} "
           f"units of a seed at most; tol {FLIP_TOL} in at most "
@@ -1683,7 +1704,7 @@ def fault_phase(torch, port, sp, clients, test, base):
           f"{CMP_ACC_SAMPLES}, gamma {CMP_EVAL_GAMMA})")
     check(flags_c, f"{label_c}: card and CPU guard flags differ")
     check(card_c.skipped_rounds > 0
-          and card_c.crashed_rounds == int(crashed.sum()),
+          and card_c.crashed_rounds == int(crashed[:R].sum()),
           f"{label_c}: no rollback, or the crash rounds differ")
     check_card_cpu_flips(label_c, perr, lerr, aerr, units)
     out.update(clip_card_cpu_param_diff=perr, clip_card_cpu_loss_diff=lerr,
@@ -2129,6 +2150,9 @@ def population_phase(torch, port, data, test, base):
 SWEEP_B = (0.5e9, 1e9, 2e9, 4e9)
 SWEEP_LOSS_TOL, SWEEP_ACC_TOL, SWEEP_PARAM_TOL = 1e-5, 1e-6, 2e-3
 SWEEP_TURNS = 1
+# the sweep's card against CPU over its first SWEEP_CMP_ROUNDS rounds (3d's
+# gates; 2, not 3d's 3: a depth cut for the script's time)
+SWEEP_CMP_ROUNDS = 2
 SWEEP_TOP = 8            # device operations listed of the steady round
 
 
@@ -2323,14 +2347,14 @@ def sweep_phase(torch, port, clients, test, base):
           f"pairs a (variant, seed) pair")
 
     # the card against the CPU over the first rounds, by 3d's gates
-    card = run(rounds=BASELINE_CMP_ROUNDS, eval_every=1)
-    cpu = run(device="cpu", rounds=BASELINE_CMP_ROUNDS, eval_every=1)
+    card = run(rounds=SWEEP_CMP_ROUNDS, eval_every=1)
+    cpu = run(device="cpu", rounds=SWEEP_CMP_ROUNDS, eval_every=1)
     worst = (0.0, 0.0, 0.0, 0)
     for b, c, u in zip(SWEEP_B, card, cpu):
         d = card_vs_cpu_campaign(torch, c, u, n_test)
         check_card_cpu_flips(f"{label}, B {b:.1e}", *d)
         worst = tuple(max(x, y) for x, y in zip(worst, d))
-    print(f"{label}: card (graphed) vs CPU over {BASELINE_CMP_ROUNDS} "
+    print(f"{label}: card (graphed) vs CPU over {SWEEP_CMP_ROUNDS} "
           f"rounds: max param diff {worst[0]:.3e} (tol {CARD_CPU_TOL}, "
           f"{FLIP_TOL} for at most {FLIP_UNITS} hidden units a seed: "
           f"{worst[3]}), loss {worst[1]:.3e}, accuracy {worst[2]:.0f} of "
@@ -4288,10 +4312,266 @@ def a14_phase(torch, port, sp, clients, test, smi):
     return out
 
 
+# -- phase 7: the zoo's tooling --------------------------------------------
+# (a) fl_dryrun at the reference's settings on both fake worlds, the round's
+# tensors on the card; (b) the roofline terms (a one-rank mesh, meta
+# tensors) of what phases 6b and 4 time; (c) one dry-run combination through
+# its CLI.  Each part is a process of its own (a process group is
+# process-global): `python3 chip_smoke.py --tooling <part> <out.json>`.
+# (b) and (c) run on the host only and start with the script, at the lowest
+# CPU priority; (a) runs after phase 6.
+FL_WORLDS = ("16x16", "2x16x16")
+FL_CLIENTS, FL_SAMPLES = 512, 64
+# (label, arch, step kind, dtype, model overrides, (phase, what it timed))
+ROOFLINE_CELLS = (
+    ("smollm-135m f32 train, no remat", "smollm-135m", "train", "float32",
+     {"remat": False}, ("6b", "no remat")),
+    ("smollm-135m f32 train, remat", "smollm-135m", "train", "float32",
+     {"remat": True}, ("6b", "remat")),
+    ("smollm-135m f32 train, remat dots", "smollm-135m", "train", "float32",
+     {"remat": True, "remat_policy": "dots"}, ("6b", "remat dots")),
+    ("qwen3-14b bf16 prefill", "qwen3-14b", "prefill", None, {},
+     ("4", "qwen3-14b")),
+    ("zamba2-2.7b bf16 prefill", "zamba2-2.7b", "prefill", None, {},
+     ("4", "zamba2-2.7b")),
+)
+# the combination phase 7c runs through the CLI, and what the sweep on a
+# host gave for it: the step is the same program on any host
+DRYRUN_COMBO = ("qwen3-14b", "decode_32k")
+DRYRUN_WANT = {"ok": False, "op": "aten.view.default"}
+TOOLING_TIMEOUT = 600
+TOOLING_DIR = ROOT / "build" / "chip_smoke_tooling"
+_BACKGROUND = []
+
+
+def tooling_worker(part: str, out: str) -> int:
+    """One part of phase 7, in this process: ``fl-16x16`` /
+    ``fl-2x16x16`` (the card) or ``roofline`` (meta tensors)."""
+    if part.startswith("fl-"):
+        # only what the round needs: the parts start beside phase 6d
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.kernels import build
+        from repro_torch.kernels.kl_mutual import ops as kl_ops
+        from repro_torch.kernels.ridge_gram import ops as rg_ops
+        from repro_torch.launch import fl_dryrun
+        build.library()
+        kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+        t0 = time.perf_counter()
+        res = fl_dryrun.run(part == "fl-2x16x16", FL_CLIENTS, FL_SAMPLES,
+                            "cuda")
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = {"kl_mutual": kl_ops.launches,
+                           "kl_mutual (backward)": kl_ops.launches_bwd,
+                           "ridge_gram": rg_ops.launches}
+        Path(out).write_text(json.dumps(res, indent=1))
+        return 0
+    port = import_port()
+    if part == "roofline":
+        from repro_torch.configs.base import InputShape
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.roofline_run import _measure, extrapolate
+        from repro_torch.roofline.analysis import (model_flops_estimate,
+                                                   peak_flops_for)
+        mesh = make_host_mesh()
+        res = {}
+        for label, arch, kind, dt, over, _ in ROOFLINE_CELLS:
+            cfg = port.get_config(arch)
+            if dt is not None:
+                cfg = dataclasses.replace(cfg, dtype=dt)
+            shape = InputShape(f"{kind}_{PREFILL_B}x{PREFILL_LEN}",
+                               PREFILL_LEN, PREFILL_B, kind)
+            t0 = time.perf_counter()
+            # Zamba2 from its 1- and 2-group variants: its scans step
+            # through 2048 tokens an op at a time
+            hybrid = cfg.family == "hybrid"
+            m = (extrapolate(cfg, shape, mesh, over) if hybrid
+                 else _measure(cfg, shape, mesh, over))
+            peak = peak_flops_for(cfg.dtype)
+            res[label] = {
+                "flops": m["flops"], "bytes": m["bytes"],
+                "compute_ms": m["flops"] / peak * 1e3,
+                "memory_ms": m["bytes"] / PEAK_BYTES * 1e3,
+                "peak_flops": peak,
+                "model_flops": model_flops_estimate(cfg, shape),
+                "method": ("1/2-group extrapolation" if hybrid
+                           else "full depth"),
+                "seconds": time.perf_counter() - t0}
+    else:
+        raise SystemExit(f"unknown tooling part {part!r}")
+    Path(out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def start_tooling(args, out: Path, low_priority: bool):
+    """Start a phase-7 process (this script with ``--tooling``, or a
+    module of the port) writing its log beside ``out``."""
+    import os
+    TOOLING_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if low_priority:        # one core at most beside the timed phases
+        env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable] + args, cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT,
+        preexec_fn=(lambda: os.nice(19)) if low_priority else None)
+    _BACKGROUND.append(proc)
+    return proc, log
+
+
+def stop_tooling() -> None:
+    """End every phase-7 process still running (at exit, failed or not)."""
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def wait_tooling(proc, log, label: str, ok_rcs=(0,)) -> str:
+    """Wait for a phase-7 process; fail with its log's tail unless it
+    exits with one of ``ok_rcs``."""
+    try:
+        rc = proc.wait(timeout=TOOLING_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    log.close()
+    text = Path(log.name).read_text()
+    check(rc in ok_rcs, f"7: {label} exited {rc}:\n{text[-4000:]}")
+    return text
+
+
+def start_host_tooling():
+    """Phase 7b and 7c, which need no card, started beside phase 2."""
+    roof = TOOLING_DIR / "roofline.json"
+    combo = TOOLING_DIR / "dryrun"
+    arch, shape = DRYRUN_COMBO
+    return {
+        "roofline": (roof,) + start_tooling(
+            [str(ROOT / "chip_smoke.py"), "--tooling", "roofline",
+             str(roof)], roof, True),
+        "dryrun": (combo / f"{arch}__{shape}__16x16.json",) + start_tooling(
+            ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--force", "--out", str(combo)],
+            TOOLING_DIR / "dryrun.json", True)}
+
+
+def start_fl_tooling():
+    """Phase 7a's two worlds, each a process of its own on the card,
+    started together after 6c: they overlap 6d and 6e, which time
+    nothing."""
+    out = {}
+    for world in FL_WORLDS:
+        path = TOOLING_DIR / f"fl_{world}.json"
+        out[world] = (path,) + start_tooling(
+            [str(ROOT / "chip_smoke.py"), "--tooling", f"fl-{world}",
+             str(path)], path, False)
+    return out
+
+
+def tooling_phase(host, fl, measured: dict, smi: str, t_wall0: float
+                  ) -> dict:
+    """Phase 7: (a) the two fl_dryrun worlds on the card, checked against
+    the paper's claim; then (b) and (c), started with the script."""
+    out = {"finished_at_s": {}}
+    for world in FL_WORLDS:
+        path, proc, log = fl[world]
+        wait_tooling(proc, log, f"fl_dryrun {world}")
+        out["finished_at_s"][f"7a {world}"] = path.stat().st_mtime - t_wall0
+        r = json.loads(path.read_text())
+        one = {"all-reduce": 1}
+        for E in (1, 10):
+            check(r[f"splitme_E{E}"]["counts"] == one,
+                  f"7a {world}: SplitMe E={E} collectives "
+                  f"{r[f'splitme_E{E}']['counts']}, want one all-reduce")
+            check(r[f"sfl_E{E}"]["counts"] == {"collective-permute": 2 * E,
+                                               "all-reduce": 1},
+                  f"7a {world}: SFL E={E} collectives "
+                  f"{r[f'sfl_E{E}']['counts']}, want {2 * E} permutes "
+                  f"beside one bundled all-reduce")
+        check(r["inversion"]["counts"] == {"all-reduce": 8},
+              f"7a {world}: Step 4 {r['inversion']['counts']}")
+        check(r["splitme_bytes_constant_in_E"]
+              and r["sfl_bytes_scale_with_E"],
+              f"7a {world}: bytes in E: SplitMe "
+              f"{r['splitme_E1']['collective_bytes']} -> "
+              f"{r['splitme_E10']['collective_bytes']}, SFL "
+              f"{r['sfl_E1']['collective_bytes']} -> "
+              f"{r['sfl_E10']['collective_bytes']}")
+        check(r["quant_bf16_halves_comm_bits"]
+              and r["quant_int8_quarters_comm_bits"],
+              f"7a {world}: wire bits f32 {r['splitme_E1']['comm_bits']}, "
+              f"bf16 {r['splitme_E1_bf16']['comm_bits']}, int8 "
+              f"{r['splitme_E1_int8']['comm_bits']}")
+        n = r["launches"]
+        check(n["kl_mutual"] > 0 and n["ridge_gram"] > 0,
+              f"7a {world}: kernels did not launch under the dry-run: {n}")
+        print(f"7a fl_dryrun {world} (rank 0 of {256 if world == '16x16' else 512},"
+              f" {FL_CLIENTS} clients, {FL_SAMPLES} samples, tensors on the "
+              f"card) | {smi}: " + "; ".join(
+                  f"{k} {r[k]['counts']} {r[k]['collective_bytes']:.0f} B "
+                  f"{r[k]['comm_bits']:.0f} bits wire {r[k]['collective_s'] * 1e6:.3f} us"
+                  for k in ("splitme_E1", "splitme_E10", "sfl_E1", "sfl_E10",
+                            "splitme_E1_bf16", "splitme_E1_int8",
+                            "inversion"))
+              + f"; launches {n}; {r['seconds']:.1f} s")
+        out[world] = r
+    # the ring model of the sharded campaign's all-reduce on 4 cards of a
+    # node: the 4 seeds' SplitMe bundles (7a's payload each) over NVLink
+    from repro_torch.roofline.analysis import CollectiveOp
+    one = out[FL_WORLDS[0]]["splitme_E1"]
+    ring = CollectiveOp("all-reduce", 4 * int(one["collective_bytes"]), 4,
+                        4 * int(one["comm_bits"] // 32), (0, 1, 2, 3))
+    out["ring_4_cards_us"] = ring.wire_seconds * 1e6
+    print(f"7a ring model: one all-reduce of 4 seeds' SplitMe bundles "
+          f"({ring.result_bytes} B) over 4 NVLink ranks "
+          f"{out['ring_4_cards_us']:.3f} us")
+    path, proc, log = host["roofline"]
+    wait_tooling(proc, log, "roofline terms")
+    out["finished_at_s"]["7b"] = path.stat().st_mtime - t_wall0
+    roof = json.loads(path.read_text())
+    out["roofline"] = {}
+    for label, _, _, _, _, (ph, key) in ROOFLINE_CELLS:
+        r = roof[label]
+        ms = measured[(ph, key)]
+        bound = max(r["compute_ms"], r["memory_ms"])
+        r.update(measured_ms=ms, share=bound / ms)
+        check(r["flops"] > 0 and r["bytes"] > 0 and ms > 0,
+              f"7b {label}: {r}")
+        print(f"7b roofline {label} ({r['method']}, counted on meta) | {smi}"
+              f": compute {r['compute_ms']:.3f} ms at "
+              f"{r['peak_flops'] / 1e12:.0f} TFLOP/s, memory "
+              f"{r['memory_ms']:.3f} ms, model_flops "
+              f"{r['model_flops']:.4e} (counted {r['flops']:.4e}), "
+              f"measured {ms:.3f} ms (phase {ph}), share max(terms) / "
+              f"measured {r['share']:.4f}")
+        out["roofline"][label] = r
+    path, proc, log = host["dryrun"]
+    wait_tooling(proc, log, "dry-run CLI", ok_rcs=(0, 1))
+    out["finished_at_s"]["7c"] = path.stat().st_mtime - t_wall0
+    r = json.loads(path.read_text())
+    got = {k: r.get(k) for k in DRYRUN_WANT}
+    check(got == DRYRUN_WANT, f"7c dry-run {DRYRUN_COMBO}: {got}, the host "
+          f"sweep gave {DRYRUN_WANT}: {r.get('error', '')[:400]}")
+    print(f"7c dry-run {DRYRUN_COMBO[0]} x {DRYRUN_COMBO[1]} x 16x16 through "
+          f"its CLI: ok {r['ok']}, op {r.get('op')}: "
+          f"{r.get('error', '')[:160]}")
+    out["dryrun"] = {k: r.get(k) for k in ("ok", "op", "error")}
+    print("7 parts finished at (s of the script): " + json.dumps(
+        {k: round(v, 1) for k, v in out["finished_at_s"].items()}))
+    return out
+
+
 def import_port():
-    """The port's modules, from ``src/`` beside this script."""
+    """The port's modules, from ``src/`` beside this script; binds the
+    card's peaks (``launch.mesh``) to this module's names."""
     sys.path.insert(0, str(ROOT / "src"))
     import types
+    from repro_torch.launch import mesh as _mesh
+    for name in ("PEAK_BYTES", "PEAK_FP32", "PEAK_BF16", "PEAK_TF32",
+                 "PEAK_F32_MMA"):
+        globals()[name] = getattr(_mesh, name)
+    del _mesh, name
     from repro_torch import serve
     from repro_torch.configs.base import get_config
     from repro_torch.configs.splitme_dnn import DNN10
@@ -4340,6 +4620,10 @@ def main() -> int:
     port = import_port()
     rg_ops = port.rg_ops
     t_start = time.perf_counter()
+    t_wall0 = time.time()
+    import atexit
+    atexit.register(stop_tooling)
+    host_tooling = start_host_tooling()
 
     def phase(name):
         print(f"[{time.perf_counter() - t_start:.1f} s] {name}")
@@ -4645,16 +4929,26 @@ def main() -> int:
     zero_launches(port)
     training = {"6a": pretrain_phase(torch, port, smi),
                 "6b": remat_phase(torch, port, smi),
-                "6c": moe_train_phase(torch, port, smi),
-                "6d": train_reduced_phase(torch, port, smi)}
+                "6c": moe_train_phase(torch, port, smi)}
+    fl_tooling = start_fl_tooling()       # phase 7a, beside 6d and 6e
+    training["6d"] = train_reduced_phase(torch, port, smi)
     scans = scan_and_flash_launches(port)
     print(f"6f flash / WKV / SSD launches through 6a-6d: {scans} | {smi}")
     check(not any(scans.values()), "6f: training launched a kernel that "
           "its path does not run")
     training["6e"] = a14_phase(torch, port, sp, clients, test, smi)
 
-    # -- 7. result -----------------------------------------------------------
-    phase("7. result")
+    # -- 7. the zoo's tooling ------------------------------------------------
+    phase("7. the zoo's tooling: fl_dryrun, roofline terms, the dry-run")
+    measured = {("6b", k): v["ms_per_step"]
+                for k, v in training["6b"].items()}
+    measured[("4", "qwen3-14b")] = decoders["qwen3-14b"]["prefill_ms"]
+    measured[("4", "zamba2-2.7b")] = served["zamba2-2.7b"][1]
+    tooling = tooling_phase(host_tooling, fl_tooling, measured, smi,
+                            t_wall0)
+
+    # -- 8. result -----------------------------------------------------------
+    phase("8. result")
     kernels = [
         {"name": "kl_mutual", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kl_mutual.cu",
@@ -4723,6 +5017,8 @@ def main() -> int:
     print("decoder and enc-dec families served (phase 4): "
           + json.dumps(decoders))
     print(f"zoo training (phase 6), {smi}: " + json.dumps(training))
+    print(f"the zoo's tooling (phase 7), {smi}: " + json.dumps(
+        {k: v for k, v in tooling.items() if k not in FL_WORLDS}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -4733,4 +5029,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--tooling":
+        sys.exit(tooling_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

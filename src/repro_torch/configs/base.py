@@ -5,13 +5,33 @@ an :class:`ArchConfig` with the exact published dimensions (the JAX
 package's modules, ``source`` kept).  ``n_params()`` / ``n_active_params()``
 count and ``reduced()`` (<=2 layers, d_model<=512, <=4 experts) cuts each
 family as the JAX package does; the reduced variants back the CPU parity
-tests.  The dry-run's input shapes are not part of the port.
+tests.  ``INPUT_SHAPES`` are the dry-run's four input shapes
+(``repro_torch.launch.dryrun``), the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+# ---------------------------------------------------------------------------
+# Input shapes of the dry-run (the JAX package's)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -60,6 +60,7 @@ uniforms before it; bf16 narrows the all-reduce itself.
 from __future__ import annotations
 
 import functools
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -193,8 +194,13 @@ class FrameworkSpec:
 def client_axes(mesh) -> Tuple[str, ...]:
     """The mesh dims the client axis shards over: ``("pod", "data")`` on a
     mesh with a ``pod`` dim, else ``("data",)`` (the sharded rounds and
-    Step 4 on the mesh agree on this)."""
+    Step 4 on the mesh agree on this).  A trailing ``model`` dim
+    replicates the clients: the ranks along it hold the same slab."""
     return ("pod", "data") if "pod" in _dim_names(mesh) else ("data",)
+
+
+_MESH_DIMS = (("data",), ("pod", "data"), ("data", "model"),
+              ("pod", "data", "model"))
 
 
 def _dim_names(mesh) -> Tuple[str, ...]:
@@ -204,16 +210,17 @@ def _dim_names(mesh) -> Tuple[str, ...]:
                         f"(launch.mesh.make_client_mesh), got "
                         f"{type(mesh).__name__}")
     names = tuple(mesh.mesh_dim_names or ())
-    if names not in (("data",), ("pod", "data")):
-        raise ValueError(f"mesh dims must be ('data',) or ('pod', 'data'), "
-                         f"got {names}")
+    if names not in _MESH_DIMS:
+        raise ValueError(f"mesh dims must be one of {_MESH_DIMS}, got "
+                         f"{names}")
     return names
 
 
 def _mesh_ranks(mesh) -> List[int]:
-    """The mesh's ranks, row-major: shard i is rank ``_mesh_ranks[i]``.  The
-    mesh must hold every rank of the process group in order, so that its
-    flattened client group is the default group."""
+    """The mesh's ranks, row-major.  The mesh must hold every rank of the
+    process group in order, so that its flattened client group is the
+    default group (on a mesh with a ``model`` dim: the union of the
+    client groups)."""
     _dim_names(mesh)
     ranks = mesh.mesh.flatten().tolist()
     if ranks != list(range(dist.get_world_size())):
@@ -227,14 +234,45 @@ def n_client_shards(mesh) -> int:
     """Number of client shards on ``mesh``: the product of its client dims
     (the leading axis of the gathered error-feedback layout,
     ``init_quant_state(n_shards=)``)."""
-    _dim_names(mesh)
-    return int(mesh.mesh.numel())
+    names = _dim_names(mesh)
+    n = 1
+    for a in client_axes(mesh):
+        n *= int(mesh.mesh.shape[names.index(a)])
+    return n
 
 
 def shard_index(mesh) -> int:
-    """This rank's client shard: its row-major position on the mesh, pod
-    major (the reference's ``shard_index()`` inside ``shard_map``)."""
-    return _mesh_ranks(mesh).index(dist.get_rank())
+    """This rank's client shard: its row-major position over the client
+    dims, pod major (the reference's ``shard_index()`` inside
+    ``shard_map``); the ranks along a ``model`` dim share it."""
+    _mesh_ranks(mesh)
+    names, coord = _dim_names(mesh), mesh.get_coordinate()
+    idx = 0
+    for a in client_axes(mesh):
+        i = names.index(a)
+        idx = idx * int(mesh.mesh.shape[i]) + int(coord[i])
+    return idx
+
+
+_CLIENT_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def client_group(mesh):
+    """The process group over which this rank's client shards sum: None
+    (the default group) on a mesh of client dims only; with a ``model``
+    dim, the ranks that share this rank's ``model`` coordinate (the
+    reference's ``psum`` over ``client_axes``).  Made once a mesh: every
+    rank makes the same call."""
+    names = _dim_names(mesh)
+    if "model" not in names:
+        return None
+    group = _CLIENT_GROUPS.get(mesh)
+    if group is None:
+        axes = client_axes(mesh)
+        sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+        group = (sub._flatten() if len(axes) > 1 else sub).get_group()
+        _CLIENT_GROUPS[mesh] = group
+    return group
 
 
 def shard_slice(mesh, n_clients: int) -> slice:
@@ -253,18 +291,19 @@ def shard_slice(mesh, n_clients: int) -> slice:
 def all_reduce_bundle(tree, mesh, wire_dtype: Optional[torch.dtype] = None):
     """Sum a whole tree over the mesh's client shards as ONE all-reduce:
     ravel and concatenate the leaves, one ``dist.all_reduce`` over the
-    mesh's ranks, split back (port of ``psum_bundle``).  ``wire_dtype``
+    mesh's client group (``client_group``), split back (port of ``psum_bundle``).  ``wire_dtype``
     (bf16) rounds the bundle to it before the all-reduce and widens it back
     after: NCCL and gloo then sum in that type.  Counts the call in
     ``ALL_REDUCES``."""
     global ALL_REDUCES
+    group = client_group(mesh)
     _mesh_ranks(mesh)
     leaves = quantcomm.tree_leaves(tree)
     out_dtype = leaves[0].dtype
     vec = torch.cat([l.reshape(-1) for l in leaves])
     if wire_dtype is not None:
         vec = vec.to(wire_dtype)
-    dist.all_reduce(vec, op=dist.ReduceOp.SUM)
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=group)
     ALL_REDUCES += 1
     vec = vec.to(out_dtype)
     parts = torch.split(vec, [l.numel() for l in leaves])

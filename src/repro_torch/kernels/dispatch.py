@@ -40,7 +40,8 @@ import torch
 from repro_torch.kernels.kl_mutual import ops as _kl_ops
 from repro_torch.kernels.kl_mutual.ref import kl_rows_ref
 from repro_torch.kernels.mamba2_scan import ops as _ssd_ops
-from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+from repro_torch.kernels.mamba2_scan.ref import (mamba2_scan_chunked_ref,
+                                                 mamba2_scan_ref)
 from repro_torch.kernels.ridge_gram import ops as _rg_ops
 from repro_torch.kernels.ridge_gram.ref import gram_ref
 from repro_torch.kernels.rwkv6_wkv import ops as _wkv_ops
@@ -185,7 +186,13 @@ def mamba2_scan(decay: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
                 C: torch.Tensor, x: torch.Tensor, *,
                 policy: PolicyLike = None) -> torch.Tensor:
     """Mamba2 SSD scan; decay, dt: (b, L, nh), B, C: (b, L, N), x:
-    (b, L, nh, P) -> y (b, L, nh, P) f32."""
+    (b, L, nh, P) -> y (b, L, nh, P) f32.  On ``meta`` tensors outside
+    autograd (the dry-run's prefill) the plain version is the chunked
+    form, the kernel's order: the card's work to count, a Python step a
+    token fewer times over; training keeps the sequential form, as the
+    reference trains."""
+    if x.is_meta and not torch.is_grad_enabled():
+        return mamba2_scan_chunked_ref(decay, dt, B, C, x)
     if get_policy(policy).mamba2_scan:
         return _ssd_ops.mamba2_scan(*(a.float().contiguous()
                                       for a in (decay, dt, B, C, x)))

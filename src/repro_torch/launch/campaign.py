@@ -1155,7 +1155,7 @@ def _gather_shards(qstate, mesh):
         f[:, engine.shard_index(mesh)] = l
     if leaves:
         vec = torch.cat([f.reshape(-1) for f in leaves])
-        torch.distributed.all_reduce(vec)
+        torch.distributed.all_reduce(vec, group=engine.client_group(mesh))
         for f, p in zip(leaves, torch.split(vec, [f.numel()
                                                   for f in leaves])):
             f.copy_(p.reshape(f.shape))

@@ -31,6 +31,8 @@ def _expert_stack(gen: torch.Generator, n: int, in_dim: int, out_dim: int,
     a float32 draw of a whole stack would need 4 bytes an element on top of
     the weights (15 GB for one of DeepSeek-V3's)."""
     out = torch.empty((n, in_dim, out_dim), dtype=dtype, device=gen.device)
+    if out.is_meta:              # an abstract model draws nothing
+        return out
     for e in range(n):
         out[e] = dense_init(gen, in_dim, out_dim, dtype)
     return out

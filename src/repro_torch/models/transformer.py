@@ -575,6 +575,14 @@ def build_model(cfg: ArchConfig, *, remat: bool = True,
     (None: the prefill length + 128); ``moe_local_dispatch`` routes each
     example of an MoE forward pass on its own
     (``moe.apply_moe(local_dispatch=)``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return _assemble(cfg, gen, remat, remat_policy, decode_window, policy,
+                     moe_local_dispatch)
+
+
+def _assemble(cfg, gen, remat, remat_policy, decode_window, policy,
+              moe_local_dispatch):
     cls = _FAMILIES.get(cfg.family)
     if cls is None:
         raise ValueError(f"unsupported family {cfg.family!r} for the "
@@ -582,10 +590,33 @@ def build_model(cfg: ArchConfig, *, remat: bool = True,
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}; have "
                          f"{REMAT_POLICIES}")
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
     tree = cls.init_tree(gen, cfg, _dtype(cfg))
     kw = dict(remat=remat, remat_policy=remat_policy)
     if cls is DecoderModel:
         return cls(cfg, tree, policy, decode_window, moe_local_dispatch, **kw)
     return cls(cfg, tree, policy, decode_window, **kw)
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that says it lives on the ``meta`` device: the
+    initializers then make meta tensors (shapes and dtypes, no storage)
+    and draw nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def build_abstract_model(cfg: ArchConfig, *, remat: bool = True,
+                         remat_policy: Optional[str] = None,
+                         decode_window: Optional[int] = None,
+                         moe_local_dispatch: bool = False) -> _ZooModel:
+    """``build_model`` on the ``meta`` device: every parameter has its
+    shape and dtype and no storage, so a full-size config costs nothing
+    (the twin of ``jax.eval_shape`` over ``model.init``).  The scans take
+    their plain versions (``policy="reference"``; ``dispatch.mamba2_scan``
+    its chunked form outside autograd): the CUDA ops take no meta
+    tensors.  Only the dry-run's specs build here; the entry points build
+    on a real device."""
+    return _assemble(cfg, _MetaGenerator(), remat, remat_policy,
+                     decode_window, "reference", moe_local_dispatch)

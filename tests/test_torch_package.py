@@ -61,7 +61,10 @@ def test_port_files_exist():
                  "configs/granite_moe_3b_a800m.py",
                  "configs/deepseek_v3_671b.py",
                  "configs/seamless_m4t_medium.py", "optim/optimizers.py",
-                 "optim/schedules.py", "examples/lm_pretrain.py"):
+                 "optim/schedules.py", "examples/lm_pretrain.py",
+                 "sharding/partition.py", "launch/specs.py",
+                 "launch/dryrun.py", "launch/roofline_run.py",
+                 "launch/fl_dryrun.py", "roofline/analysis.py"):
         assert want in names
     assert (ROOT / "chip_smoke.py").is_file()
     for src in ("common.cu", "kl_mutual.cu", "ridge_gram.cu", "rwkv6_wkv.cu",

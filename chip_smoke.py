@@ -170,7 +170,9 @@ failure ends the run with a non-zero exit code:
    the bits) with the KL pair and the Gram launched; (b) the roofline
    terms, counted on meta tensors on a one-rank mesh, of the steps that
    6b and 4 time, beside their measured ms; (c) one dry-run combination
-   through its CLI, against what the sweep gave on a host.  (b) and (c)
+   (Qwen3-14B decode_32k on 16 × 16, its uneven head views resharded)
+   through its CLI, against what the sweep gave on a host: ok, its
+   dominant term and per-rank GB.  (b) and (c)
    need no card and run beside phases 2-6 at the lowest CPU priority;
 8. a ``kernels`` JSON line, the nvidia-smi line, and last the result line.
 
@@ -4336,9 +4338,11 @@ ROOFLINE_CELLS = (
      ("4", "zamba2-2.7b")),
 )
 # the combination phase 7c runs through the CLI, and what the sweep on a
-# host gave for it: the step is the same program on any host
+# host gave for it (40 heads and 8 KV heads over 16 ranks, resharded): the
+# step is the same program on any host
 DRYRUN_COMBO = ("qwen3-14b", "decode_32k")
-DRYRUN_WANT = {"ok": False, "op": "aten.view.default"}
+DRYRUN_WANT = {"ok": True, "fits": True, "dominant": "memory",
+               "method": "direct: one step, every op counted"}
 TOOLING_TIMEOUT = 600
 TOOLING_DIR = ROOT / "build" / "chip_smoke_tooling"
 _BACKGROUND = []
@@ -4394,7 +4398,10 @@ def tooling_worker(part: str, out: str) -> int:
                 "peak_flops": peak,
                 "model_flops": model_flops_estimate(cfg, shape),
                 "method": ("1/2-group extrapolation" if hybrid
-                           else "full depth"),
+                           else "full depth") + (
+                    "" if m.get("scan_method", m.get("method", "")
+                                ).startswith("direct")
+                    else ", the scan loops from 3, 4 and 5 steps"),
                 "seconds": time.perf_counter() - t0}
     else:
         raise SystemExit(f"unknown tooling part {part!r}")
@@ -4553,10 +4560,19 @@ def tooling_phase(host, fl, measured: dict, smi: str, t_wall0: float
     got = {k: r.get(k) for k in DRYRUN_WANT}
     check(got == DRYRUN_WANT, f"7c dry-run {DRYRUN_COMBO}: {got}, the host "
           f"sweep gave {DRYRUN_WANT}: {r.get('error', '')[:400]}")
+    gb = (r["per_device_bytes"]["argument"]
+          + r["per_device_bytes"]["temp"]) / 1e9
     print(f"7c dry-run {DRYRUN_COMBO[0]} x {DRYRUN_COMBO[1]} x 16x16 through "
-          f"its CLI: ok {r['ok']}, op {r.get('op')}: "
-          f"{r.get('error', '')[:160]}")
-    out["dryrun"] = {k: r.get(k) for k in ("ok", "op", "error")}
+          f"its CLI, counted on the host beside the card ({smi}): ok "
+          f"{r['ok']}, dominant {r['dominant']} (compute "
+          f"{r['compute_s']:.3e} s, memory {r['memory_s']:.3e} s, "
+          f"collective {r['collective_s']:.3e} s), per-rank "
+          f"{gb:.2f} GB of {r['hbm_bytes'] / 1e9:.0f}, fits {r['fits']}, "
+          f"step {r['step_s']} s")
+    out["dryrun"] = {k: r.get(k) for k in (
+        "ok", "dominant", "fits", "method", "compute_s", "memory_s",
+        "collective_s", "collective_counts", "step_s")}
+    out["dryrun"]["per_rank_gb"] = gb
     print("7 parts finished at (s of the script): " + json.dumps(
         {k: round(v, 1) for k, v in out["finished_at_s"].items()}))
     return out

@@ -32,8 +32,9 @@ device.  ``None`` resolves to ``"kernel"``.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, replace
-from typing import Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -46,6 +47,7 @@ from repro_torch.kernels.ridge_gram import ops as _rg_ops
 from repro_torch.kernels.ridge_gram.ref import gram_ref
 from repro_torch.kernels.rwkv6_wkv import ops as _wkv_ops
 from repro_torch.kernels.rwkv6_wkv.ref import rwkv6_wkv_ref
+from repro_torch.sharding.partition import whole_dim
 
 
 @dataclass(frozen=True)
@@ -171,15 +173,52 @@ def gram_pair(o: torch.Tensor, z: torch.Tensor, *,
     return gram_ref(o, o), gram_ref(o, z)
 
 
+# The dry-run's count of a long scan (``launch.dryrun.count_step``).  The
+# plain WKV recurrence and the sequential SSD scan step one token at a
+# time, the chunked SSD form one chunk at a time, each step the same ops on
+# the same shapes; on a fake world each is a trip through DTensor's
+# dispatch, 32k of them a layer at 32k tokens.  Under ``scan_limit(n)`` a
+# plain scan over ``meta`` tensors runs its first n steps, the last output
+# standing in for the others (the refs' ``steps``), so what it costs is
+# affine in n and is the whole loop's at n = L.  Real tensors always run
+# every step.
+_SCAN_LIMIT: List[Optional[int]] = [None]
+_SCANS_CUT: List[set] = [set()]
+SSD_CHUNK = 32
+
+
+@contextlib.contextmanager
+def scan_limit(n: int):
+    """Plain scans over ``meta`` tensors run ``n`` steps; yields the set of
+    the full step counts of the loops it cut."""
+    prev = _SCAN_LIMIT[0], _SCANS_CUT[0]
+    _SCAN_LIMIT[0], _SCANS_CUT[0] = int(n), set()
+    try:
+        yield _SCANS_CUT[0]
+    finally:
+        _SCAN_LIMIT[0], _SCANS_CUT[0] = prev
+
+
+def _scan_steps(n: int, x: torch.Tensor) -> Optional[int]:
+    """The steps a scan of ``n`` over ``x`` runs (None: all)."""
+    limit = _SCAN_LIMIT[0]
+    if limit is None or n <= limit or not x.is_meta:
+        return None
+    _SCANS_CUT[0].add(n)
+    return limit
+
+
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, *,
               policy: PolicyLike = None) -> torch.Tensor:
     """RWKV6 WKV recurrence; r, k, v, w: (b, L, nh, P), u: (nh, P) ->
-    y (b, L, nh, P) f32."""
+    y (b, L, nh, P) f32.  The plain version's output keeps its step dim
+    whole on a DTensor (``partition.whole_dim``)."""
     if get_policy(policy).rwkv6_wkv:
         return _wkv_ops.rwkv6_wkv(*(a.float().contiguous()
                                     for a in (r, k, v, w, u)))
-    return rwkv6_wkv_ref(r, k, v, w, u)
+    return whole_dim(rwkv6_wkv_ref(r, k, v, w, u,
+                                   steps=_scan_steps(r.shape[1], r)), 1)
 
 
 def mamba2_scan(decay: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -190,10 +229,14 @@ def mamba2_scan(decay: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     autograd (the dry-run's prefill) the plain version is the chunked
     form, the kernel's order: the card's work to count, a Python step a
     token fewer times over; training keeps the sequential form, as the
-    reference trains."""
+    reference trains, its output's step dim whole on a DTensor."""
+    L = x.shape[1]
     if x.is_meta and not torch.is_grad_enabled():
-        return mamba2_scan_chunked_ref(decay, dt, B, C, x)
+        return mamba2_scan_chunked_ref(
+            decay, dt, B, C, x, chunk=SSD_CHUNK,
+            steps=_scan_steps(-(-L // SSD_CHUNK), x))
     if get_policy(policy).mamba2_scan:
         return _ssd_ops.mamba2_scan(*(a.float().contiguous()
                                       for a in (decay, dt, B, C, x)))
-    return mamba2_scan_ref(decay, dt, B, C, x)
+    return whole_dim(mamba2_scan_ref(decay, dt, B, C, x,
+                                     steps=_scan_steps(L, x)), 1)

@@ -10,9 +10,14 @@ the parameters, optimizer state, batch and cache are ``meta`` DTensors laid
 out by ``sharding.partition``'s rules, so nothing is allocated, and
 ``roofline.analysis``'s ``CostCounter`` sees the rank's local ops and
 the collectives DTensor inserts.  The zoo runs its plain scans
-(``policy="reference"``): the CUDA ops take no meta tensors.
-An op that DTensor has no sharding rule for fails its combination
-(``ok: false`` with the op's name); nothing is quietly replicated.
+(``policy="reference"``): the CUDA ops take no meta tensors; RWKV6's and
+Zamba2's loops are counted from a few steps (``count_step``: the result's
+``method``).  The 2 × 16 × 16 mesh runs as ("pod", "data") one dim of 32
+by "model" (``make_dryrun_mesh``).  The port's strategies
+(``sharding.rules``) and reshards (``sharding.partition``) stand in for
+what XLA does on its own; an op that DTensor still has no sharding rule
+for fails its combination (``ok: false`` with the op's name): nothing is
+quietly replicated.
 
 A process group is process-global, so this is a process of its own:
 
@@ -30,21 +35,25 @@ import json
 import re
 import time
 import traceback
+from collections import Counter
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import INPUT_SHAPES, list_configs
-from repro_torch.launch.mesh import HBM_BYTES, make_production_mesh
+from repro_torch.launch.mesh import HBM_BYTES, make_dryrun_mesh
 from repro_torch.launch.specs import (abstract_cache, batch_specs, build_for,
                                       META)
-from repro_torch.roofline.analysis import (CollectiveTrace, CostCounter,
-                                           MemoryStats, analyze,
+from repro_torch.kernels import dispatch
+from repro_torch.roofline.analysis import (CollectiveOp, CollectiveTrace,
+                                           CostCounter, MemoryStats, analyze,
                                            model_flops_estimate,
                                            peak_flops_for)
 from repro_torch.runtime.steps import (default_optimizer, make_prefill_step,
                                        make_serve_step, make_train_step)
-from repro_torch.sharding import partition
+from repro_torch.sharding import partition, rules
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun_torch"
 
@@ -73,15 +82,19 @@ def local_bytes(tree) -> float:
 
 def shard_opt_state(state, mesh, *, fsdp: bool = True,
                     expert_parallel=False, path: str = ""):
-    """The optimizer state with every DTensor laid out by the param rules
+    """The optimizer state with every tensor laid out by the param rules
     on its own shape and path (the reference's ``params_shardings`` over
-    the optimizer's tree)."""
+    the optimizer's tree): a DTensor redistributed, a plain one (a state
+    made from nothing, such as Adafactor's factored moments) distributed."""
     from torch.distributed.tensor import DTensor
-    if isinstance(state, DTensor):
+    if isinstance(state, DTensor) or (isinstance(state, torch.Tensor)
+                                      and state.dim()):
         spec = partition.param_spec(path, tuple(state.shape), mesh,
                                     fsdp=fsdp,
                                     expert_parallel=expert_parallel)
-        return state.redistribute(mesh, partition.placements(spec, mesh))
+        if isinstance(state, DTensor):
+            return state.redistribute(mesh, partition.placements(spec, mesh))
+        return partition.distribute(state, spec, mesh)
     if isinstance(state, dict):
         return {k: shard_opt_state(v, mesh, fsdp=fsdp,
                                    expert_parallel=expert_parallel,
@@ -111,6 +124,7 @@ def step_on_mesh(model, shape, mesh, overrides: dict):
     nothing (positions, masks, zeros) are replicated DTensors
     (``implicit_replication``), as a jitted JAX step's constants are."""
     from torch.distributed.tensor.experimental import implicit_replication
+    rules.install()
     with implicit_replication():
         return _step_on_mesh(model, shape, mesh, overrides)
 
@@ -189,30 +203,152 @@ def _step_on_mesh(model, shape, mesh, overrides: dict):
     return cc, mem, opt_name
 
 
+# the scan steps of the counted runs: the first steps differ (step 0 starts
+# from a zero state; DTensor's layouts of the state settle over the next
+# ones), so the runs start at step 3, and three runs show the counts grow
+# by the same step each
+SCAN_STEPS = (3, 4, 5)
+
+DIRECT = "direct: one step, every op counted"
+
+
+@dataclass
+class StepCounts:
+    """One rank's counts of a step, as a ``CostCounter`` holds them:
+    FLOPs, bytes, the peak of live bytes, FLOPs by op, the collectives
+    (``CollectiveOp``s, each with its ``count``) and how they were had.
+    Where ``peak_bytes`` is extrapolated, ``peak_bounds`` holds the bounds
+    it lies between."""
+    flops: int
+    bytes: int
+    peak_bytes: float
+    by_op: Dict[str, int]
+    ops: List[CollectiveOp]
+    method: str = DIRECT
+    peak_bounds: Optional[Tuple[float, float]] = None
+
+
+def _line(values: List[int], L: int, ns: Tuple[int, ...], what: str) -> int:
+    """The count at L steps of a count measured at ``ns`` steps (evenly
+    spaced), after checking it grows by the same amount each time."""
+    gap = ns[1] - ns[0]
+    steps = {b - a for a, b in zip(values, values[1:])}
+    if len(steps) != 1 or next(iter(steps)) % gap:
+        raise ValueError(f"{what} is not affine in the scan's steps: "
+                         f"{values} at {list(ns)} steps")
+    count = values[-1] + (L - ns[-1]) * (next(iter(steps)) // gap)
+    if count < 0:
+        raise ValueError(f"{what} extrapolates below 0: {values}")
+    return count
+
+
+def _extrapolated_ops(runs, ns, L: int) -> List[CollectiveOp]:
+    """The collectives of the L-step loop from the runs' ``ops``: each
+    collective (its kind, bytes and group) counted along its line."""
+    def key(c):
+        return (c.kind, c.result_bytes, c.group_size, c.result_elems,
+                c.ranks)
+    counts, first = [Counter() for _ in runs], {}
+    for cnt, ops in zip(counts, runs):
+        for c in ops:
+            cnt[key(c)] += c.count
+            first.setdefault(key(c), c)
+    out = []
+    for k, c in first.items():
+        n = _line([cnt[k] for cnt in counts], L, ns,
+                  f"the count of {c.kind}s of {c.result_bytes} bytes")
+        if n:
+            out.append(CollectiveOp(c.kind, c.result_bytes, c.group_size,
+                                    c.result_elems, c.ranks, count=n))
+    return out
+
+
+def count_step(build, shape, mesh, overrides: dict):
+    """One rank's counts of a step of the model ``build()`` makes
+    (``step_on_mesh``): (``StepCounts``, ``MemoryStats``, optimizer name).
+
+    A step whose plain scans loop over L steps, more than the first of
+    ``SCAN_STEPS`` (RWKV6's WKV, Zamba2's SSD: ``dispatch.scan_limit``), is
+    run once for each n of them with its loops cut to n steps; each count
+    must grow by the same amount from run to run, and is taken to L along
+    that line: exact for every count linear in L (FLOPs, bytes, bytes
+    written, collectives), as ``tests/test_torch_dryrun.py`` holds it
+    against the direct count.  The peak of live bytes is extrapolated from
+    the last two runs, an estimate, between two bounds (``peak_bounds``):
+    the largest peak measured, and that peak plus every byte the steps not
+    run write (a byte alive in the whole loop and not in the cut one was
+    written by a step the cut loop skipped).  A step without such a loop
+    runs once."""
+    ns = SCAN_STEPS
+    with dispatch.scan_limit(ns[0]) as cut:
+        cc, mem, opt = step_on_mesh(build(), shape, mesh, overrides)
+    if not cut:
+        return (StepCounts(cc.flops, cc.bytes, float(cc.peak_bytes),
+                           dict(cc.by_op), list(cc.ops)), mem, opt)
+    if len(cut) != 1:
+        raise ValueError(f"scan loops of {sorted(cut)} steps in one step: "
+                         f"one length is extrapolated")
+    (L,) = cut
+    runs = [cc]
+    for n in ns[1:]:
+        with dispatch.scan_limit(n):
+            runs.append(step_on_mesh(build(), shape, mesh, overrides)[0])
+    by_op = {k: _line([r.by_op.get(k, 0) for r in runs], L, ns,
+                      f"the FLOPs of {k}")
+             for k in set().union(*(r.by_op for r in runs))}
+    p1, p2 = float(runs[-2].peak_bytes), float(runs[-1].peak_bytes)
+    peak = p2 + (L - ns[-1]) * (p2 - p1) / (ns[-1] - ns[-2])
+    written = _line([r.written for r in runs], L, ns, "the bytes written")
+    upper = p2 + written - runs[-1].written
+    counts = StepCounts(
+        _line([r.flops for r in runs], L, ns, "the FLOPs"),
+        _line([r.bytes for r in runs], L, ns, "the bytes"), peak, by_op,
+        _extrapolated_ops([r.ops for r in runs], ns, L),
+        method=(f"scan steps: the loops cut to {', '.join(map(str, ns))} "
+                f"of {L} steps, each count grown by the same amount a step "
+                f"and extrapolated to {L} (exact for counts linear in the "
+                f"scan length; the peak an estimate between bounds)"),
+        peak_bounds=(max(float(r.peak_bytes) for r in runs), float(upper)))
+    mem = MemoryStats(mem.argument_size_in_bytes, mem.output_size_in_bytes,
+                      peak)
+    return counts, mem, opt
+
+
 def lower_combo(arch: str, shape_name: str, multi_pod: bool,
                 overrides: dict | None = None) -> dict:
     """One (arch, shape, mesh): the roofline terms, the per-rank bytes
     against the card's memory, and what ran."""
     overrides = overrides or {}
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    mesh = make_dryrun_mesh(multi_pod=multi_pod)
     chips = 512 if multi_pod else 256
     t0 = time.time()
-    model, shape = build_for(arch, shape_name,
-                             remat=overrides.get("remat", True),
-                             remat_policy=overrides.get("remat_policy"),
-                             moe_local_dispatch=overrides.get("moe_local",
-                                                              False))
-    cfg = model.cfg
+
+    def build():
+        return built.pop() if built else build_for(
+            arch, shape_name, remat=overrides.get("remat", True),
+            remat_policy=overrides.get("remat_policy"),
+            moe_local_dispatch=overrides.get("moe_local", False))[0]
+    built = []
+    built.append(build())          # the first run's model, timed here
+    cfg, shape = built[0].cfg, INPUT_SHAPES[shape_name]
     t_build = time.time() - t0
     t0 = time.time()
-    cc, mem, opt_name = step_on_mesh(model, shape, mesh, overrides)
+    cc, mem, opt_name = count_step(build, shape, mesh, overrides)
     t_step = time.time() - t0
     roof = analyze(arch, shape_name, _mesh_name(multi_pod), chips,
                    {"flops": cc.flops, "bytes accessed": cc.bytes}, cc.ops,
                    model_flops=model_flops_estimate(cfg, shape),
                    memory_stats=mem, peak_flops=peak_flops_for(cfg.dtype))
     result = roof.to_dict()
-    per_device = mem.argument_size_in_bytes + mem.temp_size_in_bytes
+    args = mem.argument_size_in_bytes
+    per_device = args + mem.temp_size_in_bytes
+    # where the peak is extrapolated, only its bounds decide: None where
+    # they lie on both sides of the card's memory
+    fits = per_device <= HBM_BYTES
+    if cc.peak_bounds is not None:
+        lo, hi = cc.peak_bounds
+        fits = (True if args + hi <= HBM_BYTES
+                else False if args + lo > HBM_BYTES else None)
     result.update(
         ok=True, build_s=round(t_build, 1), step_s=round(t_step, 1),
         optimizer=opt_name, n_params=cfg.n_params(),
@@ -221,9 +357,22 @@ def lower_combo(arch: str, shape_name: str, multi_pod: bool,
         per_device_bytes=dict(argument=mem.argument_size_in_bytes,
                               output=mem.output_size_in_bytes,
                               temp=mem.temp_size_in_bytes),
-        hbm_bytes=HBM_BYTES, fits=bool(per_device <= HBM_BYTES),
-        flops_by_op=dict(cc.by_op))
+        hbm_bytes=HBM_BYTES, fits=fits,
+        flops_by_op=dict(cc.by_op), method=cc.method,
+        mesh_layout=_mesh_layout(multi_pod))
+    if cc.peak_bounds is not None:
+        result["per_device_bytes"].update(
+            temp_is="an estimate, extrapolated in the scan's steps; fits "
+                    "from its bounds (null: they straddle the card's "
+                    "memory)",
+            temp_lower_bound=cc.peak_bounds[0],
+            temp_upper_bound=cc.peak_bounds[1])
     return result
+
+
+def _mesh_layout(multi_pod: bool) -> str:
+    return ("('pod', 'data') as one dim of 32 ranks × 'model' 16 "
+            "(make_dryrun_mesh)" if multi_pod else "'data' 16 × 'model' 16")
 
 
 _NAMED_OP = (re.compile(r"Operator (\S+) does not have a sharding strategy"),

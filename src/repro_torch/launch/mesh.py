@@ -101,6 +101,24 @@ def make_production_mesh(*, multi_pod: bool = False,
     return make_fake_mesh((16, 16), ("data", "model"), device_type)
 
 
+def make_dryrun_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """The mesh the zoo's dry-runs lay their DTensors out on, over the same
+    fake world as ``make_production_mesh``: the 16 × 16 mesh as it is, and
+    the 2 × 16 × 16 one with its ("pod", "data") dims as ONE dim of 32
+    ranks named "data" (rank pod·256 + data·16 + model: the same ranks in
+    the same order), which the mesh's ``folded`` records.  The partition
+    rules see the production axes (``sharding.partition.axis_sizes``) and
+    refuse a layout that splits one of "pod" and "data" alone
+    (``partition.placements``); XLA runs a collective over both as one,
+    where DTensor on the 3-D mesh would run two in a row and cost each
+    op's strategies over three dims, minutes an op of a train step."""
+    if multi_pod:
+        mesh = make_fake_mesh((32, 16), ("data", "model"), device_type)
+        mesh.folded = {"data": {"pod": 2, "data": 16}}
+        return mesh
+    return make_production_mesh(device_type=device_type)
+
+
 def make_host_mesh():
     """A 1 × 1 ``("data", "model")`` mesh over a fake world of one rank."""
     return make_fake_mesh((1, 1), ("data", "model"))

@@ -30,7 +30,7 @@ from pathlib import Path
 from repro_torch.configs.base import INPUT_SHAPES, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch.dryrun import ARCHS, RESULTS_DIR
-from repro_torch.launch.mesh import PEAK_BYTES, make_production_mesh
+from repro_torch.launch.mesh import PEAK_BYTES, make_dryrun_mesh
 from repro_torch.launch.specs import decode_window_for
 from repro_torch.models.transformer import build_abstract_model
 from repro_torch.roofline.analysis import (model_flops_estimate,
@@ -59,23 +59,26 @@ def _measure(cfg, shape, mesh, overrides: dict) -> dict:
     ``DeviceMesh``), meta tensors.  ``overrides``: remat, remat_policy,
     fsdp, expert_parallel, dp_over_model, pure_dp, zero3, grad_dtype,
     moe_local and optimizer (``dryrun.step_on_mesh``)."""
-    model = build_abstract_model(
-        cfg, remat=overrides.get("remat", True),
-        remat_policy=overrides.get("remat_policy"),
-        decode_window=decode_window_for(cfg, shape),
-        moe_local_dispatch=overrides.get("moe_local", False))
-    cc, _, _ = dryrun.step_on_mesh(model, shape, mesh, overrides)
+    def build():
+        return build_abstract_model(
+            cfg, remat=overrides.get("remat", True),
+            remat_policy=overrides.get("remat_policy"),
+            decode_window=decode_window_for(cfg, shape),
+            moe_local_dispatch=overrides.get("moe_local", False))
+    cc, _, _ = dryrun.count_step(build, shape, mesh, overrides)
     colls = cc.ops
     kinds = {c.kind for c in colls}
     return {
         "flops": float(cc.flops),
         "bytes": float(cc.bytes),
-        "coll_bytes": float(sum(c.result_bytes for c in colls)),
-        "coll_s": float(sum(c.wire_seconds for c in colls)),
-        "coll_counts": {k: sum(1 for c in colls if c.kind == k)
+        "coll_bytes": float(sum(c.result_bytes * c.count for c in colls)),
+        "coll_s": float(sum(c.wire_seconds * c.count for c in colls)),
+        "coll_counts": {k: sum(c.count for c in colls if c.kind == k)
                         for k in kinds},
-        "coll_s_by_kind": {k: float(sum(c.wire_seconds for c in colls
-                                        if c.kind == k)) for k in kinds},
+        "coll_s_by_kind": {k: float(sum(c.wire_seconds * c.count
+                                        for c in colls if c.kind == k))
+                           for k in kinds},
+        "method": cc.method,
     }
 
 
@@ -104,6 +107,7 @@ def extrapolate(arch, shape_name: str, mesh, overrides: dict | None = None
         by_kind[k] = s1 + scale * (s2 - s1)
     out["coll_counts"] = counts
     out["coll_s_by_kind"] = by_kind
+    out["scan_method"] = m2["method"]
     out["measure_s"] = round(time.time() - t0, 1)
     return out
 
@@ -120,7 +124,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, force=False,
     base = json.loads(base_path.read_text()) if base_path.exists() else {}
     print(f"[roofline] {arch} × {shape_name} × {mesh_name} …", flush=True)
     try:
-        mesh = make_production_mesh(multi_pod=multi_pod)
+        mesh = make_dryrun_mesh(multi_pod=multi_pod)
         ex = extrapolate(arch, shape_name, mesh, overrides)
         cfg = get_config(arch)
         shape = INPUT_SHAPES[shape_name]
@@ -138,7 +142,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, force=False,
             "collective_s_by_kind": ex.get("coll_s_by_kind", {}),
             "model_flops": model_flops_estimate(cfg, shape),
             "measure_s": ex["measure_s"],
-            "method": "1/2-unit finite difference, eager meta DTensors",
+            "method": "1/2-unit finite difference, eager meta DTensors"
+                      + ("" if ex["scan_method"] == dryrun.DIRECT
+                         else "; " + ex["scan_method"]),
             "full_dryrun": {k: base.get(k) for k in
                             ("ok", "per_device_bytes", "optimizer", "fits")},
         }

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.sharding.partition import reshape
 
 NEG_INF = -1e30
 
@@ -37,7 +38,7 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n, hd)
+    return reshape(x, b, s, n, hd)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,13 +47,17 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, hd = q.shape
     kv = k.shape[2]
     groups = h // kv
-    q = q.reshape(b, s, kv, groups, hd)
+    q = reshape(q, b, s, kv, groups, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q.float(),
                           k.float()) / math.sqrt(hd)
     scores = scores + torch.where(mask[:, :, None], 0.0, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(b, s, h, hd).to(v.dtype)
+    # (b, k, g, s, d), then to (b, s, k, g, d): the same products, but the
+    # bmm's rows merge (g, s) as the probabilities lie, not (s, g), so they
+    # are not copied first, and a DTensor sharded on the groups keeps a
+    # plain shard (not a strided one)
+    out = torch.einsum("bkgst,btkd->bkgsd", probs, v.float())
+    return reshape(out.permute(0, 3, 1, 2, 4), b, s, h, hd).to(v.dtype)
 
 
 def attention(params, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,

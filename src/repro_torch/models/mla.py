@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig
 from repro_torch.models.common import apply_rope, dense_init, rms_norm
+from repro_torch.sharding.partition import reshape
 
 NEG_INF = -1e30
 
@@ -44,7 +45,7 @@ def _project(params, x, n_heads, m: MLAConfig, positions, theta):
     """Per-head q (b,s,h,qk), latent c_kv (b,s,r), roped k_rope (b,s,rd)."""
     b, s, _ = x.shape
     q = rms_norm(x @ params["w_dq"], params["q_norm"]) @ params["w_uq"]
-    q = q.reshape(b, s, n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = reshape(q, b, s, n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
                                  dim=-1)
     q_rope = apply_rope(q_rope, positions, theta)
@@ -58,8 +59,8 @@ def _project(params, x, n_heads, m: MLAConfig, positions, theta):
 def _expand_kv(params, c_kv, n_heads, m: MLAConfig):
     """The latent -> per-head k_nope (b,t,h,nope) and v (b,t,h,v)."""
     b, t = c_kv.shape[:2]
-    kv = (c_kv @ params["w_ukv"]).reshape(
-        b, t, n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    kv = reshape(c_kv @ params["w_ukv"], b, t, n_heads,
+                 m.qk_nope_head_dim + m.v_head_dim)
     return torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
 
 

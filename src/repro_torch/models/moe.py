@@ -23,6 +23,8 @@ import torch
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import (activation_fn, apply_ffn, dense_init,
                                        init_ffn)
+from repro_torch.sharding.partition import (fsdp_gathered, replicated_like,
+                                            reshape)
 
 
 def _expert_stack(gen: torch.Generator, n: int, in_dim: int, out_dim: int,
@@ -55,16 +57,18 @@ def init_moe(gen: torch.Generator, d_model: int, cfg: MoEConfig,
 
 def _expert_ffn(experts, buf: torch.Tensor, activation: str) -> torch.Tensor:
     """buf: (E, C, d_model) -> (E, C, d_model); batched expert matmuls."""
+    def w(name):
+        return fsdp_gathered(experts[name])
     if activation == "swiglu":
-        g = torch.nn.functional.silu(torch.bmm(buf, experts["w_gate"]))
-        h = g * torch.bmm(buf, experts["w_up"])
+        g = torch.nn.functional.silu(torch.bmm(buf, w("w_gate")))
+        h = g * torch.bmm(buf, w("w_up"))
     else:
-        h = torch.bmm(buf, experts["w_up"])
+        h = torch.bmm(buf, w("w_up"))
         # as in the JAX package: every non-gated activation but squared ReLU
         # runs gelu in the experts
         h = activation_fn("squared_relu" if activation == "squared_relu"
                           else "gelu")(h)
-    return torch.bmm(h, experts["w_down"])
+    return torch.bmm(h, w("w_down"))
 
 
 def route(params, xt: torch.Tensor, cfg: MoEConfig):
@@ -120,13 +124,16 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, activation: str,
     flat_e = expert_idx.reshape(-1)                              # (T*k,)
     order, slot, keep = dispatch_slots(flat_e, E, cap)
     st = order // k                                              # token of each sorted pair
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = replicated_like(xt, torch.zeros((E * cap + 1, d), dtype=x.dtype,
+                                          device=x.device))
     buf[slot] = xt[st]                   # the dropped pairs share the last row
-    y_buf = _expert_ffn(params["experts"], buf[:-1].reshape(E, cap, d),
-                        activation).reshape(E * cap, d)
+    y_buf = reshape(_expert_ffn(params["experts"],
+                                reshape(buf[:-1], E, cap, d), activation),
+                    E * cap, d)
     y_tok = torch.where(keep[:, None], y_buf[slot.clamp(max=E * cap - 1)],
                         torch.zeros((), dtype=x.dtype, device=x.device))
-    contrib = torch.empty_like(y_tok)
+    contrib = replicated_like(y_tok, torch.empty(
+        y_tok.shape, dtype=y_tok.dtype, device=y_tok.device))
     contrib[order] = y_tok * gate.reshape(-1)[order][:, None].to(x.dtype)
     # each token's k contributions in ascending expert order, summed one
     # after another in x.dtype (the JAX scatter-add's order)
@@ -143,4 +150,4 @@ def apply_moe(params, x: torch.Tensor, cfg: MoEConfig, activation: str,
     # load-balance auxiliary loss (Switch/DeepSeek style)
     routed = torch.zeros_like(probs).scatter_(1, expert_idx, 1.0)
     aux = E * torch.sum(routed.mean(dim=0) * probs.mean(dim=0))
-    return out.reshape(b, s, d), aux
+    return reshape(out, b, s, d), aux

@@ -33,6 +33,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.partition import laid_out_like
+
 Named = Mapping[str, torch.Tensor]
 Stacks = Optional[Mapping[str, Tuple[int, ...]]]
 
@@ -167,7 +169,9 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
             u = g / torch.sqrt(torch.clamp_min(v, eps))  # guard f32 underflow
             norm = torch.sqrt(torch.mean(u * u))
             u = u / torch.clamp_min(norm / clip_threshold, 1.0)
-            new = (p.float() - lr * u).to(p.dtype)
+            # a DTensor update laid out as its parameter, so a stack's
+            # layers part without a gather
+            new = laid_out_like((p.float() - lr * u).to(p.dtype), p)
             if dims:
                 for q, row in zip(ps, new.reshape((-1,) + ps[0].shape)):
                     q.copy_(row)

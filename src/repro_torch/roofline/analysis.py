@@ -59,6 +59,9 @@ class CollectiveOp:
     # accounting of a CommQuant format multiplies it by the format's width
     result_elems: int = 0
     ranks: Optional[Tuple[int, ...]] = None
+    # identical collectives this entry stands for (a count extrapolated
+    # in the scan length, ``launch.dryrun.count_step``)
+    count: int = 1
 
     def wire_time(self, link_bw: float) -> float:
         """Ring-model wire seconds of one rank over links of ``link_bw``
@@ -247,16 +250,16 @@ class CollectiveTrace(TorchDispatchMode):
     def counts(self) -> Dict[str, int]:
         out: Dict[str, int] = {}
         for c in self.ops:
-            out[c.kind] = out.get(c.kind, 0) + 1
+            out[c.kind] = out.get(c.kind, 0) + c.count
         return out
 
     @property
     def collective_bytes(self) -> float:
-        return float(sum(c.result_bytes for c in self.ops))
+        return float(sum(c.result_bytes * c.count for c in self.ops))
 
     @property
     def collective_s(self) -> float:
-        return float(sum(c.wire_seconds for c in self.ops))
+        return float(sum(c.wire_seconds * c.count for c in self.ops))
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +284,8 @@ class CostCounter(CollectiveTrace):
       op, views and allocations excluded: an upper bound of what a fused
       program moves, not XLA's post-fusion "bytes accessed".
     * ``peak_bytes``: the most bytes of op outputs alive at once (views
-      excluded), the counterpart of XLA's temp size.
+      excluded), the counterpart of XLA's temp size; ``written``: the bytes
+      of all of them, alive or not (what more ops can add to a peak).
     The ops DTensor runs on fake tensors to learn an output's layout are
     not counted, nor, with ``device`` (a device type), ops whose outputs
     lie on other devices: DTensor works out shard offsets with small index
@@ -297,6 +301,7 @@ class CostCounter(CollectiveTrace):
         self.device = device
         self.flops = 0
         self.bytes = 0
+        self.written = 0
         self.live = 0
         self.peak_bytes = 0
         self.by_op: Dict[str, int] = {}
@@ -341,6 +346,7 @@ class CostCounter(CollectiveTrace):
         self.bytes += sum(t.numel() * t.element_size() for t in ins + outs)
         for t in outs:
             n = t.numel() * t.element_size()
+            self.written += n
             self.live += n
             weakref.finalize(t, self._free, n)
         self.peak_bytes = max(self.peak_bytes, self.live)
@@ -412,12 +418,12 @@ def analyze(arch: str, shape: str, mesh_name: str, chips: int,
     ``CostCounter``'s), ``colls`` its collectives (a ``CollectiveTrace``'s
     ``ops``).  ``link_bw`` puts every collective on links of that rate
     instead of each group's own (``link_bandwidth``)."""
-    coll_bytes = float(sum(c.result_bytes for c in colls))
-    coll_s = float(sum(c.wire_seconds if link_bw is None
-                       else c.wire_time(link_bw) for c in colls))
+    coll_bytes = float(sum(c.result_bytes * c.count for c in colls))
+    coll_s = float(sum((c.wire_seconds if link_bw is None
+                        else c.wire_time(link_bw)) * c.count for c in colls))
     counts: Dict[str, int] = {}
     for c in colls:
-        counts[c.kind] = counts.get(c.kind, 0) + 1
+        counts[c.kind] = counts.get(c.kind, 0) + c.count
     flops = float(cost.get("flops", 0.0))
     byts = float(cost.get("bytes accessed", 0.0))
     r = Roofline(

@@ -234,3 +234,156 @@ def test_shard_params_local_shapes(sharded):
             want.append(n // div)
         assert sharded["local"][key] == want, key
     assert sharded["batch_local"] == [8, 4096]
+
+
+# ---------------------------------------------------------------------------
+# The dry-run's reshards and its flattened 2 x 16 x 16 mesh
+# ---------------------------------------------------------------------------
+
+def _standin(shape, placements, mesh_shape):
+    """What ``partition._uneven_for_view`` reads of a DTensor."""
+    mesh = types.SimpleNamespace(ndim=len(mesh_shape),
+                                 mesh=types.SimpleNamespace(shape=mesh_shape))
+    return types.SimpleNamespace(shape=shape, placements=placements,
+                                 device_mesh=mesh)
+
+
+def test_view_groups():
+    assert tp._view_groups((128, 1, 576), (128, 1, 9, 64)) == [
+        ([0], [0]), ([1], [1]), ([2], [2, 3])]
+    assert tp._view_groups((4, 8, 3, 64), (4, 8, 192)) == [
+        ([0], [0]), ([1], [1]), ([2, 3], [2])]
+    assert tp._view_groups((40, 6, 8), (240, 8)) == [([0, 1], [0]),
+                                                     ([2], [1])]
+
+
+@pytest.mark.parametrize("shape,placements,mesh,view,bad", [
+    # 9 heads of 64 over a "model" axis of 16: refused by DTensor
+    ((128, 1, 576), ("P", "S2"), (16, 16), (128, 1, 9, 64), [1]),
+    # 48 heads split 16 ways evenly: kept
+    ((128, 1, 6144), ("S0", "S2"), (16, 16), (128, 1, 48, 128), []),
+    # 48 heads regrouped into 8 KV heads of 6: 8 does not split 16 ways
+    ((2, 4, 48, 128), ("S0", "S2"), (2, 16), (2, 4, 8, 6, 128), [1]),
+    # Granite-20B's one KV head: the groups (48) take the shard
+    ((2, 4, 48, 128), ("S0", "S2"), (2, 16), (2, 4, 1, 48, 128), []),
+    # 40 experts over 16: an uneven dim merged
+    ((40, 64, 32), ("S0", "R"), (16, 16), (2560, 32), [0]),
+    # a shard on the inner dim of a merge would be strided
+    ((4, 8, 3, 64), ("R", "S3"), (1, 2), (4, 8, 192), [1]),
+    # the batch split over one dim of 32 and the heads merged back
+    ((256, 16, 40, 128), ("S0", "R"), (32, 16), (256, 16, 5120), []),
+    # the MoE's 32 x 32768 tokens over both mesh dims back to (b, s):
+    # gathered over "model" alone, the 32 rows then split 16 ways
+    ((1048576, 7168), ("S0", "S0"), (16, 16), (32, 32768, 7168), [1]),
+    # ... and over both when neither divides
+    ((4096, 7168), ("S0", "S0"), (16, 16), (2, 2048, 7168), [0, 1]),
+])
+def test_uneven_for_view(shape, placements, mesh, view, bad):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    make = {"P": Partial(), "R": Replicate()}
+    pls = tuple(make.get(p) or Shard(int(p[1:])) for p in placements)
+    assert tp._uneven_for_view(_standin(shape, pls, mesh), view) == bad
+
+
+def test_reshape_of_a_plain_tensor_is_reshape():
+    import torch
+    x = torch.arange(24.0).reshape(2, 12)
+    for shape in ((2, 3, 4), (2, -1, 2), (24,)):
+        y = tp.reshape(x, *shape)
+        assert y.shape == x.reshape(shape).shape
+        assert y.data_ptr() == x.data_ptr() and torch.equal(
+            y, x.reshape(shape))
+    assert tp.fsdp_gathered(x) is x
+    assert tp.replicated_like(x, x) is x and tp.laid_out_like(x, x) is x
+
+
+class _FoldedMesh:
+    """What ``axis_sizes`` and ``placements`` read of the dry-run's 2 × 16
+    × 16 mesh (``launch.mesh.make_dryrun_mesh(multi_pod=True)``): 32 × 16
+    ranks, ("pod", "data") folded into its "data" dim."""
+    mesh_dim_names = ("data", "model")
+    mesh = types.SimpleNamespace(shape=(32, 16))
+    folded = {"data": {"pod": 2, "data": 16}}
+
+
+def test_pod_apart():
+    """On the folded mesh a spec splits "pod" and "data" together or is
+    refused; the production axes are what the rules see."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = _FoldedMesh()
+    assert tp.axis_sizes(mesh) == MESHES["2x16x16"]
+    assert tp.placements((("pod", "data"), "model"), mesh) == [Shard(0),
+                                                               Shard(1)]
+    assert tp.placements((("pod", "data", "model"), None), mesh) == [
+        Shard(0), Shard(0)]
+    assert tp.placements((None, None), mesh) == [Replicate(), Replicate()]
+    for spec in (("data", None), (None, "pod"), (("data", "model"), None)):
+        with pytest.raises(ValueError, match="alone"):
+            tp.placements(spec, mesh)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_zoo_keeps_pod_and_data_together(arch):
+    """Every parameter spec of the default rules (fsdp, no expert
+    parallelism) on the folded mesh is the 2 × 16 × 16 mesh's, and splits
+    "pod" and "data" together, so the folded mesh lays them all out."""
+    model = build_abstract_model(get_config(arch))
+    named = list(model.named_parameters())
+    specs = tp.param_specs(model.cfg, named, _FoldedMesh())
+    assert specs == tp.param_specs(model.cfg, named, MESHES["2x16x16"])
+    for spec in specs.values():
+        tp.placements(spec, _FoldedMesh())
+
+
+@pytest.mark.parametrize("ep,apart", [(False, False), ("megatron", True)])
+def test_dryrun_refuses_pod_apart(ep, apart):
+    """The dry-run's 2 × 16 × 16 mesh holds "pod" and "data" as one dim:
+    a combination whose rules split "data" alone (Megatron-style experts)
+    is refused where its specs become placements, not laid out
+    otherwise."""
+    model = build_abstract_model(get_config("granite-moe-3b-a800m"))
+    specs = tp.param_specs(model.cfg, model.named_parameters(),
+                           _FoldedMesh(), expert_parallel=ep)
+    if apart:
+        with pytest.raises(ValueError, match="alone"):
+            for spec in specs.values():
+                tp.placements(spec, _FoldedMesh())
+    else:
+        for spec in specs.values():
+            tp.placements(spec, _FoldedMesh())
+
+
+def test_cache_vectors_replicate():
+    sizes = MESHES["16x16"]
+    assert tp.cache_spec((32768,), sizes) == (None,)
+    assert tp.cache_spec((128, 32768, 8, 128), sizes) == ("data", None,
+                                                           None, None)
+    assert tp.cache_spec((128, 32768, 16, 128), sizes) == ("data", None,
+                                                            "model", None)
+
+
+@pytest.fixture(scope="module")
+def rule_values(tmp_path_factory):
+    out = tmp_path_factory.mktemp("rule_values") / "values.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(ROOT / "tests" /
+                                               "torch_tooling_check.py"),
+                           "rule-values", str(out)], env=env, timeout=600,
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+VALUE_CASES = [f"moe-forward-{m}" for m in ("2x1", "1x2")] + [
+    f"heads-decode-{m}-step{i}" for m in ("2x1", "1x2") for i in range(3)]
+
+
+@pytest.mark.parametrize("case", VALUE_CASES)
+def test_rules_compute_the_plain_values(rule_values, case):
+    """A reduced Granite-MoE forward and three decode steps of a reduced
+    config with 3 heads, on a gloo job of 2 CPU processes with DTensor
+    parameters (the batch over 2, or the heads' "model" axis of 2), equal
+    the plain single-process run at 1e-6 of the output's scale: the rules
+    and reshards compute the right numbers, not just the right shapes."""
+    err, scale = rule_values[case]
+    assert scale > 0 and err <= 1e-6 * scale

@@ -135,6 +135,17 @@ failure ends the run with a non-zero exit code:
    in this process (the resumable line twice: the rerun resumes; the
    serial line's five baseline trainers at 5 of their 60 rounds), each
    printing the reference's lines;
+3l. the paper's result at its full horizon: the six frameworks as the
+   example's ``--seeds --baselines`` line runs them (SplitMe 30 rounds, the
+   baselines 60) over 32 seeds, one graphed campaign each on the port's own
+   draws, each framework's median, minimum and count below 0.70 printed
+   and its finals held by rank against the reference's in
+   ``tests/data/horizon_reference.json`` (two-sided Mann-Whitney p, and
+   a Fisher exact p of the counts below 0.70, each at least 0.01; no JAX
+   here: the file holds the numbers), the KL and Gram
+   launches counted in SplitMe's and at 0 in the baselines'; then the bf16
+   policy's campaign against itself from every initial weight one ulp up,
+   its spread round by round beside phase 3c's card-vs-CPU difference;
 4. the serving path, for RWKV6-1.6B and Zamba2-2.7B at full width and
    depth with weights from a seeded generator: in f32, the kernel-preset
    prefill against a ``decode_step`` replay of the same prompts and against
@@ -778,6 +789,12 @@ def campaign_phase(torch, port, sp, clients, test):
 # CMP_ACC_SAMPLES_MIXED of 1200 test samples (1 %: bf16 roundings of
 # activations and of the wire amplify the products' other summation order
 # on the card); one timed turn, and one profiled window of steady rounds.
+# The bf16 policy's gate, 1e-3, against the card's own spread (phase 3l,
+# ROADMAP C 6; H100, 700 W): every initial weight one ulp up moves the
+# card's bf16 campaign by 7.3e-6 after 1 round, 1.7e-4 after 10 and
+# 1.4e-4 after 30, while card and CPU part by 4.2e-4 to 1.06e-3 after 10
+# (other batches): the devices differ by more than the init's last bit,
+# each step rounding differently summed products to bf16 anew.
 PRECISION_VARIANTS = (
     ("kernel_bf16", dict(policy="kernel_bf16"), 1e-3),
     ("int8 wire", dict(quant="int8"), 6e-2),
@@ -999,7 +1016,10 @@ def precision_phase(torch, port, sp, clients, test, f32_ops):
 # whole DNN10 amplifies a difference in the last bit round after round (on
 # an H100 a 1-ulp change of every initial weight moved FedAvg's own params
 # by 1.0e-1 over 60 rounds, the card and the CPU parted by 2.8e-2,
-# after agreeing to 3e-7 over 3), so no two summation orders agree at
+# after agreeing to 3e-7 over 3; the JAX reference on the CPU parts from
+# itself alike: the same change moves its FedAvg params by 4.1e-7, 2.4e-6,
+# 1.3e-3, 4.1e-2 and 1.1e-1 after 1, 3, 10, 30 and 60 rounds, seeds 0-1,
+# tests/data/horizon_envelope.json), so no two summation orders agree at
 # 1e-5 over many rounds: for FedAvg the whole campaign's card vs CPU
 # difference is printed beside the card's own under that 1-ulp change.
 # FedAvg also runs one turn under BASELINE_VARIANTS: (name, options, the
@@ -2561,6 +2581,168 @@ def sharded_phase(torch, port, sp, clients, test, base):
         "sharded_launches_per_eval_round": per_e["ridge_gram"][0],
         "sharded_device_us_per_launch": per_e["ridge_gram"][1]}
     return out, graph_launches
+
+
+# the paper's result at its full horizon (phase 3l): the six frameworks as
+# examples/oran_splitfl_campaign.py --seeds --baselines runs them (SplitMe
+# 30 rounds, the baselines 60 with the example's K and E, SystemParams(
+# seed=0), DNN10, the data of phase 3b, an evaluation every 10 rounds and
+# after the last, SplitMe's at the default ridge) over HORIZON_SEEDS seeds
+# in one graphed campaign each, on the port's own draws; each framework's
+# finals held by rank against the reference's finals at the same setting
+# (HORIZON_REFERENCE, written by tests/torch_horizon_check.py on the CPU):
+# a two-sided Mann-Whitney p of at least HORIZON_MIN_P, and the counts of
+# seeds below HORIZON_LOW_ACC alike (a two-sided Fisher exact p of at least
+# HORIZON_MIN_P: ranks alone missed Step 4 collapsing 9 of 32 seeds, p
+# 0.40, ROADMAP C 9).  The card's graphed campaigns are deterministic, so
+# the gates do not flip from run to run.
+# Then ROADMAP C 6: SplitMe under the bf16 policy (phase 3c's campaign, 30
+# rounds, 4 seeds) once as it is and once from every initial weight moved
+# up by one f32 ulp, checkpointed after every round: the card's own
+# spread, round by round, printed beside phase 3c's card-vs-CPU difference
+HORIZON_SEEDS = tuple(range(32))
+HORIZON_MIN_P = 0.01
+HORIZON_LOW_ACC = 0.70
+HORIZON_REFERENCE = ROOT / "tests" / "data" / "horizon_reference.json"
+HORIZON_FRAMEWORKS = (("splitme", {}),) + BASELINES
+HORIZON_BASELINE_ROUNDS = 60
+
+
+def mann_whitney_p(a, b) -> float:
+    from scipy.stats import mannwhitneyu
+    return float(mannwhitneyu(a, b, alternative="two-sided").pvalue)
+
+
+def fisher_low_p(a, b) -> float:
+    """Two-sided Fisher exact p of the counts of a's and b's values below
+    HORIZON_LOW_ACC."""
+    from scipy.stats import fisher_exact
+    lo_a, lo_b = sum(v < HORIZON_LOW_ACC for v in a), sum(
+        v < HORIZON_LOW_ACC for v in b)
+    return float(fisher_exact([[lo_a, len(a) - lo_a], [lo_b, len(b) - lo_b]],
+                              alternative="two-sided").pvalue)
+
+
+def checkpointed_params(port, ckpt_dir):
+    """{round cursor: {leaf key: array}} of the params of every checkpoint
+    of a campaign (``ckpt-r{cursor:06d}``)."""
+    out = {}
+    for path in sorted(Path(ckpt_dir).glob("ckpt-r*.npz")):
+        if path.stem.endswith("-buffers"):
+            continue
+        arrays = port.ckpt_io.load_arrays(path.with_suffix(""))
+        out[int(path.stem[len("ckpt-r"):])] = {
+            k: v for k, v in arrays.items() if k.startswith("params/")}
+    return out
+
+
+def horizon_phase(torch, port, sp, clients, test, prec, smi):
+    """Phase 3l: the six frameworks' seed distributions against the
+    reference's, and the bf16 campaign's own one-ulp spread (C 6); returns
+    the numbers and the KL and Gram launches of SplitMe's campaign."""
+    import shutil
+    import numpy as np
+    camp, kl_ops, rg_ops = port.campaign, port.kl_ops, port.rg_ops
+    check(HORIZON_REFERENCE.is_file(), f"no {HORIZON_REFERENCE}")
+    ref = json.loads(HORIZON_REFERENCE.read_text())
+    setting = ref["setting"]
+    check(setting["seeds"] == list(HORIZON_SEEDS) and setting["M"] == sp.M
+          and setting["samples_per_client"] == 96
+          and setting["n_per_class"] == 2000,
+          f"{HORIZON_REFERENCE.name} was made at another setting: {setting}")
+    out = {"frameworks": {}}
+    launches = {}
+    for name, kw in HORIZON_FRAMEWORKS:
+        rounds = (CAMPAIGN_ROUNDS if name == "splitme"
+                  else HORIZON_BASELINE_ROUNDS)
+        check(setting["rounds"][name] == rounds
+              and setting["hyper"][name] == kw,
+              f"{name}: the reference's file has another setting")
+        kl_ops.launches = kl_ops.launches_bwd = rg_ops.launches = 0
+        camp.HOST_TRANSFERS = 0
+        res, wall = timed(torch, lambda: camp.run_campaign(
+            name, port.DNN10, port.SystemParams(seed=0), clients,
+            rounds=rounds, seeds=HORIZON_SEEDS, test_data=test,
+            eval_every=CAMPAIGN_EVAL_EVERY, device="cuda",
+            strict_transfers=True, **kw))
+        counts = {"kl_mutual": kl_ops.launches,
+                  "kl_mutual (backward)": kl_ops.launches_bwd,
+                  "ridge_gram": rg_ops.launches}
+        check(camp.HOST_TRANSFERS == 1,
+              f"3l {name}: {camp.HOST_TRANSFERS} host transfers")
+        check(bool(np.isfinite(res.losses).all()),
+              f"3l {name}: non-finite loss")
+        if name == "splitme":
+            check(all(counts.values()),
+                  f"3l splitme: a kernel of its path never launched {counts}")
+            launches = counts
+        else:
+            check(not any(counts.values()),
+                  f"3l {name}: launched a kernel its path does not run "
+                  f"{counts}")
+        acc = np.asarray(res.accuracy, np.float64)
+        want = np.asarray(ref["finals"][name], np.float64)
+        check(acc.shape == want.shape == (len(HORIZON_SEEDS),)
+              and bool(np.isfinite(acc).all()),
+              f"3l {name}: finals {acc.shape} against {want.shape}")
+        p, p_low = mann_whitney_p(acc, want), fisher_low_p(acc, want)
+        row = out["frameworks"][name] = {
+            "median": float(np.median(acc)), "min": float(acc.min()),
+            "below": int((acc < HORIZON_LOW_ACC).sum()),
+            "reference_median": float(np.median(want)),
+            "reference_min": float(want.min()),
+            "reference_below": int((want < HORIZON_LOW_ACC).sum()),
+            "mann_whitney_p": p, "fisher_low_p": p_low, "call_ms": wall,
+            "whole_ms": float(sum(res.round_ms)),
+            "finals": [round(float(v), 6) for v in acc], "launches": counts}
+        print(f"3l {name}: {len(HORIZON_SEEDS)} seeds x {rounds} rounds, "
+              f"one graphed campaign {wall:.1f} ms: median "
+              f"{row['median']:.4f} (reference {row['reference_median']:.4f})"
+              f", min {row['min']:.4f} ({row['reference_min']:.4f}), below "
+              f"{HORIZON_LOW_ACC} {row['below']} ({row['reference_below']}, "
+              f"Fisher p {p_low:.4g}); Mann-Whitney p {p:.4g} (gates >= "
+              f"{HORIZON_MIN_P}) | {smi}")
+        check(p >= HORIZON_MIN_P and p_low >= HORIZON_MIN_P,
+              f"3l {name}: the card's finals differ from the reference's "
+              f"(Mann-Whitney p {p:.4g}, Fisher p {p_low:.4g}, gate "
+              f"{HORIZON_MIN_P})")
+        del res
+        torch.cuda.empty_cache()
+    # C 6: the bf16 campaign's own spread on the card under one ulp
+    base = TOOLING_DIR.parent / "chip_smoke_c6"
+    shutil.rmtree(base, ignore_errors=True)
+    init = initial_params(torch, port, "splitme", CAMPAIGN_SEEDS)
+    runs = {}
+    for label, params in (("as is", init),
+                          ("one ulp up", [one_ulp_up(torch, q)
+                                          for q in init])):
+        d = base / label.replace(" ", "_")
+        runs[label] = (camp.run_campaign(
+            "splitme", port.DNN10, sp, clients, rounds=CAMPAIGN_ROUNDS,
+            seeds=CAMPAIGN_SEEDS, test_data=test,
+            eval_every=CAMPAIGN_EVAL_EVERY, eval_gamma=CMP_EVAL_GAMMA,
+            device="cuda", policy="kernel_bf16", params=params,
+            checkpoint_every=1, checkpoint_dir=d),
+            checkpointed_params(port, d))
+    (a, pa), (b, pb) = runs["as is"], runs["one ulp up"]
+    check(sorted(pa) == sorted(pb) == list(range(1, CAMPAIGN_ROUNDS + 1)),
+          f"C 6: checkpoints after rounds {sorted(pa)}")
+    spread = [max(float(np.abs(pa[r][k] - pb[r][k]).max()) for k in pa[r])
+              for r in range(1, CAMPAIGN_ROUNDS + 1)]
+    loss_spread = np.abs(a.losses - b.losses).max(axis=(0, 2)).tolist()
+    card_cpu = prec["variants"]["kernel_bf16"]["card_cpu_param_diff"]
+    out["c6"] = {"param_spread": spread, "loss_spread": loss_spread,
+                 "card_cpu_param_diff_3c": card_cpu,
+                 "card_cpu_rounds_3c": PRECISION_CMP_ROUNDS}
+    print(f"3l C 6, the bf16 policy's campaign against itself from every "
+          f"initial weight one ulp up ({len(CAMPAIGN_SEEDS)} seeds), max "
+          f"param diff after rounds 1..{CAMPAIGN_ROUNDS}: "
+          f"{[float(f'{v:.3e}') for v in spread]}; phase 3c's card vs CPU "
+          f"after {PRECISION_CMP_ROUNDS} rounds {card_cpu:.3e} (gate 1e-3), "
+          f"the card's own spread then {spread[PRECISION_CMP_ROUNDS - 1]:.3e}"
+          f" | {smi}")
+    shutil.rmtree(base, ignore_errors=True)
+    return out, launches
 
 
 # the README's four command lines (README.md, Quickstart) through the port's
@@ -4910,6 +5092,12 @@ def main() -> int:
     phase("3j. the README's command lines through the port's example")
     readme = readme_phase(port)
 
+    # -- 3l. the paper's result at its full horizon ---------------------------
+    phase("3l. six frameworks over 32 seeds against the reference; C 6")
+    horizon, horizon_launches = horizon_phase(torch, port, sp, clients,
+                                              test, prec, smi)
+    torch.cuda.empty_cache()
+
     # -- 4. serving path -----------------------------------------------------
     phase("4. serving path")
     for arch in ZOO_ARCHS:
@@ -4971,7 +5159,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/kl_mutual/kl_mutual.py:38",
          "launches": kl_n, **kl["fwd"], **graphed["kl_mutual"],
          **pop_launches["kl_mutual"], **sweep_launches["kl_mutual"],
-         **sharded_launches["kl_mutual"]},
+         **sharded_launches["kl_mutual"],
+         "horizon_launches": horizon_launches["kl_mutual"]},
         # the closed-form backward beside the Pallas kernel (plain jnp in
         # the JAX package), one kernel here
         {"name": "kl_mutual (backward)", "route": "cuda",
@@ -4981,7 +5170,8 @@ def main() -> int:
          **graphed["kl_mutual (backward)"],
          **pop_launches["kl_mutual (backward)"],
          **sweep_launches["kl_mutual (backward)"],
-         **sharded_launches["kl_mutual (backward)"]},
+         **sharded_launches["kl_mutual (backward)"],
+         "horizon_launches": horizon_launches["kl_mutual (backward)"]},
         {"name": "ridge_gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ridge_gram.cu",
          "replaces": "src/repro/kernels/ridge_gram/ridge_gram.py:40",
@@ -4993,7 +5183,8 @@ def main() -> int:
          "bound_fp32_ms": g_bound_fp32, "max_rel_err": gram_rel,
          "shape": "16 Grams of one evaluation, 8 gram_pair calls",
          **graphed["ridge_gram"], **pop_launches["ridge_gram"],
-         **sweep_launches["ridge_gram"], **sharded_launches["ridge_gram"]},
+         **sweep_launches["ridge_gram"], **sharded_launches["ridge_gram"],
+         "horizon_launches": horizon_launches["ridge_gram"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:61", **wkv},
@@ -5030,6 +5221,8 @@ def main() -> int:
     print("config sweep (phase 3i): " + json.dumps(sweep))
     print("sharded campaign (phase 3k): " + json.dumps(sharded))
     print("README command lines (phase 3j), seconds: " + json.dumps(readme))
+    print(f"the paper's result over {len(HORIZON_SEEDS)} seeds and C 6 "
+          f"(phase 3l), {smi}: " + json.dumps(horizon))
     print("decoder and enc-dec families served (phase 4): "
           + json.dumps(decoders))
     print(f"zoo training (phase 6), {smi}: " + json.dumps(training))

@@ -973,19 +973,23 @@ def shard_layout(tree, n_shards: int, lead: int = 0):
         tree)
 
 
-# offset of the int8 uniforms' generator seed from a run's seed (the
-# reference's quantization salt), so the batch and uniform streams differ
-UNIFORM_SEED_OFFSET = 0x5157 << 32
+# the reference's quantization salt, mixed into the int8 uniforms' seed
+UNIFORM_SALT = 0x5157
 
 
 def uniform_generator(seed: int, shard: int = 0) -> torch.Generator:
-    """The CPU generator of a run's int8 uniforms, seeded from ``seed``
-    apart from the run's batch-index generator; client shard ``shard`` of
-    a sharded run draws its own stream (shard 0's is the single device's,
-    as the reference's ``fold_in(qkey, 0)`` makes a 1-shard mesh the
-    single-device round)."""
-    return torch.Generator().manual_seed(UNIFORM_SEED_OFFSET + int(seed)
-                                         + (int(shard) << 48))
+    """The CPU generator of a run's int8 uniforms: a stream of (``seed``,
+    ``shard``) apart from the run's batch-index generator (seeded with
+    ``seed`` itself) and from every other shard's, as the reference's
+    ``fold_in(fold_in(key, salt), shard)``; shard 0's is the single
+    device's, so a 1-shard mesh is the single-device round.  Torch's CPU
+    generator keeps only the low 32 bits of its seed, so (salt, seed,
+    shard) are mixed into 32 bits by ``numpy.random.SeedSequence``
+    (adding them above bit 32 gave every shard, and the batch indices,
+    the same stream)."""
+    word = np.random.SeedSequence(
+        [UNIFORM_SALT, int(seed), int(shard)]).generate_state(1, np.uint32)
+    return torch.Generator().manual_seed(int(word[0]))
 
 
 def quant_uniforms(spec: FrameworkSpec, params: ParamsTuple,

@@ -8,10 +8,12 @@ For each layer l of the server-side model s(·):
 where O_l is the input of layer l (starting from the smashed data c(X_m)) and
 Z_l is the matching-depth activation of the trained inverse model s⁻¹ fed
 with the labels.  The Gram products go through the kernel dispatch layer
-(the CUDA ridge_gram kernel on the card); the ridge solve is an f32 LU
-solve (``torch.linalg.solve_ex``).  Smashed data in bf16 (the mixed
-policy) are widened to f32 where they meet f32: in the Grams and in the
-first layer's ``o @ w + b`` (bf16 × f32 promotes to f32 in the reference).
+(the CUDA ridge_gram kernel on the card); the ridge solve
+(``ridge_solve``) forms A0 + γI in f32, as the reference does, and solves
+it by LU in f64 (``torch.linalg.solve_ex``), rounding W to f32.  Smashed
+data in bf16 (the mixed policy) are widened to f32 where they meet f32:
+in the Grams and in the first layer's ``o @ w + b`` (bf16 × f32 promotes
+to f32 in the reference).
 
 On a client mesh (``mesh=``) each rank holds its slab of the samples: it
 makes its Gram partials with the same kernel, and per layer ONE all-reduce
@@ -35,6 +37,27 @@ def _gram(o: torch.Tensor, z: torch.Tensor, policy: PolicyLike = None):
     """Returns (OᵀO, OᵀZ) in float32 via the kernel dispatch layer (one
     kernel launch for both on the card)."""
     return dispatch.gram_pair(o, z, policy=policy)
+
+
+def ridge_solve(a0: torch.Tensor, a1: torch.Tensor,
+                gamma: float) -> torch.Tensor:
+    """W = (A0 + γI)⁻¹ A1 in f32: the system formed in f32, as the
+    reference forms it, and solved by LU with partial pivoting in f64.
+
+    At the default γ = 1e-3 the f32 system of a trained DNN10 is nearly
+    singular (dead units, and γ below the rounding of the large
+    diagonal), and whether an f32 LU meets an exactly zero pivot, and
+    returns inf / NaN weights, depends on the library's elimination
+    order: on the same trained params MKL's f32 LU did on 2 (8 threads) to
+    9 (1 thread) of 32 seeds, collapsing the evaluated accuracy to chance,
+    where the reference's LAPACK LU (``jnp.linalg.solve``) did on none
+    (tests/torch_horizon_check.py).  The f64 elimination of the same f32
+    system meets no such pivot and agrees with the reference's accuracy on
+    every seed; like ``jnp.linalg.solve`` it raises nothing (and on the
+    card syncs nothing): an exactly singular system still gives inf / NaN."""
+    eye = torch.eye(a0.shape[0], dtype=a0.dtype, device=a0.device)
+    a = (a0 + gamma * eye).double()
+    return torch.linalg.solve_ex(a, a1.double()).result.float()
 
 
 def _augment(o: torch.Tensor) -> torch.Tensor:
@@ -92,10 +115,7 @@ def invert_inverse_models(inverse_params: Sequence[List[dict]],
             d = grams[0][0].shape[1]
             grams = [(b[:, :d], b[:, d:]) for b in both]
         for s, (a0, a1) in enumerate(grams):
-            eye = torch.eye(a0.shape[0], dtype=a0.dtype, device=a0.device)
-            # like jnp.linalg.solve: an exactly singular pivot gives inf/nan
-            # rather than an exception (and on the card, no host sync)
-            w_aug = torch.linalg.solve_ex(a0 + gamma * eye, a1).result
+            w_aug = ridge_solve(a0, a1, gamma)
             w, b = w_aug[:-1], w_aug[-1]
             server[s].append({"w": w, "b": b})
             o[s] = o[s].float() @ w + b

@@ -43,7 +43,7 @@ from repro_torch.core.engine import RoundGuards
 from repro_torch.data import oran
 from repro_torch.kernels.dispatch import BF16, KernelPolicy
 from repro_torch.launch import campaign
-from torch_parity import (CampaignIndexReplay, CampaignIndexTable,
+from torch_parity import (CampaignIndexDraws, CampaignIndexReplay,
                           CampaignUniformReplay, jax_initial_params,
                           one_torch_thread)
 
@@ -191,7 +191,8 @@ def test_sweep_matches_its_per_variant_campaigns(data, fw):
     bounds: losses 1e-5, accuracy 1e-6, comm_bits exactly, params 2e-3."""
     cd, test = data
     init = jax_initial_params(fw, JCFG, SEEDS)
-    table = CampaignIndexTable(SEEDS, ROUNDS, M, B, N,
+    table = CampaignIndexDraws(SEEDS, ROUNDS, M, B, N,
+                               e_max=SystemParams().E_max,
                                n_phases=_n_phases(fw))
     runs = [campaign.run_config_sweep(
         fw, CFG, _variants(SystemParams), cd, test_data=test, device="cpu",

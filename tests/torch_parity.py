@@ -25,8 +25,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def _round_indices(key, n_phases: int, M: int, e_max: int, B: int, n: int):
+def _draw_round(key, n_phases: int, M: int, e_max: int, B: int, n: int):
     keys = jax.random.split(key, n_phases * M)
 
     def per_client(k):
@@ -36,6 +35,9 @@ def _round_indices(key, n_phases: int, M: int, e_max: int, B: int, n: int):
         return jax.lax.scan(step, k, None, length=e_max)[1]
 
     return jax.vmap(per_client)(keys)
+
+
+_round_indices = jax.jit(_draw_round, static_argnums=(1, 2, 3, 4, 5))
 
 
 def replay_round_indices(key, n_phases: int, M: int, e_max: int, B: int,
@@ -112,29 +114,41 @@ class CampaignIndexReplay:
             sub, *self.shape, e_max, self.B, self.n))
 
 
-class CampaignIndexTable:
-    """``index_source`` with the draws of ``CampaignIndexReplay``, callable
-    in any order and again (the round keys are split once, up front): a
-    config sweep and its per-variant campaigns, which draw the same rounds
-    at different E buckets, read one table.  An E-bucket draw is the
-    prefix of a longer one, as the reference's step keys are split one
-    after another."""
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _campaign_indices(seed_keys, rounds: int, n_phases: int, M: int,
+                      e_max: int, B: int, n: int):
+    def per_seed(key):
+        def next_round(k, _):
+            k, sub = jax.random.split(k)
+            return k, sub
+        subs = jax.lax.scan(next_round, key, None, length=rounds)[1]
+        return jax.vmap(lambda sub: _draw_round(
+            sub, n_phases, M, e_max, B, n))(subs)
+
+    return jax.vmap(per_seed)(seed_keys)
+
+
+class CampaignIndexDraws:
+    """``index_source`` with the draws of ``CampaignIndexReplay`` made in one
+    compiled call a campaign: every seed's round keys split up front
+    (``PRNGKey(seed)``, ``key, sub = split(key)`` a round) and every round
+    drawn at ``e_max`` steps, the largest E bucket; a round's draw at its
+    own bucket is the prefix, as the reference's step keys are split one
+    after another.  Callable in any order and again: a config sweep and its
+    per-variant campaigns, which draw the same rounds at different E
+    buckets, read one table."""
 
     def __init__(self, seeds, rounds: int, M: int, B: int, n: int,
-                 n_phases: int = 2):
-        self.subs = []
-        for s in seeds:
-            key, subs = jax.random.PRNGKey(s), []
-            for _ in range(rounds):
-                key, sub = jax.random.split(key)
-                subs.append(sub)
-            self.subs.append(subs)
-        self.shape = (n_phases, M)
-        self.B, self.n = B, n
+                 e_max: int, n_phases: int = 2):
+        keys = jax.numpy.stack([jax.random.PRNGKey(s) for s in seeds])
+        self.e_max = e_max
+        self.idx = np.asarray(_campaign_indices(
+            keys, rounds, n_phases, M, e_max, B, n), np.int64).reshape(
+            len(seeds), rounds, n_phases, M, e_max, B)
 
     def __call__(self, i: int, round_idx: int, e_max: int) -> torch.Tensor:
-        return torch.from_numpy(replay_round_indices(
-            self.subs[i][round_idx], *self.shape, e_max, self.B, self.n))
+        assert e_max <= self.e_max, (e_max, self.e_max)
+        return torch.from_numpy(self.idx[i, round_idx, :, :, :e_max])
 
 
 # the reference's quantization salt (``repro.core.engine._QSALT``)

@@ -6,6 +6,7 @@ processes (or a 2 x 2 ``pod`` x ``data`` job), on the same draws.
     python tests/torch_sharded_check.py jax OUT PART
         (with XLA_FLAGS=--xla_force_host_platform_device_count=4)
     python tests/torch_sharded_check.py port OUT IN DATA [POD]
+    python tests/torch_sharded_check.py wire OUT.json
 
 Both read the same inputs: the JAX run makes them itself
 (``shared_inputs``), the port's reads them from ``IN``, a pickle that also
@@ -14,7 +15,20 @@ params, replayed batch indices and per-shard int8 uniforms).  Each run
 writes its results as a pickle of numpy trees, the port's one a rank
 (``OUT.<rank>``).  tests/test_torch_sharded.py starts the runs and
 compares them.
+
+``wire`` measures how far the wires summed on 4 shards part from one
+device over the paper's 30 rounds, in each package on its own draws: the
+campaign of ``scripts/chip_sharded_check_torch.py`` (SplitMe, DNN10,
+``SystemParams(M=100)``, ``oran.generate(n_per_class=4000, seed=0)``, 96
+samples a client, seeds 0-3, Step 4 every 10 rounds at γ 10) on the bf16
+and the int8 wire, on JAX's 4-device CPU mesh against its single device
+(``wire-jax``, under ``--xla_force_host_platform_device_count=4``) and on
+the port's gloo job of 4 CPU ranks against one CPU device (``wire-port``),
+each checkpointed after every round.  It writes, round by round, the
+largest |Δ params| and |Δ loss| of 4 shards against 1 per wire and
+package to OUT.json.
 """
+import json
 import os
 import pickle
 import sys
@@ -434,6 +448,136 @@ def _port_extras(rank, mesh, inp, cfg, cd, test, tmp, out):
     }
 
 
+# ---------------------------------------------------------------------------
+# the wires on 4 shards against one device over 30 rounds (ROADMAP C 7)
+# ---------------------------------------------------------------------------
+
+WIRE = dict(M=100, N_PER_CLASS=4000, SEEDS=(0, 1, 2, 3), ROUNDS=30,
+            EVAL_EVERY=10, GAMMA=10.0)
+WIRE_QUANTS = ("bf16", "int8")
+
+
+def wire_data():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    from repro_torch.data import oran
+    X, y = oran.generate(n_per_class=WIRE["N_PER_CLASS"], seed=0)
+    (Xtr, ytr), test = oran.train_test_split(X, y)
+    return oran.partition_non_iid(Xtr, ytr, WIRE["M"], samples_per_client=96,
+                                  seed=0), test
+
+
+def wire_curves(sharded_dir, single_dir, sharded_loss, single_loss) -> dict:
+    """Round by round: the largest |Δ params| (from the checkpoints after
+    every round) and |Δ loss| of the sharded campaign against the single
+    device's."""
+    from torch_horizon_check import checkpoint_params, max_param_diff
+    a, b = checkpoint_params(sharded_dir), checkpoint_params(single_dir)
+    R = WIRE["ROUNDS"]
+    assert sorted(a) == sorted(b) == list(range(1, R + 1))
+    dl = np.abs(np.asarray(sharded_loss) - np.asarray(single_loss))
+    return {"params": [max_param_diff(a[r], b[r]) for r in range(1, R + 1)],
+            "loss": [float(dl[:, r].max()) for r in range(R)]}
+
+
+def _wire_kw(tmp, name):
+    return dict(rounds=WIRE["ROUNDS"], seeds=WIRE["SEEDS"],
+                eval_every=WIRE["EVAL_EVERY"], eval_gamma=WIRE["GAMMA"],
+                checkpoint_every=1, checkpoint_dir=os.path.join(tmp, name))
+
+
+def run_wire_jax(out_path) -> None:
+    import jax
+    from repro.configs.splitme_dnn import DNN10 as JDNN10
+    from repro.core.cost import SystemParams as JSystemParams
+    from repro.launch import campaign as jcampaign
+    from repro.launch.mesh import make_cpu_mesh
+    assert jax.device_count() >= N_SHARDS, jax.device_count()
+    cd, test = wire_data()
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(out_path)))
+    out = {}
+    for quant in WIRE_QUANTS:
+        runs = {}
+        for name, mesh in (("sharded", make_cpu_mesh(N_SHARDS)),
+                           ("single", None)):
+            runs[name] = jcampaign.run_campaign(
+                "splitme", JDNN10, JSystemParams(M=WIRE["M"], seed=0), cd,
+                test_data=test, quant=quant, mesh=mesh,
+                **_wire_kw(tmp, f"{quant}-{name}"))
+        out[quant] = wire_curves(
+            os.path.join(tmp, f"{quant}-sharded"),
+            os.path.join(tmp, f"{quant}-single"),
+            runs["sharded"].losses, runs["single"].losses)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def wire_port_rank(rank, world, pg_file, out_path, tmp) -> None:
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{pg_file}",
+                            world_size=world, rank=rank)
+    from repro_torch.configs.splitme_dnn import DNN10
+    from repro_torch.core.cost import SystemParams
+    from repro_torch.launch import campaign, mesh as meshes
+    mesh = meshes.make_client_mesh(world, device_type="cpu")
+    cd, test = wire_data()
+    out = {}
+    for quant in WIRE_QUANTS:
+        run = lambda name, **more: campaign.run_campaign(  # noqa: E731
+            "splitme", DNN10, SystemParams(M=WIRE["M"], seed=0), cd,
+            test_data=test, quant=quant, device="cpu",
+            **_wire_kw(tmp, f"{quant}-{name}"), **more)
+        sharded = run("sharded", mesh=mesh)
+        if rank == 0:
+            single = run("single")
+            out[quant] = wire_curves(
+                os.path.join(tmp, f"{quant}-sharded"),
+                os.path.join(tmp, f"{quant}-single"),
+                sharded.losses, single.losses)
+        dist.barrier()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_wire(out_path) -> None:
+    """Both packages' runs side by side, each a subprocess; their curves
+    into OUT.json."""
+    import subprocess
+    here = os.path.abspath(__file__)
+    root = os.path.dirname(os.path.dirname(here))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(root, "src"), os.path.dirname(here)]))
+    jax_env = dict(env, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    parts = {"jax": out_path + ".jax", "port": out_path + ".port"}
+    procs = [subprocess.Popen([sys.executable, here, f"wire-{k}", v],
+                              env=jax_env if k == "jax" else env)
+             for k, v in parts.items()]
+    for p in procs:
+        if p.wait() != 0:
+            raise SystemExit(f"{p.args[2]} exited {p.returncode}")
+    out = {"setting": {k: list(v) if isinstance(v, tuple) else v
+                       for k, v in WIRE.items()}}
+    for k, v in parts.items():
+        with open(v) as f:
+            out[k] = json.load(f)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    shown = [r for r in (1, 3, 10, 20, 30) if r <= WIRE["ROUNDS"]]
+    for quant in WIRE_QUANTS:
+        for k in parts:
+            c = out[k][quant]
+            print(f"{quant} {k}: 4 shards vs 1 after rounds {shown}: params "
+                  + ", ".join(f"{c['params'][r - 1]:.3e}" for r in shown)
+                  + "; losses "
+                  + ", ".join(f"{c['loss'][r - 1]:.3e}" for r in shown))
+
+
 def run_port(in_path, out_path, shape) -> None:
     import torch.multiprocessing as mp
     world = int(np.prod(shape))
@@ -445,7 +589,17 @@ def run_port(in_path, out_path, shape) -> None:
 if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     which, out_path = sys.argv[1:3]
-    if which == "jax":
+    if which == "wire":
+        run_wire(out_path)
+    elif which == "wire-jax":
+        run_wire_jax(out_path)
+    elif which == "wire-port":
+        import torch.multiprocessing as mp
+        tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(
+            out_path)))
+        mp.spawn(wire_port_rank, args=(N_SHARDS, os.path.join(tmp, "pg"),
+                                       out_path, tmp), nprocs=N_SHARDS)
+    elif which == "jax":
         with open(out_path, "wb") as f:
             pickle.dump(run_jax(shared_inputs(), int(sys.argv[3])), f)
     else:
